@@ -1,0 +1,553 @@
+"""SHAMap: 16-ary Merkle-radix tree over 256-bit keys.
+
+Hash compatible with the reference (src/ripple_app/shamap/
+SHAMapTreeNode.cpp:253-295 updateHash; SHAMapNodeID.cpp:147-176
+selectBranch):
+
+- inner node hash  = SHA512half(HP_INNER_NODE || 16 child hashes);
+  an inner with no branches hashes to zero,
+- tx leaf (no md)  = SHA512half(HP_TXN_ID || data)          (== the tx ID),
+- tx leaf (w/ md)  = SHA512half(HP_TX_NODE || data || tag),
+- state leaf       = SHA512half(HP_LEAF_NODE || data || tag).
+
+A persistent tree (every mutation returns a new root sharing unchanged
+subtrees) with deferred, level-synchronous hashing: mutations never
+hash; ``compute_hashes`` groups the unhashed nodes by depth and hands
+them to a batch hasher, or the whole tree to a hasher's ``hash_tree``
+(the device-resident seal, crypto.backend.CudaHasher). This is the
+in-memory part of the JAX package's state/shamap.py; out-of-core
+faulting, the node store and the wire formats are not part of this
+package.
+"""
+
+from __future__ import annotations
+
+from enum import IntEnum
+from typing import Callable, Iterator, Optional
+
+from ..utils.hashes import (
+    HP_INNER_NODE,
+    HP_LEAF_NODE,
+    HP_TXN_ID,
+    HP_TX_NODE,
+    prefix_hash,
+)
+
+__all__ = [
+    "TNType", "SHAMapItem", "SHAMap", "Leaf", "Inner", "encode_nodes",
+    "compute_hashes",
+]
+
+
+ZERO256 = b"\x00" * 32
+
+
+class TNType(IntEnum):
+    """Node types (reference: SHAMapTreeNode.h:47-53). The numeric values
+    double as the wire-format trailer byte for leaves (addRaw snfWIRE)."""
+
+    INNER = 1
+    TX_NM = 2  # transaction, no metadata (tx map of an open ledger)
+    TX_MD = 3  # transaction + metadata (tx map of a closed ledger)
+    ACCOUNT_STATE = 4  # state map leaf
+
+
+_LEAF_PREFIX = {
+    TNType.TX_NM: HP_TXN_ID,
+    TNType.TX_MD: HP_TX_NODE,
+    TNType.ACCOUNT_STATE: HP_LEAF_NODE,
+}
+
+
+class SHAMapItem:
+    """A keyed blob: 32-byte tag (index) + serialized payload
+    (reference: src/ripple_app/shamap/SHAMapItem.h)."""
+
+    __slots__ = ("tag", "data")
+
+    def __init__(self, tag: bytes, data: bytes):
+        if len(tag) != 32:
+            raise ValueError(f"SHAMapItem tag must be 32 bytes, got {len(tag)}")
+        self.tag = tag
+        self.data = data
+
+    def __eq__(self, other):
+        return (
+            isinstance(other, SHAMapItem)
+            and self.tag == other.tag
+            and self.data == other.data
+        )
+
+    def __repr__(self):
+        return f"SHAMapItem({self.tag.hex()[:16]}…, {len(self.data)}B)"
+
+
+class Leaf:
+    """Immutable leaf node. `_hash` is a lazily-filled, write-once cache —
+    the only mutable slot, so sharing across snapshots stays safe."""
+
+    __slots__ = ("item", "type", "_hash")
+
+    def __init__(self, item: SHAMapItem, type: TNType, hash: Optional[bytes] = None):
+        self.item = item
+        self.type = type
+        self._hash = hash
+
+    def hash_payload(self) -> tuple[int, bytes]:
+        """(prefix, payload) whose prefixed SHA-512-half is this node's hash
+        (reference: SHAMapTreeNode.cpp updateHash leaf arms)."""
+        prefix = _LEAF_PREFIX[self.type]
+        if self.type == TNType.TX_NM:
+            return prefix, self.item.data
+        return prefix, self.item.data + self.item.tag
+
+
+class Inner:
+    """Immutable inner node: 16 child slots."""
+
+    __slots__ = ("children", "_hash")
+
+    def __init__(self, children: tuple, hash: Optional[bytes] = None):
+        self.children = children  # tuple of 16 × (Leaf | Inner | None)
+        self._hash = hash
+
+    def is_empty(self) -> bool:
+        return all(c is None for c in self.children)
+
+    def branch_count(self) -> int:
+        return sum(1 for c in self.children if c is not None)
+
+
+EMPTY_INNER = Inner((None,) * 16, hash=ZERO256)
+
+
+def _nibble(key: bytes, depth: int) -> int:
+    """Branch index at `depth` (reference: SHAMapNodeID::selectBranch —
+    high nibble at even depths, low nibble at odd)."""
+    b = key[depth // 2]
+    return b & 0xF if depth & 1 else b >> 4
+
+
+# --------------------------------------------------------------------------
+# persistent-tree primitives (each returns a NEW node; inputs untouched)
+
+
+def _set_item(node, key: bytes, leaf: Leaf, depth: int):
+    if node is None:
+        return leaf
+    if isinstance(node, Leaf):
+        if node.item.tag == key:
+            return leaf  # replace
+        # leaf collision: grow inner nodes until the two keys diverge
+        other = node
+        branch_new = _nibble(key, depth)
+        branch_old = _nibble(other.item.tag, depth)
+        children = [None] * 16
+        if branch_new == branch_old:
+            children[branch_new] = _set_item(other, key, leaf, depth + 1)
+        else:
+            children[branch_new] = leaf
+            children[branch_old] = other
+        return Inner(tuple(children))
+    # inner
+    b = _nibble(key, depth)
+    child = node.children[b]
+    new_child = _set_item(child, key, leaf, depth + 1)
+    children = list(node.children)
+    children[b] = new_child
+    return Inner(tuple(children))
+
+
+def _del_item(node, key: bytes, depth: int):
+    """Returns the replacement node (None if subtree empty), or raises
+    KeyError. Collapses single-leaf inners on the way up (reference:
+    SHAMap::delItem single-child fold-up)."""
+    if node is None:
+        raise KeyError(key.hex())
+    if isinstance(node, Leaf):
+        if node.item.tag != key:
+            raise KeyError(key.hex())
+        return None
+    b = _nibble(key, depth)
+    new_child = _del_item(node.children[b], key, depth + 1)
+    children = list(node.children)
+    children[b] = new_child
+    live = [c for c in children if c is not None]
+    if len(live) == 1:
+        only = live[0]
+        if isinstance(only, Leaf):
+            return only
+    if not live:
+        return None
+    return Inner(tuple(children))
+
+
+def _build_subtree(ops: list, lo: int, hi: int, depth: int):
+    """Canonical subtree for ops[lo:hi] (sorted, unique (key, Leaf)
+    set-ops) under an empty slot. Shared nibble runs recurse once — the
+    path-copy cost of a batch is O(distinct inner nodes), not
+    O(ops × depth). Index-range recursion: no slice copies."""
+    if hi - lo == 1:
+        return ops[lo][1]
+    children = [None] * 16
+    shift_odd = depth & 1
+    byte_i = depth // 2
+    i = lo
+    while i < hi:
+        kb = ops[i][0][byte_i]
+        b = kb & 0xF if shift_odd else kb >> 4
+        j = i + 1
+        while j < hi:
+            kb = ops[j][0][byte_i]
+            if (kb & 0xF if shift_odd else kb >> 4) != b:
+                break
+            j += 1
+        children[b] = _build_subtree(ops, i, j, depth + 1)
+        i = j
+    return Inner(tuple(children))
+
+
+def _bulk_merge(node, ops: list, lo: int, hi: int, depth: int,
+                dels: list):
+    """Merge ops[lo:hi] (sorted, unique (key, Leaf|None); None = delete)
+    into the persistent subtree at `node`; returns the replacement node
+    (None when the subtree empties). One DFS pass: each dirty inner is
+    copied once regardless of how many ops pass through it. Deleting a
+    missing key raises KeyError — exact `_del_item` parity. `dels` is
+    the delete-count prefix array over `ops` (dels[i] = deletes before
+    index i): a subtree whose run carries no deletes can neither empty
+    nor fold up, so the live-child scan is skipped entirely.
+
+    The tree is CANONICAL (structure is a pure function of the final
+    key set: inners exist exactly on shared prefixes of >= 2 leaves, and
+    single-leaf inners collapse), so this produces byte-identical roots
+    to any per-key application of the same final key->value map — the
+    property the differential suite pins."""
+    if lo >= hi:
+        return node
+    if hi - lo == 1:
+        # singleton run: the lean per-key primitives finish the path
+        k, leaf = ops[lo]
+        if leaf is None:
+            return _del_item(node, k, depth)
+        return _set_item(node, k, leaf, depth)
+    if node is None:
+        if dels[hi] != dels[lo]:
+            for i in range(lo, hi):
+                if ops[i][1] is None:
+                    raise KeyError(ops[i][0].hex())
+        return _build_subtree(ops, lo, hi, depth)
+    if isinstance(node, Leaf):
+        tag = node.item.tag
+        merged: list = []
+        replaced = False
+        placed = False
+        for i in range(lo, hi):
+            k, leaf = ops[i]
+            if not placed and not replaced and tag < k:
+                merged.append((tag, node))
+                placed = True
+            if k == tag:
+                replaced = True
+                if leaf is not None:
+                    merged.append((k, leaf))
+            elif leaf is None:
+                raise KeyError(k.hex())
+            else:
+                merged.append((k, leaf))
+        if not replaced and not placed:
+            merged.append((tag, node))
+        if not merged:
+            return None
+        if len(merged) == 1:
+            return merged[0][1]
+        return _build_subtree(merged, 0, len(merged), depth)
+    # inner: partition the sorted run into contiguous nibble runs
+    children = list(node.children)
+    shift_odd = depth & 1
+    byte_i = depth // 2
+    i = lo
+    while i < hi:
+        kb = ops[i][0][byte_i]
+        b = kb & 0xF if shift_odd else kb >> 4
+        j = i + 1
+        while j < hi:
+            kb = ops[j][0][byte_i]
+            if (kb & 0xF if shift_odd else kb >> 4) != b:
+                break
+            j += 1
+        children[b] = _bulk_merge(children[b], ops, i, j, depth + 1, dels)
+        i = j
+    if dels[hi] == dels[lo]:
+        return Inner(tuple(children))  # no deletes below: cannot collapse
+    live = [c for c in children if c is not None]
+    if not live:
+        return None
+    if len(live) == 1:
+        only = live[0]
+        if isinstance(only, Leaf):
+            return only  # single-leaf fold-up (del_item parity)
+    return Inner(tuple(children))
+
+
+def _get(node, key: bytes, depth: int) -> Optional[SHAMapItem]:
+    while node is not None:
+        if isinstance(node, Leaf):
+            return node.item if node.item.tag == key else None
+        node = node.children[_nibble(key, depth)]
+        depth += 1
+    return None
+
+
+def _walk_leaves(node) -> Iterator[Leaf]:
+    """Leaves in ascending key order (radix order == numeric order)."""
+    if node is None:
+        return
+    if isinstance(node, Leaf):
+        yield node
+        return
+    for c in node.children:
+        if c is not None:
+            yield from _walk_leaves(c)
+
+
+# --------------------------------------------------------------------------
+# batched hashing
+
+
+def _collect_unhashed(root) -> list[list]:
+    """Unhashed nodes grouped by depth (index = depth). A node whose hash is
+    cached is a sealed subtree — nothing below it can be unhashed, because
+    mutation always rebuilds the whole path from the root with fresh
+    (hashless) nodes."""
+    levels: list[list] = []
+
+    def visit(node, depth):
+        if node is None or node._hash is not None:
+            return
+        while len(levels) <= depth:
+            levels.append([])
+        levels[depth].append(node)
+        if isinstance(node, Inner):
+            for c in node.children:
+                visit(c, depth + 1)
+
+    visit(root, 0)
+    return levels
+
+
+def _default_hasher(prefixes, payloads):
+    return [prefix_hash(p, d) for p, d in zip(prefixes, payloads)]
+
+
+# --------------------------------------------------------------------------
+# flat-buffer node encoding: every dirty node's prefix-format bytes packed
+# into ONE contiguous buffer + offsets (the exact hashed message per node),
+# instead of one Python payload object per node.
+
+_PFX_INNER = HP_INNER_NODE.to_bytes(4, "big")
+_PFX_LEAF = {t: p.to_bytes(4, "big") for t, p in _LEAF_PREFIX.items()}
+
+
+def encode_nodes(nodes) -> tuple[bytes, list[int]]:
+    """Pack the prefix-format bytes of `nodes` (Leaf | Inner; inner
+    children must already carry hashes) into one contiguous buffer.
+    Returns (buffer, offsets[n+1]); node i's message is
+    buffer[offsets[i]:offsets[i+1]]."""
+    buf = bytearray()
+    ext = buf.extend
+    offsets = [0]
+    app = offsets.append
+    for node in nodes:
+        if isinstance(node, Inner):
+            ext(_PFX_INNER)
+            for c in node.children:
+                ext(c._hash if c is not None else ZERO256)
+        else:
+            t = node.type
+            ext(_PFX_LEAF[t])
+            ext(node.item.data)
+            if t is not TNType.TX_NM:
+                ext(node.item.tag)
+        app(len(buf))
+    return bytes(buf), offsets
+
+
+def compute_hashes(root, hash_batch: Callable = _default_hasher) -> int:
+    """Fill every missing node hash, one batched call per tree level,
+    deepest level first. Returns the number of nodes hashed.
+
+    This is the flushDirty replacement (reference:
+    LedgerConsensus.cpp:993-996 → SHAMap::flushDirty). A hasher with a
+    ``hash_tree`` method (CudaHasher) takes the whole tree instead: its
+    digests stay device-resident across levels.
+    """
+    if hasattr(hash_batch, "hash_tree"):
+        return hash_batch.hash_tree(root)
+    levels = _collect_unhashed(root)
+    packed = getattr(hash_batch, "hash_packed", None)
+    n = 0
+    for level in reversed(levels):
+        if packed is not None:
+            # flat-buffer path: one contiguous encoding per level feeds
+            # the batch hasher in a single call — no per-node payload
+            # objects (the prep cost that dominated the host seal)
+            targets = []
+            for node in level:
+                if isinstance(node, Inner) and node.is_empty():
+                    node._hash = ZERO256
+                else:
+                    targets.append(node)
+            if targets:
+                buf, offsets = encode_nodes(targets)
+                digests = packed(buf, offsets)
+                for node, dg in zip(targets, digests):
+                    node._hash = dg
+            n += len(targets)
+            continue
+        prefixes, payloads = [], []
+        for node in level:
+            if isinstance(node, Leaf):
+                p, d = node.hash_payload()
+            else:
+                if node.is_empty():
+                    node._hash = ZERO256
+                    continue
+                p = HP_INNER_NODE
+                d = b"".join(
+                    (c._hash if c is not None else ZERO256) for c in node.children
+                )
+            prefixes.append(p)
+            payloads.append(d)
+        digests = hash_batch(prefixes, payloads) if prefixes else []
+        i = 0
+        for node in level:
+            if node._hash is None:
+                node._hash = digests[i]
+                i += 1
+        n += len(prefixes)
+    return n
+
+
+class SHAMap:
+    """Mutable handle over a persistent radix tree.
+
+    Mirrors the in-memory part of the reference SHAMap surface
+    (src/ripple_app/shamap/SHAMap.h): add/update/del items, hash,
+    snapshot.
+    """
+
+    def __init__(self, leaf_type: TNType = TNType.ACCOUNT_STATE, root=None,
+                 hash_batch: Callable = _default_hasher):
+        self.leaf_type = leaf_type
+        self.root = root if root is not None else EMPTY_INNER
+        self.hash_batch = hash_batch
+
+    # -- queries ----------------------------------------------------------
+
+    def get(self, key: bytes) -> Optional[SHAMapItem]:
+        return _get(self.root, key, 0)
+
+    def get_leaf(self, key: bytes) -> Optional[Leaf]:
+        """Typed leaf lookup, O(depth)."""
+        node, depth = self.root, 0
+        while node is not None:
+            if isinstance(node, Leaf):
+                return node if node.item.tag == key else None
+            node = node.children[_nibble(key, depth)]
+            depth += 1
+        return None
+
+    def __contains__(self, key: bytes) -> bool:
+        return self.get(key) is not None
+
+    def __len__(self) -> int:
+        return sum(1 for _ in _walk_leaves(self.root))
+
+    def items(self) -> Iterator[SHAMapItem]:
+        for leaf in _walk_leaves(self.root):
+            yield leaf.item
+
+    def leaves(self) -> Iterator[Leaf]:
+        """Typed leaves in key order (callers that must distinguish raw-tx
+        vs tx+metadata items, reference visitLeaves)."""
+        yield from _walk_leaves(self.root)
+
+    def peek_first_item(self) -> Optional[SHAMapItem]:
+        for leaf in _walk_leaves(self.root):
+            return leaf.item
+        return None
+
+    # -- mutation ---------------------------------------------------------
+
+    def set_item(self, item: SHAMapItem, leaf_type: Optional[TNType] = None) -> None:
+        leaf = Leaf(item, leaf_type or self.leaf_type)
+        self.root = _set_item(self.root, item.tag, leaf, 0)
+
+    def del_item(self, key: bytes) -> None:
+        root = _del_item(self.root, key, 0)
+        self.root = self._normalize_root(root)
+
+    def bulk_update(self, sets=(), deletes=(),
+                    leaf_type: Optional[TNType] = None,
+                    missing_ok: bool = False) -> int:
+        """Apply a whole write set in ONE key-sorted DFS pass: `sets` are
+        SHAMapItems (replace-or-insert), `deletes` are keys (KeyError if
+        missing — del_item parity). Shared path prefixes are copied once
+        instead of once per write, which is what makes a close's spliced
+        delta O(distinct dirty nodes) instead of O(writes x depth).
+
+        Byte-contract: the resulting root (and hash) is identical to
+        applying the same final key->value map through per-key
+        set_item/del_item in any order — the tree is canonical in the
+        final key set. A key in both `sets` and `deletes` is a caller
+        bug (ValueError); duplicate keys within `sets` keep the LAST
+        item. With `missing_ok`, deletes of keys absent from the tree
+        are dropped instead of raising (a compacted create-then-delete
+        nets to nothing). Returns the number of distinct keys applied."""
+        lt = leaf_type or self.leaf_type
+        ops: dict[bytes, Optional[Leaf]] = {}
+        for item in sets:
+            ops[item.tag] = Leaf(item, lt)
+        for key in deletes:
+            if ops.get(key) is not None:
+                raise ValueError(
+                    f"key {key.hex()[:16]} in both sets and deletes"
+                )
+            if missing_ok and self.get(key) is None:
+                continue
+            ops[key] = None
+        if not ops:
+            return 0
+        sorted_ops = sorted(ops.items())
+        dels = [0] * (len(sorted_ops) + 1)
+        for i, (_k, leaf) in enumerate(sorted_ops):
+            dels[i + 1] = dels[i] + (leaf is None)
+        root = _bulk_merge(self.root, sorted_ops, 0, len(sorted_ops), 0, dels)
+        self.root = self._normalize_root(root)
+        return len(ops)
+
+    @staticmethod
+    def _normalize_root(root):
+        """The tree root is always an inner node (reference keeps a root
+        inner even for a single item)."""
+        if root is None:
+            return EMPTY_INNER
+        if isinstance(root, Leaf):
+            children = [None] * 16
+            children[_nibble(root.item.tag, 0)] = root
+            return Inner(tuple(children))
+        return root
+
+    # -- hashing / snapshots ---------------------------------------------
+
+    def get_hash(self) -> bytes:
+        if isinstance(self.root, Inner) and self.root.is_empty():
+            return ZERO256
+        if self.root._hash is None:
+            compute_hashes(self.root, self.hash_batch)
+        return self.root._hash
+
+    def snapshot(self) -> "SHAMap":
+        """O(1) immutable snapshot: share the persistent root."""
+        return SHAMap(self.leaf_type, self.root, self.hash_batch)
