@@ -28,7 +28,10 @@ calls, at the sizes a close really has, and checks every result:
               chunks, K2 on every leaf of the state and transaction
               trees, K3 on the state tree's widest inner level; each
               kernel and plain version timed with CUDA events on those
-              inputs, with its bound.
+              inputs, with its bound. K1 is timed again on the first
+              chunk with every S non-canonical and with every key
+              undecodable, which stop each lane before and after the
+              decode: the split of its time by phase.
 
 Launch counts are zeroed just before phases 3-4 and read just after, so
 the kernels line shows the launches of the main path alone. Any failed
@@ -62,18 +65,21 @@ K2_LANES = 4096  # per ladder size, kernel-vs-plain comparison
 INT32_PER_SM_CLOCK = 64
 HBM_BYTES_PER_S = 3.35e12
 
-# the least 32-bit integer operations per unit of work, counted from the
-# kernels' source. A 64x64->128-bit product is 4 32x32->64 partial
-# products of 2 IMADs each. A radix-2^51 field multiply needs 25 such
-# products and a squaring 15 (5 squares and 10 doubled cross products):
-# >= 200 and >= 120 multiply ops, their adds and carries not counted.
+# the least 32-bit integer operations per unit of work. A field multiply
+# of two 255-bit operands needs, in any schoolbook layout, at least the
+# 8 x 8 = 64 products of 32x32->64 bits that eight 32-bit limbs give
+# (radix-2^51 limbs give 25 wider products, no fewer 32-bit ones), each
+# 2 INT32 issue slots (lo and hi): 128 ops; a squaring 36 products (8
+# squares, 28 cross products): 72. Adds and carries are not counted, so
+# the count holds for any limb layout; Karatsuba or tensor-core products
+# would need a new count.
 # A SHA-512 block, with 3-input logic (LOP3), 3-input adds (IADD3) and
 # funnel shifts, each one op per 32-bit half: a round is Sigma0 + Sigma1 (3
 # rotates + 1 xor3 = 8 each), ch and maj (2 each), t1's 5-term add (4),
 # a's 3-term add and e's add (2 each) = 28; a schedule step is sigma0 +
 # sigma1 (8 each) and a 4-term add (4) = 20; the final state adds 16
-FE_MUL_OPS = 25 * 4 * 2
-FE_SQ_OPS = 15 * 4 * 2
+FE_MUL_OPS = 64 * 2
+FE_SQ_OPS = 36 * 2
 SHA_BLOCK_OPS = 80 * 28 + 64 * 20 + 16
 # (field multiplies, field squarings) of K1 per signature, by phase
 # (csrc/ed25519_verify.cu). The chain to a^(2^250-1) squares 249 times.
@@ -81,8 +87,10 @@ CHAIN_250 = (10, 249)
 # y^2, v, v^3, v^7, x, v*x^2, T; pow_p58 is the chain, 2 squarings and
 # a multiply (the conditional multiply by sqrt(-1) is not counted)
 DECODE = (8 + CHAIN_250[0] + 1, 4 + CHAIN_250[1] + 2)
-# -A cached, 7 doublings (4M + 4S), 7 cached additions (8M), 15 cached
-TABLE = (1 + 7 * 4 + 7 * 8 + 15, 7 * 4)
+# the 8-entry table of -A for signed digits (fewer than the 15 entries
+# that unsigned nibbles need): 4 doublings (4M + 4S), 3 cached additions
+# (8M), 8 cached conversions (1M)
+TABLE = (4 * 4 + 3 * 8 + 8, 4 * 4)
 WALK_DOUBLES = (256 * 4, 256 * 4)
 ADD = (8, 0)
 # 1/Z (the chain and 5 squarings and a multiply), then x and y
@@ -206,11 +214,13 @@ def plant(pubs, msgs, sigs, seed: int):
 def k1_ops(batch: dict) -> int:
     """32-bit integer multiply ops K1's function needs on these inputs:
     lanes with a non-canonical S stop at once; lanes whose key does not
-    decode stop after the decode; the walk adds once per nonzero
-    nibble."""
+    decode stop after the decode; the walk adds once per nonzero digit of
+    each scalar, in whichever 4-bit form has fewer: unsigned nibbles or
+    signed digits in [-8, 7]."""
     import numpy as np
 
     from stellard_tpu_torch.ops import ed25519_ref as ref
+    from stellard_tpu_torch.ops.ed25519 import _nibbles_le, _signed_digits_le
 
     sc = np.asarray(batch["s_canonical"], bool)
     a = np.asarray(batch["a_words"]).astype("<u4").tobytes()
@@ -218,19 +228,33 @@ def k1_ops(batch: dict) -> int:
         bool(sc[i]) and ref.pt_decompress(a[32 * i : 32 * i + 32]) is not None
         for i in range(len(sc))
     ])
-    s = np.asarray(batch["s_bytes"])
-    h = np.asarray(batch["h_bytes"])
-    nonzero = ((s & 0xF) != 0).sum(1) + ((s >> 4) != 0).sum(1)
-    nonzero += ((h & 0xF) != 0).sum(1) + ((h >> 4) != 0).sum(1)
+    nonzero = 0
+    for key in ("s_bytes", "h_bytes"):
+        b = np.asarray(batch[key], np.uint8)[decodes]
+        nonzero += int(np.minimum((_nibbles_le(b) != 0).sum(1),
+                                  (_signed_digits_le(b) != 0).sum(1)).sum())
     return (int(sc.sum()) * fe_ops(DECODE)
             + int(decodes.sum()) * (fe_ops(TABLE) + fe_ops(WALK_DOUBLES) + fe_ops(ENCODE))
-            + int(nonzero[decodes].sum()) * fe_ops(ADD))
+            + nonzero * fe_ops(ADD))
 
 
 def bound_ms(ops: float, nbytes: float, int32_rate: float) -> tuple[float, str]:
     t_ops = ops / int32_rate * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def undecodable_key(seed: int) -> bytes:
+    """32 bytes that are no point's encoding (no square root of x^2)."""
+    import numpy as np
+
+    from stellard_tpu_torch.ops import ed25519_ref as ref
+
+    rng = np.random.default_rng(seed)
+    while True:
+        key = rng.bytes(32)
+        if ref.pt_decompress(key) is None:
+            return key
 
 
 def state_items(n: int, seed: int):
@@ -491,7 +515,7 @@ def run(dev) -> None:
         prep_ms.append((time.perf_counter() - t0) * 1e3)
         tens = to_tensors(host, dev)
         if lo == 0:
-            chunk_host = host
+            chunk_host, chunk_tens = host, tens
             k1_ms, got = cuda_ms(lambda: ed25519_cuda.verify(**tens), reps=10)
             k1_plain_ms, plain = cuda_ms(lambda: verify_kernel_ref(**tens), reps=1)
         else:
@@ -505,6 +529,23 @@ def run(dev) -> None:
              max_abs_err=err, equal=True)
     k1_err = max(k1_err, k1_main_err)
     k1_b, k1_by = bound_ms(k1_ops(chunk_host), 130 * CHUNK, int32_rate)
+
+    # K1's phases: the same chunk with every S non-canonical (each lane
+    # stops before its decode) and with every key undecodable (each lane
+    # stops after it). Its final inversion is the same exponentiation as
+    # the decode's, one thread a signature.
+    bad_key = undecodable_key(seed=7)
+    stop_before = to_tensors(
+        dict(chunk_host, s_canonical=np.zeros_like(chunk_host["s_canonical"])), dev)
+    stop_after = to_tensors(dict(chunk_host, a_words=np.tile(
+        np.frombuffer(bad_key, chunk_host["a_words"].dtype), (CHUNK, 1))), dev)
+    k1_before_ms, got_before = cuda_ms(lambda: ed25519_cuda.verify(**stop_before), reps=10)
+    k1_after_ms, got_after = cuda_ms(lambda: ed25519_cuda.verify(**stop_after), reps=10)
+    require(not got_before.any().item() and not got_after.any().item(),
+            "K1 accepted a lane with a non-canonical S or an undecodable key")
+    emit("k1_phases", chunk=CHUNK, full_ms=k1_ms, stop_before_decode_ms=k1_before_ms,
+         stop_after_decode_ms=k1_after_ms)
+    del chunk_tens, stop_before, stop_after
 
     # K2 against its plain version on every leaf of the state tree (all in
     # one launch, as the state seal ran them) and of the transaction tree;

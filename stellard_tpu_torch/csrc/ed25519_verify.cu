@@ -1,4 +1,4 @@
-// K1: batched Ed25519 verification, one thread per signature (sm_90a).
+// K1: batched Ed25519 verification, four lanes per signature (sm_90a).
 //
 // Replaces the TPU kernel stellard_tpu/ops/ed25519_pallas.py::_kernel
 // (launched by _call, wrapped by verify_kernel_pallas) and its XLA twin
@@ -12,23 +12,41 @@
 // with the sign bit set is rejected; R is compared as raw bytes, so a
 // non-canonical R never matches the canonical encoding.
 //
-// What bounds it on an H100: integer multiply throughput. A field
-// multiply is 25 64x64->128-bit products and a squaring 15, each several
-// 32-bit IMADs, and a signature needs about 2,100 field multiplies and
-// 1,560 squarings (256 doublings, up to 128 cached additions, two
-// ~255-squaring exponentiations). Its input is only 129 bytes a
-// signature, so memory is never the limit.
+// What bounds it on an H100: integer instruction issue. A signature needs
+// about 3,500 field multiplies and squarings (256 doublings, about 120
+// cached additions, two ~255-squaring exponentiations), each a few hundred
+// 32-bit integer instructions in radix 2^51; its input is 129 bytes, so
+// memory is never the limit. One thread a signature left a 16,384 chunk
+// with about 4 warps an SM, each a long chain of dependent products, too
+// few to keep the integer pipes busy.
 //
-// What the design does about it: the TPU kernel was shaped by 128-lane
-// 32-bit vector units (13-bit limbs, one-hot table selection, a fixed-
-// base comb to avoid doublings). On this card each signature gets its own
-// thread with the field in registers as radix-2^51 limbs (five 64-bit
-// words), so there is no cross-lane work at all; the arithmetic and the
-// 4-bit Straus walk follow native/src/ed25519_verify.cc. [S]B and [h](-A)
-// share one chain of 4 doublings per window. The 15-entry table of
-// multiples of B is read from shared memory; the per-thread table of -A
-// (15 x 160 bytes) lives in local memory. A lane whose key fails to
-// decode or whose S is not canonical leaves early.
+// What this design does about it:
+//
+// - A group of G = 4 consecutive lanes walks one signature; lane k owns
+//   extended coordinate k of the running point (X, Y, Z, T). A doubling
+//   (dbl-2008-hwcd) or cached addition (add-2008-hwcd-3) is two stages of
+//   four independent products, one a lane: the squares of X, Y, Z and
+//   X+Y (or the four cached products), then E*F, G*H, F*G, E*H. Between
+//   stages the group swaps limbs with shuffles masked to its own lanes;
+//   E, F, G and H are formed on every lane. A chunk thus gives four times
+//   the warps, and each lane's chain is a quarter as long.
+// - The decode's exponentiation and the final inversion are single chains:
+//   they run in phases of their own, one thread a signature in the first
+//   warp of the block, so that they are issued once a signature and not
+//   once a lane.
+// - Both scalars are recoded in the kernel into signed 4-bit digits in
+//   [-8, 7], so each table holds the multiples 1..8. A negative digit
+//   selects the same entry and swaps the roles of the Y+X / Y-X products
+//   and the sign of the 2dT product, so each lane reads only its own
+//   coordinate of an entry.
+// - B's 8 cached multiples sit in shared memory once per block; each lane
+//   keeps its coordinate of the 8 multiples of -A in a shared-memory slice
+//   of its own. No table lives in registers or local memory, every field
+//   function is inlined with its operands by value, and the point formulas
+//   need no carry passes (limb bounds below), so ptxas reports no stack.
+//
+// The field is radix 2^51 (five 64-bit limbs); the walk follows
+// native/src/ed25519_verify.cc with signed digits.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -66,7 +84,7 @@ __device__ __forceinline__ u64 shr51(const U128& x) {
 __device__ __forceinline__ Fe fe_zero() { return Fe{{0, 0, 0, 0, 0}}; }
 __device__ __forceinline__ Fe fe_one() { return Fe{{1, 0, 0, 0, 0}}; }
 
-__device__ __forceinline__ Fe fe_add(const Fe& a, const Fe& b) {
+__device__ __forceinline__ Fe fe_add(Fe a, Fe b) {
   Fe r;
 #pragma unroll
   for (int i = 0; i < 5; i++) r.v[i] = a.v[i] + b.v[i];
@@ -74,7 +92,7 @@ __device__ __forceinline__ Fe fe_add(const Fe& a, const Fe& b) {
 }
 
 // a - b + 2p: limbs stay non-negative for carry-reduced b
-__device__ __forceinline__ Fe fe_sub(const Fe& a, const Fe& b) {
+__device__ __forceinline__ Fe fe_sub(Fe a, Fe b) {
   Fe r;
   r.v[0] = a.v[0] + 2 * ((1ULL << 51) - 19) - b.v[0];
 #pragma unroll
@@ -82,9 +100,18 @@ __device__ __forceinline__ Fe fe_sub(const Fe& a, const Fe& b) {
   return r;
 }
 
+// a - b - c + 4p: limbs stay non-negative when b + c < 4p limb by limb,
+// as for two products, or a product and twice one
+__device__ __forceinline__ Fe fe_sub2(Fe a, Fe b, Fe c) {
+  Fe r;
+  r.v[0] = a.v[0] + 4 * ((1ULL << 51) - 19) - b.v[0] - c.v[0];
+#pragma unroll
+  for (int i = 1; i < 5; i++) r.v[i] = a.v[i] + 4 * MASK51 - b.v[i] - c.v[i];
+  return r;
+}
+
 // one carry pass: limbs back to ~51 bits (top carry folds x19 into limb 0)
-__device__ __forceinline__ Fe fe_carry(const Fe& a) {
-  Fe r = a;
+__device__ __forceinline__ Fe fe_carry(Fe r) {
   u64 c;
   c = r.v[0] >> 51; r.v[0] &= MASK51; r.v[1] += c;
   c = r.v[1] >> 51; r.v[1] &= MASK51; r.v[2] += c;
@@ -111,7 +138,7 @@ __device__ __forceinline__ Fe fe_carry_wide(U128 r0, U128 r1, U128 r2,
 }
 
 // 25 products; limbs above 2^51 wrap to the bottom times 19
-__device__ __noinline__ Fe fe_mul(const Fe& a, const Fe& b) {
+__device__ __forceinline__ Fe fe_mul(Fe a, Fe b) {
   const u64 a0 = a.v[0], a1 = a.v[1], a2 = a.v[2], a3 = a.v[3], a4 = a.v[4];
   const u64 b0 = b.v[0], b1 = b.v[1], b2 = b.v[2], b3 = b.v[3], b4 = b.v[4];
   const u64 b1_19 = b1 * 19, b2_19 = b2 * 19, b3_19 = b3 * 19,
@@ -133,7 +160,7 @@ __device__ __noinline__ Fe fe_mul(const Fe& a, const Fe& b) {
 // 15 products: each cross product a_i a_j (i != j) once with one factor
 // doubled. The column sums are fe_mul(a, a)'s exactly, so the limbs are
 // too.
-__device__ __noinline__ Fe fe_sq(const Fe& a) {
+__device__ __forceinline__ Fe fe_sq(Fe a) {
   const u64 a0 = a.v[0], a1 = a.v[1], a2 = a.v[2], a3 = a.v[3], a4 = a.v[4];
   const u64 d0 = 2 * a0, d1 = 2 * a1, d2 = 2 * a2, d3 = 2 * a3;
   const u64 a3_19 = a3 * 19, a4_19 = a4 * 19;
@@ -146,13 +173,14 @@ __device__ __noinline__ Fe fe_sq(const Fe& a) {
   return fe_carry_wide(r0, r1, r2, r3, r4);
 }
 
-__device__ Fe fe_sqn(Fe a, int n) {
+__device__ __forceinline__ Fe fe_sqn(Fe a, int n) {
+#pragma unroll 1
   for (int i = 0; i < n; i++) a = fe_sq(a);
   return a;
 }
 
 // canonical representative in [0, p), every limb < 2^51
-__device__ Fe fe_freeze(const Fe& a) {
+__device__ __forceinline__ Fe fe_freeze(Fe a) {
   Fe r = fe_carry(fe_carry(a));
   // q = 1 iff r >= p, i.e. r + 19 carries out of bit 255
   u64 q = (r.v[0] + 19) >> 51;
@@ -170,25 +198,23 @@ __device__ Fe fe_freeze(const Fe& a) {
   return r;
 }
 
-__device__ bool fe_is_zero(const Fe& a) {
+__device__ __forceinline__ bool fe_is_zero(Fe a) {
   Fe f = fe_freeze(a);
   return (f.v[0] | f.v[1] | f.v[2] | f.v[3] | f.v[4]) == 0;
 }
 
-__device__ __forceinline__ bool fe_eq(const Fe& a, const Fe& b) {
+__device__ __forceinline__ bool fe_eq(Fe a, Fe b) {
   return fe_is_zero(fe_sub(a, b));
 }
 
-__device__ __forceinline__ Fe fe_neg(const Fe& a) {
-  return fe_sub(fe_zero(), a);
-}
+__device__ __forceinline__ Fe fe_neg(Fe a) { return fe_sub(fe_zero(), a); }
 
-__device__ __forceinline__ int fe_parity(const Fe& a) {
+__device__ __forceinline__ int fe_parity(Fe a) {
   return (int)(fe_freeze(a).v[0] & 1);
 }
 
 // 8 LE u32 words -> limbs; bit 255 dropped (value < 2^255, maybe >= p)
-__device__ Fe fe_from_words(const uint32_t w[8]) {
+__device__ __forceinline__ Fe fe_from_words(const uint32_t w[8]) {
   u64 q0 = (u64)w[0] | ((u64)w[1] << 32);
   u64 q1 = (u64)w[2] | ((u64)w[3] << 32);
   u64 q2 = (u64)w[4] | ((u64)w[5] << 32);
@@ -203,7 +229,7 @@ __device__ Fe fe_from_words(const uint32_t w[8]) {
 }
 
 // canonical limbs -> 8 LE u32 words
-__device__ void fe_to_words(const Fe& a, uint32_t w[8]) {
+__device__ __forceinline__ void fe_to_words(Fe a, uint32_t w[8]) {
   Fe f = fe_freeze(a);
   u64 q0 = f.v[0] | (f.v[1] << 51);
   u64 q1 = (f.v[1] >> 13) | (f.v[2] << 38);
@@ -216,7 +242,7 @@ __device__ void fe_to_words(const Fe& a, uint32_t w[8]) {
 }
 
 // (a^(2^250 - 1), a^11): the core of the curve25519 addition chains
-__device__ void chain_250(const Fe& a, Fe* z250, Fe* z11) {
+__device__ __forceinline__ void chain_250(Fe a, Fe* z250, Fe* z11) {
   Fe z2 = fe_sq(a);
   Fe z9 = fe_mul(fe_sqn(z2, 2), a);
   *z11 = fe_mul(z9, z2);
@@ -230,28 +256,17 @@ __device__ void chain_250(const Fe& a, Fe* z250, Fe* z11) {
   *z250 = fe_mul(fe_sqn(z200, 50), z50);
 }
 
-__device__ Fe fe_invert(const Fe& a) {  // a^(p-2)
+__device__ __forceinline__ Fe fe_invert(Fe a) {  // a^(p-2)
   Fe z250, z11;
   chain_250(a, &z250, &z11);
   return fe_mul(fe_sqn(z250, 5), z11);
 }
 
-__device__ Fe fe_pow_p58(const Fe& a) {  // a^((p-5)/8)
+__device__ __forceinline__ Fe fe_pow_p58(Fe a) {  // a^((p-5)/8)
   Fe z250, z11;
   chain_250(a, &z250, &z11);
   return fe_mul(fe_sqn(z250, 2), a);
 }
-
-// --------------------------------------------------------------------------
-// points
-
-struct Ge {
-  Fe X, Y, Z, T;  // extended: x = X/Z, y = Y/Z, T = XY/Z
-};
-
-struct GeCached {
-  Fe ypx, ymx, t2d, z2;  // Y+X, Y-X, 2dT, 2Z
-};
 
 // curve constants (radix-2^51 limbs of d, 2d, sqrt(-1))
 __constant__ u64 C_D[5] = {929955233495203ULL, 466365720129213ULL,
@@ -268,63 +283,48 @@ __device__ __forceinline__ Fe load_const(const u64* c) {
   return Fe{{c[0], c[1], c[2], c[3], c[4]}};
 }
 
-__device__ GeCached ge_to_cached(const Ge& p) {
-  GeCached r;
-  r.ypx = fe_carry(fe_add(p.Y, p.X));
-  r.ymx = fe_carry(fe_sub(p.Y, p.X));
-  r.t2d = fe_mul(p.T, load_const(C_D2));
-  r.z2 = fe_carry(fe_add(p.Z, p.Z));
-  return r;
+// a field element in column col of a limb-major [5][N] table (shared
+// memory, one column a signature)
+template <int N>
+__device__ __forceinline__ void put_fe(u64 (*dst)[N], int col, Fe a) {
+#pragma unroll
+  for (int l = 0; l < 5; l++) dst[l][col] = a.v[l];
 }
 
-// complete unified addition, q cached (add-2008-hwcd-3, a=-1): 8M
-__device__ Ge ge_add_cached(const Ge& p, const GeCached& q) {
-  Fe a = fe_mul(fe_carry(fe_sub(p.Y, p.X)), q.ymx);
-  Fe b = fe_mul(fe_carry(fe_add(p.Y, p.X)), q.ypx);
-  Fe cc = fe_mul(p.T, q.t2d);
-  Fe dd = fe_mul(p.Z, q.z2);
-  Fe e = fe_carry(fe_sub(b, a));
-  Fe f = fe_carry(fe_sub(dd, cc));
-  Fe g = fe_carry(fe_add(dd, cc));
-  Fe h = fe_carry(fe_add(b, a));
-  Ge r;
-  r.X = fe_mul(e, f);
-  r.Y = fe_mul(g, h);
-  r.Z = fe_mul(f, g);
-  r.T = fe_mul(e, h);
-  return r;
-}
-
-// dedicated doubling (dbl-2008-hwcd, a=-1): 4S + 4M
-__device__ Ge ge_double(const Ge& p) {
-  Fe a = fe_sq(p.X);
-  Fe b = fe_sq(p.Y);
-  Fe zz = fe_sq(p.Z);
-  Fe cc = fe_carry(fe_add(zz, zz));
-  Fe xy = fe_carry(fe_add(p.X, p.Y));
-  Fe e = fe_carry(fe_sub(fe_carry(fe_sub(fe_sq(xy), a)), b));
-  Fe g = fe_carry(fe_sub(b, a));          // G = aA + B = B - A
-  Fe f = fe_carry(fe_sub(g, cc));         // F = G - C
-  Fe h = fe_carry(fe_sub(fe_neg(a), b));  // H = aA - B = -A - B
-  Ge r;
-  r.X = fe_mul(e, f);
-  r.Y = fe_mul(g, h);
-  r.Z = fe_mul(f, g);
-  r.T = fe_mul(e, h);
-  return r;
+template <int N>
+__device__ __forceinline__ Fe get_fe(const u64 (*src)[N], int col) {
+  Fe a;
+#pragma unroll
+  for (int l = 0; l < 5; l++) a.v[l] = src[l][col];
+  return a;
 }
 
 // decode an encoded point the way the JAX package does: y mod p, x from
-// the curve equation, reject non-residues and x = 0 with the sign bit
-__device__ bool ge_decode(const uint32_t w[8], Ge* out) {
-  Fe y = fe_from_words(w);
+// the curve equation, reject non-residues and x = 0 with the sign bit.
+// -> false, or true with the affine x and y in xs[.][col], ys[.][col].
+// y and u*v^3 wait in those slots across the exponentiation, and u and v
+// are recomputed after it, so that few values stay live in registers.
+template <int N>
+__device__ __forceinline__ bool ge_decode(const uint32_t w[8],
+                                          u64 (*xs)[N], u64 (*ys)[N],
+                                          int col) {
   int sign = (int)(w[7] >> 31);
+  Fe y = fe_from_words(w);
+  put_fe(ys, col, y);
   Fe y2 = fe_sq(y);
   Fe u = fe_carry(fe_sub(y2, fe_one()));
   Fe v = fe_carry(fe_add(fe_mul(y2, load_const(C_D)), fe_one()));
   Fe v3 = fe_mul(fe_sq(v), v);
-  Fe v7 = fe_mul(fe_sq(v3), v);
-  Fe x = fe_mul(fe_mul(u, v3), fe_pow_p58(fe_mul(u, v7)));
+  Fe uv3 = fe_mul(u, v3);
+  put_fe(xs, col, uv3);
+  Fe x = fe_pow_p58(fe_mul(fe_mul(uv3, v3), v));  // (u v^7)^((p-5)/8)
+  // a compiler barrier: reload the slots rather than keep their values
+  // (and what was derived from them) live across the exponentiation
+  asm volatile("" ::: "memory");
+  x = fe_mul(get_fe<N>(xs, col), x);
+  y2 = fe_sq(get_fe<N>(ys, col));
+  u = fe_carry(fe_sub(y2, fe_one()));
+  v = fe_carry(fe_add(fe_mul(y2, load_const(C_D)), fe_one()));
   Fe vxx = fe_mul(v, fe_sq(x));
   if (!fe_eq(vxx, u)) {
     if (!fe_eq(vxx, fe_neg(u))) return false;  // not on the curve
@@ -335,31 +335,123 @@ __device__ bool ge_decode(const uint32_t w[8], Ge* out) {
   } else if (fe_parity(x) != sign) {
     x = fe_neg(x);
   }
-  out->X = fe_carry(x);
-  out->Y = y;
-  out->Z = fe_one();
-  out->T = fe_mul(out->X, y);
+  put_fe(xs, col, fe_carry(x));
   return true;
 }
 
-// table[k] = (k+1) * p in cached form, k = 0..14 (native build_table)
-__device__ void build_table(const Ge& p, GeCached table[15]) {
-  Ge m[15];
-  m[0] = p;
-  GeCached pc = ge_to_cached(p);
-  for (int k = 1; k < 15; k++)
-    m[k] = (k & 1) ? ge_double(m[k / 2]) : ge_add_cached(m[k - 1], pc);
-  for (int k = 0; k < 15; k++) table[k] = ge_to_cached(m[k]);
+// --------------------------------------------------------------------------
+// the lane group: G lanes a signature, lane k holding coordinate k
+//
+// Limb bounds in the walk: every coordinate of the running point and every
+// stage-1 product comes out of fe_mul or fe_sq, so its limbs are below
+// 2^51 + 2^12; the sums and differences formed from them below stay under
+// 2^54, which fe_mul and fe_sq take as inputs without overflow (column
+// sums under 2^115). So the point formulas need no carry passes.
+
+constexpr int G = 4;      // lanes a signature, one a coordinate
+constexpr int SIGS = 32;  // signatures a block
+constexpr int THREADS = SIGS * G;
+// a block's 48.7 KB of shared memory lets 4 blocks share an SM, enough to
+// hold a 16,384-signature chunk (512 blocks on 132 SMs) in one wave
+constexpr int MIN_BLOCKS = 4;
+
+struct Group {
+  int lane;       // 0..G-1
+  unsigned mask;  // the group's own lanes within the warp
+};
+
+// A point in extended coordinates (X, Y, Z, T), a cached entry
+// (Y+X, Y-X, 2Z, 2dT), or the four products of a stage is one Fe a lane:
+// lane k holds coordinate k.
+
+// coordinate k of v, from lane k of the group; every lane of the group
+// must call it
+__device__ __forceinline__ Fe take(Fe v, int k, const Group& g) {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < 5; i++) r.v[i] = __shfl_sync(g.mask, v.v[i], k, G);
+  return r;
 }
 
-__device__ __forceinline__ int nibble(const uint32_t w[8], int i) {
-  return (int)((w[i >> 3] >> ((i & 7) * 4)) & 0xF);
+// the second stage of both formulas: coordinate k of (E*F, G*H, F*G, E*H)
+__device__ __forceinline__ Fe ge_finish(Fe e, Fe f, Fe gg, Fe h,
+                                        const Group& g) {
+  const int k = g.lane;
+  return fe_mul(k == 0 || k == 3 ? e : (k == 1 ? gg : f),
+                k == 0 ? f : (k == 2 ? gg : h));
 }
 
-constexpr int TABLE_U64 = 15 * 4 * 5;  // cached multiples 1..15 of B
-constexpr int THREADS = 128;
+// p = 2p (dbl-2008-hwcd, a = -1): X^2, Y^2, Z^2, (X+Y)^2, then ge_finish
+__device__ __forceinline__ void ge_double(Fe& p, const Group& g) {
+  Fe x = take(p, 0, g), y = take(p, 1, g);
+  Fe s = fe_sq(g.lane == 3 ? fe_add(x, y) : p);
+  Fe a = take(s, 0, g), b = take(s, 1, g), zz = take(s, 2, g),
+     xy2 = take(s, 3, g);
+  Fe e = fe_sub2(xy2, a, b);                  // E = (X+Y)^2 - A - B
+  Fe gg = fe_sub(b, a);                       // G = aA + B = B - A
+  Fe f = fe_sub2(b, a, fe_add(zz, zz));       // F = G - 2Z^2
+  Fe h = fe_sub2(fe_zero(), a, b);            // H = aA - B = -A - B
+  p = ge_finish(e, f, gg, h, g);
+}
 
-__global__ void __launch_bounds__(THREADS)
+// p += q, or p -= q when neg (add-2008-hwcd-3, a = -1), q cached. Lane k
+// multiplies by its own coordinate of q: -q is (Y-X, Y+X, 2Z, -2dT), so a
+// negative digit swaps which of lanes 0 and 1 takes Y+X and which Y-X,
+// and flips the sign of the 2dT product where it is used.
+__device__ __forceinline__ void ge_add(Fe& p, Fe q, bool neg,
+                                       const Group& g) {
+  Fe x = take(p, 0, g), y = take(p, 1, g);
+  const int k = g.lane;
+  Fe m = fe_mul(k >= 2 ? p : ((k == 0) != neg ? fe_add(y, x) : fe_sub(y, x)),
+                q);
+  // m = (B, A, D, C) for +q and (A, B, D, -C) for -q
+  Fe m0 = take(m, 0, g), m1 = take(m, 1, g), d = take(m, 2, g),
+     c = take(m, 3, g);
+  Fe e = neg ? fe_sub(m1, m0) : fe_sub(m0, m1);  // E = B - A
+  Fe h = fe_add(m0, m1);                         // H = B + A
+  Fe f = neg ? fe_add(d, c) : fe_sub(d, c);      // F = D - C
+  Fe gg = neg ? fe_sub(d, c) : fe_add(d, c);     // G = D + C
+  p = ge_finish(e, f, gg, h, g);
+}
+
+// the cached form (Y+X, Y-X, 2Z, 2dT) of p, lane k's coordinate k
+__device__ __forceinline__ Fe ge_cached(Fe p, const Group& g) {
+  Fe x = take(p, 0, g), y = take(p, 1, g);
+  const int k = g.lane;
+  return k == 0   ? fe_add(y, x)
+         : k == 1 ? fe_sub(y, x)
+         : k == 2 ? fe_add(p, p)
+                  : fe_mul(p, load_const(C_D2));
+}
+
+// scalar < 2^253 -> its signed radix-16 digits in [-8, 7], in place: add
+// 8 to every nibble (the digits of s + 0x88..8 are those of s plus 8, and
+// s + 0x88..8 < 2^256); next_digit subtracts it again
+__device__ __forceinline__ void recode(uint32_t w[8]) {
+  u64 c = 0;
+#pragma unroll
+  for (int k = 0; k < 8; k++) {
+    u64 t = (u64)w[k] + 0x88888888ULL + c;
+    w[k] = (uint32_t)t;
+    c = t >> 32;
+  }
+}
+
+// the most significant remaining digit; shifts the words left a nibble
+__device__ __forceinline__ int next_digit(uint32_t w[8]) {
+  int d = (int)(w[7] >> 28) - 8;
+#pragma unroll
+  for (int k = 7; k > 0; k--) w[k] = (w[k] << 4) | (w[k - 1] >> 28);
+  w[0] <<= 4;
+  return d;
+}
+
+// Three phases a block, 32 signatures each, split by __syncthreads (no
+// thread leaves before the last): the first warp decodes A, one thread a
+// signature; every group builds its table of -A and walks; the first warp
+// inverts Z, encodes and compares, one thread a signature. The two
+// exponentiations thus run once a signature, not once a lane.
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 ed25519_verify_kernel(const uint32_t* __restrict__ a_words,
                       const uint32_t* __restrict__ r_words,
                       const uint32_t* __restrict__ s_words,
@@ -367,59 +459,101 @@ ed25519_verify_kernel(const uint32_t* __restrict__ a_words,
                       const uint8_t* __restrict__ s_canonical,
                       const u64* __restrict__ base_table,
                       uint8_t* __restrict__ out, int n) {
-  __shared__ GeCached btab[15];
-  u64* flat = reinterpret_cast<u64*>(btab);
-  for (int i = threadIdx.x; i < TABLE_U64; i += blockDim.x)
-    flat[i] = base_table[i];
+  // B's cached multiples 1..8 as (Y+X, Y-X, 2Z, 2dT), for the whole block
+  __shared__ u64 btab[8][4][5];
+  // each lane's coordinate of -A's cached multiples 1..8, by thread so a
+  // warp's accesses fall in distinct banks
+  __shared__ u64 ntab[8][5][THREADS];
+  __shared__ u64 a_xy[2][5][SIGS];  // A's affine x and y, from the decode
+  __shared__ u64 q_xyz[3][5][SIGS];  // the walk's X, Y, Z
+  __shared__ bool ok[SIGS];          // S canonical and A decoded
+  // base_table's rows are (Y+X, Y-X, 2dT, 2Z), multiples 1..15
+  for (int i = threadIdx.x; i < 8 * 4 * 5; i += THREADS) {
+    int r = i / 20, c = (i / 5) % 4, l = i % 5;
+    btab[r][c][l] = base_table[(r * 4 + (c < 2 ? c : 5 - c)) * 5 + l];
+  }
+  const int t = threadIdx.x;
+  if (t < SIGS) {
+    const int idx = blockIdx.x * SIGS + t;
+    bool good = false;
+    if (idx < n && s_canonical[idx]) {
+      uint32_t aw[8];
+#pragma unroll
+      for (int k = 0; k < 8; k++) aw[k] = a_words[8 * idx + k];
+      good = ge_decode(aw, a_xy[0], a_xy[1], t);
+    }
+    ok[t] = good;
+  }
   __syncthreads();
 
-  int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  if (!s_canonical[idx]) {
-    out[idx] = 0;
-    return;
-  }
-  uint32_t aw[8], rw[8], sw[8], hw[8];
-#pragma unroll
-  for (int k = 0; k < 8; k++) {
-    aw[k] = a_words[8 * idx + k];
-    rw[k] = r_words[8 * idx + k];
-    sw[k] = s_words[8 * idx + k];
-    hw[k] = h_words[8 * idx + k];
-  }
-  Ge a;
-  if (!ge_decode(aw, &a)) {
-    out[idx] = 0;
-    return;
-  }
-  Ge nega;
-  nega.X = fe_carry(fe_neg(a.X));
-  nega.Y = a.Y;
-  nega.Z = a.Z;
-  nega.T = fe_carry(fe_neg(a.T));
-  GeCached ntab[15];
-  build_table(nega, ntab);
+  const int sig = t / G;
+  if (ok[sig]) {
+    const int idx = blockIdx.x * SIGS + sig;
+    Group g;
+    g.lane = t % G;
+    g.mask = ((1u << G) - 1) << ((t % 32) & ~(G - 1));
+    // -A = (-x, y, 1, -xy); its cached multiples 1..8 into ntab
+    auto put = [&](int e, Fe p) { put_fe(ntab[e], t, ge_cached(p, g)); };
+    auto get = [&](int e) { return get_fe(ntab[e], t); };
+    Fe nx = fe_carry(fe_neg(get_fe(a_xy[0], sig))), ay = get_fe(a_xy[1], sig);
+    Fe p = g.lane == 0   ? nx
+           : g.lane == 1 ? ay
+           : g.lane == 2 ? fe_one()
+                         : fe_mul(nx, ay);
+    Fe q;
+    // entry e holds (e+1)(-A); at most two multiples live at a time
+    put(0, p);
+    ge_double(p, g); put(1, p);                 // 2
+    q = p; ge_add(q, get(0), false, g); put(2, q);  // 3
+    ge_double(p, g); put(3, p);                 // 4
+    ge_double(q, g); put(5, q);                 // 6
+    ge_add(q, get(0), false, g); put(6, q);     // 7
+    q = p; ge_add(q, get(0), false, g); put(4, q);  // 5
+    ge_double(p, g); put(7, p);                 // 8
 
-  // Straus: R' = [s]B + [h](-A), MSB-first 4-bit windows
-  Ge q;
-  q.X = fe_zero(); q.Y = fe_one(); q.Z = fe_one(); q.T = fe_zero();
-  for (int i = 63; i >= 0; i--) {
-    q = ge_double(ge_double(ge_double(ge_double(q))));
-    int ns = nibble(sw, i);
-    if (ns) q = ge_add_cached(q, btab[ns - 1]);
-    int nh = nibble(hw, i);
-    if (nh) q = ge_add_cached(q, ntab[nh - 1]);
+    uint32_t sd[8], hd[8];
+#pragma unroll
+    for (int k = 0; k < 8; k++) {
+      sd[k] = s_words[8 * idx + k];
+      hd[k] = h_words[8 * idx + k];
+    }
+    recode(sd);
+    recode(hd);
+
+    // Straus: R' = [s]B + [h](-A), MSB-first signed 4-bit digits
+    p = (g.lane == 1 || g.lane == 2) ? fe_one() : fe_zero();
+#pragma unroll 1
+    for (int i = 0; i < 64; i++) {
+#pragma unroll 1
+      for (int d = 0; d < 4; d++) ge_double(p, g);
+      int ds = next_digit(sd), dh = next_digit(hd);
+      if (ds != 0) {
+        const u64* e = btab[(ds < 0 ? -ds : ds) - 1][g.lane];
+        ge_add(p, Fe{{e[0], e[1], e[2], e[3], e[4]}}, ds < 0, g);
+      }
+      if (dh != 0) ge_add(p, get((dh < 0 ? -dh : dh) - 1), dh < 0, g);
+    }
+    if (g.lane < 3) put_fe(q_xyz[g.lane], sig, p);
   }
+  __syncthreads();
 
   // encode and compare against R's raw bytes
-  Fe zi = fe_invert(q.Z);
-  uint32_t enc[8];
-  fe_to_words(fe_mul(q.Y, zi), enc);
-  enc[7] |= (uint32_t)fe_parity(fe_mul(q.X, zi)) << 31;
-  bool eq = true;
+  if (t < SIGS) {
+    const int idx = blockIdx.x * SIGS + t;
+    if (idx < n) {
+      bool eq = false;
+      if (ok[t]) {
+        Fe zi = fe_invert(get_fe(q_xyz[2], t));
+        uint32_t enc[8];
+        fe_to_words(fe_mul(get_fe(q_xyz[1], t), zi), enc);
+        enc[7] |= (uint32_t)fe_parity(fe_mul(get_fe(q_xyz[0], t), zi)) << 31;
+        eq = true;
 #pragma unroll
-  for (int k = 0; k < 8; k++) eq = eq && (enc[k] == rw[k]);
-  out[idx] = eq ? 1 : 0;
+        for (int k = 0; k < 8; k++) eq = eq && (enc[k] == r_words[8 * idx + k]);
+      }
+      out[idx] = eq ? 1 : 0;
+    }
+  }
 }
 
 }  // namespace
@@ -430,7 +564,7 @@ extern "C" int ed25519_verify_launch(const void* a_words, const void* r_words,
                                      const void* base_table, void* out, int n,
                                      void* stream) {
   if (n <= 0) return 0;
-  int blocks = (n + THREADS - 1) / THREADS;
+  int blocks = (n + SIGS - 1) / SIGS;
   ed25519_verify_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)a_words, (const uint32_t*)r_words,
       (const uint32_t*)s_bytes, (const uint32_t*)h_bytes,
