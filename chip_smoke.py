@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the ledger close's device plane through the entry points a node
-calls, at the sizes a close really has, and checks every result:
+Drives the ledger close's device plane and then a standalone node's
+closes through the entry points a node calls, at the sizes a close
+really has, and checks every result:
 
 1. device   — the card's name and power limit; builds the three CUDA
               kernels (one nvcc each, started together) and prints
@@ -23,24 +24,41 @@ calls, at the sizes a close really has, and checks every result:
               transaction SHAMap sealed by CudaHasher.hash_tree, then a
               3,000-write / 300-delete delta re-sealed: every root equal
               to the hashlib root, one readback per tree.
-5. times    — every kernel against its plain version again, exactly, at
+5. close    — a standalone node under a payment flood (CLOSE_SIZES):
+              1,000,000 AccountRoots resumed through
+              LedgerMaster.load_ledger, then 4 closes of 4,096 signed
+              Payments (~2% creating accounts, ~1% with a bad
+              signature). Each close verifies its batch once on the
+              verify plane (K1), applies every payment to the open
+              ledger and closes it (close_and_advance, both trees sealed
+              by CudaHasher: K2, K3). Every verdict and TER as expected,
+              no host signature check, K1 launched in every close, one
+              readback per sealed tree, and every ledger hash and
+              results digest equal to the JAX package's on the same
+              blobs (START_HASH, CLOSE_HASHES, CLOSE_DIGESTS; recomputed
+              by tests/test_torch_close.py's slow test:
+              JAX_PLATFORMS=cpu python -m pytest tests/test_torch_close.py -m slow -q -s).
+              Then K1 against its plain version on a close's batch.
+6. times    — every kernel against its plain version again, exactly, at
               the shapes the main path gave it: K1 on both flood
-              chunks, K2 on every leaf of the state and transaction
-              trees, K3 on the state tree's widest inner level; each
-              kernel and plain version timed with CUDA events on those
-              inputs, with its bound. K1 is timed again on the first
-              chunk with every S non-canonical and with every key
-              undecodable, which stop each lane before and after the
-              decode: the split of its time by phase.
+              chunks, K2 on every leaf of the
+              state and transaction trees, K3 on the state tree's widest
+              inner level; each kernel and plain version timed with CUDA
+              events on those inputs, with its bound. K1 is timed again
+              on the first chunk with every S non-canonical and with
+              every key undecodable, which stop each lane before and
+              after the decode: the split of its time by phase.
 
-Launch counts are zeroed just before phases 3-4 and read just after, so
-the kernels line shows the launches of the main path alone. Any failed
-check exits non-zero without the final line. Without a CUDA device, or
-without the package beside it, the script exits non-zero at once.
+Launch counts are zeroed just before phases 3-4 and read just after, and
+again around phase 5; the kernels line shows the sum, the launches of
+the main path alone. Any failed check exits non-zero without the final
+line. Without a CUDA device, or without the package beside it, the
+script exits non-zero at once.
 """
 
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
 import subprocess
@@ -350,6 +368,232 @@ def k3_inputs(inners, device, prefix: int):
 
 
 # --------------------------------------------------------------------------
+# the close phase: a payment flood through the node's own entry points
+
+
+def close_workload(n_accounts: int, n_senders: int, n_closes: int,
+                   per_close: int, seed: int) -> dict:
+    """Seeded inputs of the close phase, as plain bytes and ints:
+
+    - ``accounts``: n_accounts 20-byte account IDs, the first n_senders
+      those of keys made from the 32-byte ``sender_seeds``;
+    - ``closes``: per close, per_close Payments, the senders in turn
+      (each with its next sequence and a fee of 10 drops): ~97% to an
+      existing account (1-100 STR), ~2% to a new account (250 STR, above
+      the 200 STR reserve), ~1% with a planted bad signature; each entry
+      is (blob, kind, expected verdict).
+
+    Signed with the port's protocol/keys.py; a planted signature's
+    verdict is the RFC 8032 oracle's."""
+    import numpy as np
+
+    from stellard_tpu_torch.ops import ed25519_ref
+    from stellard_tpu_torch.protocol.formats import TxType
+    from stellard_tpu_torch.protocol.keys import KeyPair
+    from stellard_tpu_torch.protocol.sfields import sfAmount, sfDestination, sfTxnSignature
+    from stellard_tpu_torch.protocol.stamount import STAmount
+    from stellard_tpu_torch.protocol.sttx import SerializedTransaction
+
+    rng = np.random.default_rng(seed)
+    sender_seeds = [rng.bytes(32) for _ in range(n_senders)]
+    keys = [KeyPair.from_seed(sd) for sd in sender_seeds]
+    raw = rng.bytes(20 * (n_accounts - n_senders))
+    accounts = [k.account_id for k in keys] + [
+        raw[i : i + 20] for i in range(0, len(raw), 20)]
+    seqs = [1] * n_senders
+    closes = []
+    for _ in range(n_closes):
+        entries = []
+        for p in range(per_close):
+            i = p % n_senders
+            key = keys[i]
+            u = rng.random()
+            kind = "bad_sig" if u < 0.01 else "new_account" if u < 0.03 else "existing"
+            if kind == "new_account":
+                dst, drops = rng.bytes(20), 250_000_000
+            else:
+                j = i
+                while j == i:
+                    j = int(rng.integers(n_accounts))
+                dst, drops = accounts[j], int(rng.integers(1_000_000, 100_000_001))
+            tx = SerializedTransaction.build(
+                TxType.ttPAYMENT, key.account_id, seqs[i], 10,
+                {sfAmount: STAmount.from_drops(drops), sfDestination: dst})
+            tx.sign(key)
+            good = True
+            if kind == "bad_sig":
+                sig = bytearray(tx.signature)
+                sig[int(rng.integers(64))] ^= 1 << int(rng.integers(8))
+                tx.obj[sfTxnSignature] = bytes(sig)
+                good = ed25519_ref.verify(key.public, tx.signing_hash(), bytes(sig))
+            if good:
+                seqs[i] += 1  # a rejected payment does not use its sequence
+            entries.append((tx.serialize(), kind, good))
+        closes.append(entries)
+    return {"accounts": accounts, "sender_seeds": sender_seeds, "closes": closes}
+
+
+# the closed ledger the close phase resumes from (load_ledger); each
+# close k then closes at START_CLOSE_TIME + 30 * (k + 1), resolution 30
+START_SEQ = 1000
+START_CLOSE_TIME = 530_000_000
+START_PARENT_HASH = hashlib.sha512(b"chip_smoke close phase parent").digest()[:32]
+ACCOUNT_BALANCE = 10_000 * 1_000_000  # drops
+
+
+# the close phase's sizes, and what the JAX package's LedgerMaster gives
+# on the same inputs (recomputed by tests/test_torch_close.py's slow test:
+# JAX_PLATFORMS=cpu python -m pytest tests/test_torch_close.py -m slow -q -s)
+CLOSE_SIZES = dict(n_accounts=1_000_000, n_senders=4096, n_closes=4, per_close=4096,
+                   seed=21)
+START_HASH = "f51dc4a4014269ecee84a89e79f4ce0b18024d30b4b5abc10796acb5cab71fec"
+CLOSE_HASHES = [
+    "20ff96546196b21842d980b1e8b8b146fdeb0dee3915014c0ee5f87ee5049179",
+    "7a1b8bb8babe185d3274b5bb55b9d4c7c67f0ce6b1e13bdb3ceaa9ac3014085f",
+    "b27b6b870c9db21480cd5a6e900a58d56268f53879df22ffb473b32a4114f45b",
+    "421046184ab6c8c88bf987869e27afb77bd90fe275acfc3c8e3dee74636cc9a5",
+]
+CLOSE_DIGESTS = [
+    "33f90d045925ee1b65d4dbc53570f1c37b454af26fb207b41a1f1d74a3cf7f9a",
+    "05094a6b6dc5d0ac66bba7c278b8d4fe4fe0d196dcb6ed796588ca16bc02cc8b",
+    "c0bdbcf88e395df8b73d448490687eb5c5dd5bd61b8330be1f4ec5052f8b3a1b",
+    "423d0fb8893b6026977160d3fc0edb0c0114c29b20859cbba4709e41e69bb2fc",
+]
+
+
+def start_header() -> dict:
+    return {"seq": START_SEQ, "parent_hash": START_PARENT_HASH,
+            "close_time": START_CLOSE_TIME, "parent_close_time": START_CLOSE_TIME - 30,
+            "close_resolution": 30}
+
+
+def account_root_items(accounts):
+    """(key, data, node type) state leaves: one AccountRoot a 20-byte ID
+    (Sequence 1, ACCOUNT_BALANCE drops, as the genesis root's fields).
+    Every entry differs only in its Account bytes, so one serialized
+    template is spliced; the first entry is checked against STObject."""
+    from stellard_tpu_torch.protocol.formats import LedgerEntryType
+    from stellard_tpu_torch.protocol.sfields import (
+        sfAccount, sfBalance, sfFlags, sfLedgerEntryType, sfOwnerCount,
+        sfPreviousTxnID, sfPreviousTxnLgrSeq, sfSequence)
+    from stellard_tpu_torch.protocol.stamount import STAmount
+    from stellard_tpu_torch.protocol.stobject import STObject
+    from stellard_tpu_torch.state import indexes
+    from stellard_tpu_torch.state.shamap import TNType
+
+    def sle(account: bytes) -> bytes:
+        o = STObject()
+        o[sfLedgerEntryType] = int(LedgerEntryType.ltACCOUNT_ROOT)
+        o[sfAccount] = account
+        o[sfBalance] = STAmount.from_drops(ACCOUNT_BALANCE)
+        o[sfSequence] = 1
+        o[sfFlags] = 0
+        o[sfOwnerCount] = 0
+        o[sfPreviousTxnID] = b"\x00" * 32
+        o[sfPreviousTxnLgrSeq] = 0
+        return o.serialize()
+
+    marker = b"\xa5" * 20
+    head, tail = sle(marker).split(marker)
+    require(head + accounts[0] + tail == sle(accounts[0]), "AccountRoot template")
+    t = int(TNType.ACCOUNT_STATE)
+    return [(indexes.account_root_index(a), head + a + tail, t) for a in accounts]
+
+
+def results_digest(open_ters, close_results) -> str:
+    """SHA-256 over (txid, TER) of every submission in order, then of
+    every closed transaction in txid order; TERs as 4-byte signed ints."""
+    h = hashlib.sha256()
+    for txid, ter in open_ters:
+        h.update(txid + int(ter).to_bytes(4, "big", signed=True))
+    for txid in sorted(close_results):
+        h.update(txid + int(close_results[txid]).to_bytes(4, "big", signed=True))
+    return h.hexdigest()
+
+
+class GcClock:
+    """Wall ms the cyclic garbage collector ran (gc.callbacks), and how
+    many of its runs were full (generation 2) collections."""
+
+    def __init__(self):
+        self.ms = 0.0
+        self.full = 0
+        self._t0 = None
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.ms += (time.perf_counter() - self._t0) * 1e3
+            self.full += info["generation"] == 2
+            self._t0 = None
+
+
+def run_closes(wl: dict, hash_batch, verify_many, on_close=None) -> list[dict]:
+    """The port's standalone node over the workload: the start ledger
+    through LedgerMaster.load_ledger, then per close one batched verify
+    of its transactions (node/ledgertools._reverify_memoized, verdicts
+    memoized and flagged SF_SIGGOOD), do_transaction on each in
+    OPEN_LEDGER|RETRY mode and close_and_advance. Returns per close the
+    ledger hash, the results digest, the verdicts, the TERs and times."""
+    from stellard_tpu_torch.engine.engine import TxParams
+    from stellard_tpu_torch.interop import ledger_from_items
+    from stellard_tpu_torch.node.hashrouter import HashRouter
+    from stellard_tpu_torch.node.ledgermaster import LedgerMaster
+
+    t0 = time.perf_counter()
+    start = ledger_from_items(start_header(), account_root_items(wl["accounts"]),
+                              hash_batch=hash_batch)
+    t1 = time.perf_counter()
+    router = HashRouter()
+    lm = LedgerMaster(hash_batch=hash_batch, router=router)
+    lm.load_ledger(start)  # seals the whole state tree
+    t2 = time.perf_counter()
+    out = [{"build_state_ms": (t1 - t0) * 1e3, "load_ms": (t2 - t1) * 1e3,
+            "hash": start.hash().hex()}]
+    mode = TxParams.OPEN_LEDGER | TxParams.RETRY
+    gc_clock = GcClock()
+    gc.callbacks.append(gc_clock)
+    try:
+        for k, entries in enumerate(wl["closes"]):
+            out.append(_one_close(lm, router, verify_many, entries, k, mode, gc_clock))
+            if on_close is not None:
+                on_close(k, lm.closed_ledger())
+    finally:
+        gc.callbacks.remove(gc_clock)
+    return out
+
+
+def _one_close(lm, router, verify_many, entries, k: int, mode, gc_clock) -> dict:
+    """Close k of run_closes: verify, open apply, close_and_advance."""
+    from stellard_tpu_torch.node.ledgertools import _reverify_memoized
+    from stellard_tpu_torch.protocol.sttx import SerializedTransaction
+
+    gc_ms, gc_full = gc_clock.ms, gc_clock.full
+    ta = time.perf_counter()
+    txs = [SerializedTransaction.from_bytes(blob) for blob, _kind, _good in entries]
+    verdicts = _reverify_memoized(txs, verify_many, router)
+    tb = time.perf_counter()
+    open_ters = [(tx.txid(), lm.do_transaction(tx, mode)[0]) for tx in txs]
+    tc = time.perf_counter()
+    ledger, results = lm.close_and_advance(START_CLOSE_TIME + 30 * (k + 1), 30)
+    td = time.perf_counter()
+    last = lm.last_close
+    return {
+        "seq": ledger.seq, "hash": ledger.hash().hex(),
+        "digest": results_digest(open_ters, results),
+        "verdicts": verdicts, "open_ters": [int(t) for _, t in open_ters],
+        "close_ters": {txid: int(t) for txid, t in results.items()},
+        "wall_ms": (td - ta) * 1e3, "parse_verify_ms": (tb - ta) * 1e3,
+        "apply_ms": (tc - tb) * 1e3, "close_ms": (td - tc) * 1e3,
+        "seal_tx_ms": last["seal_tx_ms"], "seal_tx_nodes": last["seal_tx_nodes"],
+        "seal_state_ms": last["seal_state_ms"],
+        "seal_state_nodes": last["seal_state_nodes"],
+        "gc_ms": gc_clock.ms - gc_ms, "gc_full_collections": gc_clock.full - gc_full,
+    }
+
+
+# --------------------------------------------------------------------------
 
 
 def run(dev) -> None:
@@ -492,7 +736,10 @@ def run(dev) -> None:
          device_nodes=cuda_hasher.device_nodes, host_nodes=cuda_hasher.host_nodes)
     emit("launches", **launches)
 
-    # 5. K3 against plain, and times -----------------------------------------
+    # 5. the close phase, counted on its own ----------------------------------
+    close = close_phase(dev, name_power)
+
+    # 6. K3 against plain, and times -----------------------------------------
     inners = widest_inner_level(state.root)
     buf, template, child_rows, nkids, want = k3_inputs(inners, dev, HP_INNER_NODE)
     off = nkids
@@ -527,7 +774,7 @@ def run(dev) -> None:
         k1_main_err = max(k1_main_err, err)
         emit("k1_vs_plain_main", chunk_start=lo, lanes=int(got.numel()),
              max_abs_err=err, equal=True)
-    k1_err = max(k1_err, k1_main_err)
+    k1_err = max(k1_err, k1_main_err, close["k1_max_abs_err"])
     k1_b, k1_by = bound_ms(k1_ops(chunk_host), 130 * CHUNK, int32_rate)
 
     # K1's phases: the same chunk with every S non-canonical (each lane
@@ -594,19 +841,22 @@ def run(dev) -> None:
         dict(name="ed25519_verify", route="cuda",
              source="stellard_tpu_torch/csrc/ed25519_verify.cu",
              replaces="stellard_tpu/ops/ed25519_pallas.py:107",
-             launches=launches["ed25519_verify"], max_abs_err=k1_err,
+             launches=launches["ed25519_verify"] + close["launches"]["ed25519_verify"],
+             max_abs_err=k1_err,
              ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_b, bound_by=k1_by,
              library_ms=None),
         dict(name="sha512_masked", route="cuda",
              source="stellard_tpu_torch/csrc/sha512.cu",
              replaces="stellard_tpu/ops/treehash_jax.py:49",
-             launches=launches["sha512_masked"], max_abs_err=k2_err,
+             launches=launches["sha512_masked"] + close["launches"]["sha512_masked"],
+             max_abs_err=k2_err,
              ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=k2_b, bound_by=k2_by,
              library_ms=None),
         dict(name="tree_inner_level", route="cuda",
              source="stellard_tpu_torch/csrc/sha512.cu",
              replaces="stellard_tpu/parallel/mesh.py:149",
-             launches=launches["tree_inner_level"], max_abs_err=k3_err,
+             launches=launches["tree_inner_level"] + close["launches"]["tree_inner_level"],
+             max_abs_err=k3_err,
              ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_b, bound_by=k3_by,
              library_ms=None),
     ]
@@ -615,6 +865,105 @@ def run(dev) -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def close_phase(dev, name_power: str) -> dict:
+    """The standalone node under a payment flood (CLOSE_SIZES): 4 closes
+    of 4,096 signed Payments over 1,000,000 AccountRoots, each close one
+    batched verify on the card (K1), the transactor engine's open apply
+    and close, and both trees sealed by CudaHasher (K2, K3). Every
+    verdict, TER, ledger hash and results digest is checked; the launch
+    counts are this phase's alone."""
+    import numpy as np
+
+    from stellard_tpu_torch.crypto.backend import CudaHasher
+    from stellard_tpu_torch.node.verifyplane import VerifyPlane
+    from stellard_tpu_torch.ops import ed25519_cuda, treehash
+    from stellard_tpu_torch.ops.ed25519 import prepare_batch, to_tensors, verify_kernel_ref
+    from stellard_tpu_torch.protocol import keys
+    from stellard_tpu_torch.protocol.sttx import SerializedTransaction
+    from stellard_tpu_torch.protocol.ter import TER
+
+    t0 = time.perf_counter()
+    wl = close_workload(**CLOSE_SIZES)
+    inputs_s = time.perf_counter() - t0
+    hasher = CudaHasher(device=dev)
+    plane = VerifyPlane(backend="cuda", routing="device", backend_opts={"device": dev})
+    k1_per_close = []
+
+    def on_close(_k, _ledger):
+        k1_per_close.append(ed25519_cuda.launches)
+
+    ed25519_cuda.launches = 0
+    for k in treehash.launches:
+        treehash.launches[k] = 0
+    keys.host_verifies = 0
+    try:
+        t0 = time.perf_counter()
+        out = run_closes(wl, hasher, plane.verify_many, on_close)
+        closes_s = time.perf_counter() - t0
+    finally:
+        plane.stop()
+    launches = {"ed25519_verify": ed25519_cuda.launches, **treehash.launches}
+    host_verifies = keys.host_verifies
+
+    start, closes = out[0], out[1:]
+    pj = plane.get_json()
+    n_pay = sum(len(c) for c in wl["closes"])
+    for k, (c, entries) in enumerate(zip(closes, wl["closes"])):
+        kinds = [kind for _b, kind, _g in entries]
+        require(c["verdicts"] == [g for _b, _k, g in entries], f"close {k}: verdicts wrong")
+        want = [int(TER.temINVALID) if kd == "bad_sig" else int(TER.tesSUCCESS)
+                for kd in kinds]
+        require(c["open_ters"] == want, f"close {k}: open-ledger TERs wrong")
+        require(len(c["close_ters"]) == len(kinds) - kinds.count("bad_sig")
+                and set(c["close_ters"].values()) == {int(TER.tesSUCCESS)},
+                f"close {k}: closed TERs wrong")
+        require(c["hash"] == CLOSE_HASHES[k], f"close {k}: ledger hash {c['hash']} "
+                f"differs from the JAX package's {CLOSE_HASHES[k]}")
+        require(c["digest"] == CLOSE_DIGESTS[k], f"close {k}: results digest differs")
+    require(start["hash"] == START_HASH, "start ledger hash differs from the JAX package's")
+    require(host_verifies == 0, f"{host_verifies} host signature verifications on the close path")
+    require(pj["device_share"] == 1.0, f"close phase device share {pj['device_share']}")
+    require(all(b - a >= 1 for a, b in zip([0] + k1_per_close, k1_per_close)),
+            f"K1 was not launched in every close: {k1_per_close}")
+    tt = hasher.tree_transfers
+    require(tt.readbacks == hasher.tree_calls, f"readbacks {tt.readbacks} != tree calls "
+            f"{hasher.tree_calls}")
+    require(launches["sha512_masked"] > 0 and launches["tree_inner_level"] > 0,
+            "K2 or K3 never launched in the close phase")
+
+    # K1 against its plain version at the shape the close gave it (one
+    # close's batch, outside the counted run)
+    txs = [SerializedTransaction.from_bytes(b) for b, _k, _g in wl["closes"][0]]
+    tens = to_tensors(prepare_batch([tx.signing_pub_key for tx in txs],
+                                    [tx.signing_hash() for tx in txs],
+                                    [tx.signature for tx in txs]), dev)
+    got, plain = ed25519_cuda.verify(**tens), verify_kernel_ref(**tens)
+    k1_err = max_abs_err(got, plain)
+    require(k1_err == 0, "K1 differs from its plain version on a close's batch")
+    require(got.cpu().numpy().tolist() == closes[0]["verdicts"], "K1 verdicts on a close's batch")
+
+    summary = {
+        "card": name_power, "accounts": CLOSE_SIZES["n_accounts"],
+        "senders": CLOSE_SIZES["n_senders"], "closes": len(closes), "payments": n_pay,
+        "payments_per_s": n_pay / sum(c["wall_ms"] for c in closes) * 1e3,
+        "inputs_s": inputs_s, "build_state_ms": start["build_state_ms"],
+        "load_ms": start["load_ms"], "phase_s": closes_s,
+        "per_close": [{key: c[key] for key in (
+            "seq", "wall_ms", "parse_verify_ms", "apply_ms", "close_ms", "seal_state_ms",
+            "seal_state_nodes", "seal_tx_ms", "seal_tx_nodes", "gc_ms",
+            "gc_full_collections")} for c in closes],
+        "kinds": {kd: sum(kind == kd for c in wl["closes"] for _b, kind, _g in c)
+                  for kd in ("existing", "new_account", "bad_sig")},
+        "hashes_equal_jax": True, "host_verifies": host_verifies,
+        "device_share": pj["device_share"], "device_batches": pj["device_batches"],
+        "tree_calls": hasher.tree_calls, "readbacks": tt.readbacks,
+        "k1_launches_per_close": np.diff([0] + k1_per_close).tolist(),
+        "launches": launches,
+    }
+    emit("close", **summary)
+    return {"launches": launches, "k1_max_abs_err": k1_err}
 
 
 def leaf_blocks(m):

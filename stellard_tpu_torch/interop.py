@@ -1,8 +1,9 @@
 """Carry data from the JAX package's plain outputs into the port.
 
-Both functions take plain numpy arrays, bytes and ints — what a JAX
-``prepare_batch(..., device_put=False)`` returns, or the items read off
-a JAX SHAMap — so this module never imports ``stellard_tpu``.
+Every function takes plain numpy arrays, bytes and ints — what a JAX
+``prepare_batch(..., device_put=False)`` returns, or the header fields
+and items read off a JAX ledger and its SHAMaps — so this module never
+imports ``stellard_tpu``.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 
 from .ops.ed25519 import to_tensors
+from .state.ledger import Ledger
 from .state.shamap import SHAMap, SHAMapItem, TNType
 from .utils.device import resolve_device
 
@@ -54,3 +56,32 @@ def shamap_from_items(items, leaf_type: TNType = TNType.ACCOUNT_STATE,
     for t, group in by_type.items():
         m.bulk_update(group, leaf_type=t)
     return m
+
+
+# Ledger constructor arguments a header dict may carry (the names of
+# state.ledger.parse_header's fields)
+_HEADER_ARGS = ("seq", "parent_hash", "tot_coins", "fee_pool", "inflation_seq",
+                "close_time", "parent_close_time", "close_resolution", "close_flags")
+
+
+def ledger_from_items(header: dict, state_items, tx_items=(),
+                      hash_batch=None) -> Ledger:
+    """A closed ledger of the port from plain values read off another
+    ledger: `header` holds the fields ``parse_header`` names (``seq``,
+    ``parent_hash``, ``tot_coins``, ...; ``account_hash`` and
+    ``tx_hash``, when present, must equal the rebuilt trees' roots), and
+    `state_items` / `tx_items` are (key, data, node type) leaves. With
+    the same header and leaves its ``hash()`` equals the source
+    ledger's."""
+    kw = {"hash_batch": hash_batch} if hash_batch is not None else {}
+    led = Ledger(
+        **{k: header[k] for k in _HEADER_ARGS if k in header},
+        state_map=shamap_from_items(state_items, TNType.ACCOUNT_STATE, hash_batch),
+        tx_map=shamap_from_items(tx_items, TNType.TX_MD, hash_batch),
+        **kw,
+    )
+    led.closed = True
+    for key, m in (("account_hash", led.state_map), ("tx_hash", led.tx_map)):
+        if key in header and m.get_hash() != bytes(header[key]):
+            raise ValueError(f"{key} of the rebuilt tree differs from the header's")
+    return led

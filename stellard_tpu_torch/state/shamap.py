@@ -61,15 +61,20 @@ _LEAF_PREFIX = {
 
 class SHAMapItem:
     """A keyed blob: 32-byte tag (index) + serialized payload
-    (reference: src/ripple_app/shamap/SHAMapItem.h)."""
+    (reference: src/ripple_app/shamap/SHAMapItem.h).
 
-    __slots__ = ("tag", "data")
+    ``parsed`` memoizes the deserialized STObject for this (immutable)
+    blob, shared across the map versions that alias the item; consumers
+    copy before mutating (Ledger.read_entry does)."""
+
+    __slots__ = ("tag", "data", "parsed")
 
     def __init__(self, tag: bytes, data: bytes):
         if len(tag) != 32:
             raise ValueError(f"SHAMapItem tag must be 32 bytes, got {len(tag)}")
         self.tag = tag
         self.data = data
+        self.parsed = None
 
     def __eq__(self, other):
         return (

@@ -1,9 +1,13 @@
 """Protocol hash primitives.
 
-The reference derives every tree hash from **SHA-512-half**: the first
-256 bits of SHA-512 over the payload, with an optional 4-byte big-endian
-domain-separation prefix (reference: src/ripple_data/protocol/
-Serializer.cpp:342-390, HashPrefix.cpp:25-32).
+The reference derives every identity and tree hash from two constructions
+(reference: src/ripple_data/protocol/Serializer.cpp:342-390,
+src/ripple/sslutil/api/HashUtilities.h:32-54):
+
+- **SHA-512-half**: the first 256 bits of SHA-512 over the payload, with an
+  optional 4-byte big-endian domain-separation prefix
+  (src/ripple_data/protocol/HashPrefix.cpp:25-32).
+- **Hash160**: RIPEMD160(SHA256(payload)) — account IDs from public keys.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ __all__ = [
     "HP_TX_SIGN",
     "HP_VALIDATION",
     "HP_PROPOSAL",
+    "hash160",
+    "sha256d_checksum",
 ]
 
 
@@ -51,3 +57,25 @@ def prefix_hash(prefix: int, data: bytes) -> bytes:
     """SHA-512-half of (4-byte BE prefix || data)
     (reference: Serializer.cpp:380-390, getPrefixHash)."""
     return hashlib.sha512(prefix.to_bytes(4, "big") + data).digest()[:32]
+
+
+def hash160(data: bytes) -> bytes:
+    """RIPEMD160(SHA256(data)) — 20-byte account ID from a public key
+    (reference: sslutil HashUtilities Hash160; StellarPublicKey.cpp:37-40).
+    OpenSSL 3 builds may lack ripemd160; the pure-Python digest is then
+    used."""
+    inner = hashlib.sha256(data).digest()
+    try:
+        h = hashlib.new("ripemd160")
+    except ValueError:
+        from .ripemd160 import ripemd160
+
+        return ripemd160(inner)
+    h.update(inner)
+    return h.digest()
+
+
+def sha256d_checksum(data: bytes) -> bytes:
+    """First 4 bytes of SHA256(SHA256(data)) — Base58Check checksum
+    (reference: src/ripple/types/impl/Base58.cpp encodeWithCheck)."""
+    return hashlib.sha256(hashlib.sha256(data).digest()).digest()[:4]
