@@ -3,12 +3,12 @@
 
     python3 chip_smoke.py
 
-Drives the ledger close's device plane and then a standalone node's
-closes through the entry points a node calls, at the sizes a close
-really has, and checks every result:
+Drives the ledger close's device plane, then a standalone node's
+closes and its order book and path searches, through the entry points a
+node calls, at the sizes a close really has, and checks every result:
 
-1. device   — the card's name and power limit; builds the three CUDA
-              kernels (one nvcc each, started together) and prints
+1. device   — the card's name and power limit; builds the four CUDA
+              kernels (one nvcc a source, started together) and prints
               ptxas' registers and spills.
 2. kernels  — K1 (Ed25519 verify) on the adversarial corpus and 4,096
               random lanes, K2 (masked SHA-512) on 4,096 messages at
@@ -39,21 +39,42 @@ really has, and checks every result:
               by tests/test_torch_close.py's slow test:
               JAX_PLATFORMS=cpu python -m pytest tests/test_torch_close.py -m slow -q -s).
               Then K1 against its plain version on a close's batch.
-6. times    — every kernel against its plain version again, exactly, at
+6. book     — the order book on the same chain (BOOK_SIZES, BASELINE
+              configs #2 and #3): 16 gateways issuing 32 IOUs (four set a
+              TransferRate), 2,048 traders with two trust lines each,
+              1,024 of them with a regular key; then 4,096 issuing
+              payments; then two closes of 4,096 transactions (offer
+              asks and bids on overlapping price ladders over 32 IOU/STR
+              and 32 IOU/IOU markets, cancels, AccountSets signed with
+              the regular key, cross-currency path payments, merges, ~1%
+              bad signatures). Each close verified by K1, applied by the
+              port's transactors, sealed by K2/K3, and the path plane's
+              live book index advanced; then 64 path searches on the last
+              ledger, pre-ranked by K4 through PathPlane(evaluator=
+              make_path_evaluator(routing="device")) with the prune floor
+              BOOK_PRUNE_FLOOR. Every verdict as expected, every ledger
+              hash and results digest and the digest of the path answers
+              equal to the JAX package's (BOOK_HASHES, BOOK_DIGESTS,
+              PATHS_DIGEST, from the same slow test), no host signature
+              check, one readback per sealed tree, K1-K4 launched. Then
+              K4 against its plain version on every batch it ranked.
+7. times    — every kernel against its plain version again, exactly, at
               the shapes the main path gave it: K1 on both flood
               chunks, K2 on every leaf of the
               state and transaction trees, K3 on the state tree's widest
-              inner level; each kernel and plain version timed with CUDA
-              events on those inputs, with its bound. K1 is timed again
-              on the first chunk with every S non-canonical and with
-              every key undecodable, which stop each lane before and
+              inner level, K4 on a 1,048,576 x 8 rate matrix (identity
+              and saturating rows among rates near 1.0, also held to the
+              NumPy host arm); each kernel and plain version timed with
+              CUDA events on those inputs, with its bound. K1 is timed
+              again on the first chunk with every S non-canonical and
+              with every key undecodable, which stop each lane before and
               after the decode: the split of its time by phase.
 
 Launch counts are zeroed just before phases 3-4 and read just after, and
-again around phase 5; the kernels line shows the sum, the launches of
-the main path alone. Any failed check exits non-zero without the final
-line. Without a CUDA device, or without the package beside it, the
-script exits non-zero at once.
+again around phase 5 and around phase 6; the kernels line shows the sum,
+the launches of the main path alone. Any failed check exits non-zero
+without the final line. Without a CUDA device, or without the package
+beside it, the script exits non-zero at once.
 """
 
 from __future__ import annotations
@@ -75,6 +96,7 @@ N_SUBMIT = 4096
 N_STATE = 1_000_000
 N_TX = N_FLOOD
 N_DELTA = 3000
+K4_ROWS = 1 << 20  # K4's timed matrix: 1,048,576 candidate paths
 N_DEL = N_DELTA // 10
 K2_LANES = 4096  # per ladder size, kernel-vs-plain comparison
 
@@ -99,6 +121,10 @@ HBM_BYTES_PER_S = 3.35e12
 FE_MUL_OPS = 64 * 2
 FE_SQ_OPS = 36 * 2
 SHA_BLOCK_OPS = 80 * 28 + 64 * 20 + 16
+# K4, per hop: the 32x32->64 product (lo and hi: 2), the funnel shift
+# that takes bits 16..47 (1), the compare of the high bits (1) and the
+# saturating select (1)
+K4_HOP_OPS = 5
 # (field multiplies, field squarings) of K1 per signature, by phase
 # (csrc/ed25519_verify.cu). The chain to a^(2^250-1) squares 249 times.
 CHAIN_250 = (10, 249)
@@ -430,7 +456,8 @@ def close_workload(n_accounts: int, n_senders: int, n_closes: int,
                 seqs[i] += 1  # a rejected payment does not use its sequence
             entries.append((tx.serialize(), kind, good))
         closes.append(entries)
-    return {"accounts": accounts, "sender_seeds": sender_seeds, "closes": closes}
+    return {"accounts": accounts, "sender_seeds": sender_seeds, "closes": closes,
+            "next_seqs": seqs}
 
 
 # the closed ledger the close phase resumes from (load_ledger); each
@@ -529,13 +556,14 @@ class GcClock:
             self._t0 = None
 
 
-def run_closes(wl: dict, hash_batch, verify_many, on_close=None) -> list[dict]:
+def run_closes(wl: dict, hash_batch, verify_many, on_close=None) -> tuple[list[dict], dict]:
     """The port's standalone node over the workload: the start ledger
     through LedgerMaster.load_ledger, then per close one batched verify
     of its transactions (node/ledgertools._reverify_memoized, verdicts
     memoized and flagged SF_SIGGOOD), do_transaction on each in
     OPEN_LEDGER|RETRY mode and close_and_advance. Returns per close the
-    ledger hash, the results digest, the verdicts, the TERs and times."""
+    ledger hash, the results digest, the verdicts, the TERs and times,
+    and the node (``lm``, ``router``) for the book phase to go on with."""
     from stellard_tpu_torch.engine.engine import TxParams
     from stellard_tpu_torch.interop import ledger_from_items
     from stellard_tpu_torch.node.hashrouter import HashRouter
@@ -561,7 +589,7 @@ def run_closes(wl: dict, hash_batch, verify_many, on_close=None) -> list[dict]:
                 on_close(k, lm.closed_ledger())
     finally:
         gc.callbacks.remove(gc_clock)
-    return out
+    return out, {"lm": lm, "router": router}
 
 
 def _one_close(lm, router, verify_many, entries, k: int, mode, gc_clock) -> dict:
@@ -594,6 +622,272 @@ def _one_close(lm, router, verify_many, entries, k: int, mode, gc_clock) -> dict
 
 
 # --------------------------------------------------------------------------
+# the book phase: the order book on the same chain (BASELINE configs #2, #3)
+
+ISO_CODES = ("USD", "EUR", "JPY", "GBP", "CNY", "BTC", "AUD", "CHF")
+# TransferRate of the first gateways (parts per billion: 1.002-1.010)
+TRANSFER_RATES = (1_002_000_000, 1_005_000_000, 1_008_000_000, 1_010_000_000)
+
+
+def book_workload(wl: dict, n_gateways: int, n_traders: int, n_regular: int,
+                  per_close: int, n_merges: int, n_requests: int, seed: int) -> dict:
+    """Seeded inputs of the book phase, on the senders of close_workload
+    `wl` after its closes (their next sequences in ``wl["next_seqs"]``):
+
+    - the first n_gateways senders are gateways; gateway g issues two
+      currency codes (ISO_CODES in turn, so every code has several
+      issuers): IOU j = (code j % 8, gateway j // 2), 2 * n_gateways IOUs,
+      each with a mid price of 0.5 + 0.05 j STR;
+    - the next n_traders senders are traders: trader t trusts IOU
+      a = t % n_iou and a + 1, so it can trade a/STR, (a+1)/STR and the
+      IOU/IOU market a/(a+1): n_iou IOU/STR and n_iou IOU/IOU markets;
+    - the rest are plain accounts; 2 * n_merges of them merge pairwise.
+
+    ``closes`` holds four closes of (blob, kind, expected verdict):
+
+    1. setup: TransferRate AccountSets by the first gateways, the
+       traders' TrustSets (two each), and SetRegularKey by the first
+       n_regular traders;
+    2. one issuing Payment a trust line, gateway to trader;
+    3-4. per_close transactions each: half the merges, then ~40% asks
+       and ~40% bids on price ladders around the mid that overlap (some
+       rest, some cross fully or in part), ~12% OfferCancel of a live
+       offer, ~4% AccountSet (a TransferRate) signed with the trader's
+       regular key, ~2% cross-currency Payments with a SendMax and an
+       explicit path through the STR books, ~2% more asks; ~1% of all
+       carry a corrupted signature (temINVALID, their sequence unused).
+
+    ``requests`` holds n_requests path searches on the last ledger:
+    (source, destination, delivered amount, SendMax or None)."""
+    import numpy as np
+
+    from stellard_tpu_torch.ops import ed25519_ref
+    from stellard_tpu_torch.protocol.formats import TxType
+    from stellard_tpu_torch.protocol.keys import KeyPair
+    from stellard_tpu_torch.protocol.sfields import (
+        sfAmount, sfDestination, sfLimitAmount, sfOfferSequence, sfPaths,
+        sfRegularKey, sfSendMax, sfTakerGets, sfTakerPays, sfTransferRate,
+        sfTxnSignature)
+    from stellard_tpu_torch.protocol.stamount import STAmount, currency_from_iso
+    from stellard_tpu_torch.protocol.stobject import PathElement, STPathSet
+    from stellard_tpu_torch.protocol.sttx import SerializedTransaction
+
+    rng = np.random.default_rng(seed)
+    keys = [KeyPair.from_seed(sd) for sd in wl["sender_seeds"]]
+    seqs = list(wl["next_seqs"])
+    n_iou = 2 * n_gateways
+    gw = list(range(n_gateways))
+    tr = list(range(n_gateways, n_gateways + n_traders))
+    plain = list(range(n_gateways + n_traders, len(keys)))
+    require(len(plain) >= 2 * n_merges and n_regular <= n_traders, "book sizes")
+    reg_keys = {t: KeyPair.from_seed(rng.bytes(32)) for t in tr[:n_regular]}
+    code = [currency_from_iso(ISO_CODES[j % len(ISO_CODES)]) for j in range(n_iou)]
+    issuer = [keys[gw[j // 2]].account_id for j in range(n_iou)]
+    mid = [0.5 + 0.05 * j for j in range(n_iou)]
+    # the second line: the next IOU (another code) for even traders; for
+    # odd ones the same code from another gateway (market makers that
+    # bridge gateways), when there are more IOUs than codes
+    same = len(ISO_CODES) if n_iou > len(ISO_CODES) else 1
+    held = {t: ((t - tr[0]) % n_iou,
+                ((t - tr[0]) % n_iou + (same if (t - tr[0]) % 2 else 1)) % n_iou)
+            for t in tr}
+    xrp = b"\x00" * 20
+
+    def iou(j: int, units: float) -> STAmount:
+        return STAmount.from_iou(code[j], issuer[j], int(round(units * 100)), -2)
+
+    def drops(units_str: float) -> STAmount:
+        return STAmount.from_drops(int(round(units_str * 1_000_000)))
+
+    def tx_of(who: int, tx_type, fields: dict, signer=None):
+        tx = SerializedTransaction.build(tx_type, keys[who].account_id, seqs[who], 10, fields)
+        tx.sign(signer or keys[who])
+        return tx
+
+    def entry(who: int, tx, kind: str, corrupt: bool = False):
+        good = True
+        if corrupt:
+            sig = bytearray(tx.signature)
+            sig[int(rng.integers(64))] ^= 1 << int(rng.integers(8))
+            tx.obj[sfTxnSignature] = bytes(sig)
+            good = ed25519_ref.verify(tx.signing_pub_key, tx.signing_hash(), bytes(sig))
+            kind = "bad_sig" if not good else kind
+        if good:
+            seqs[who] += 1
+        return (tx.serialize(), kind, good), good
+
+    # 1. setup
+    setup = []
+    for g, rate in zip(gw, TRANSFER_RATES):
+        setup.append(entry(g, tx_of(g, TxType.ttACCOUNT_SET, {sfTransferRate: rate}),
+                           "transfer_rate")[0])
+    for t in tr:
+        for j in held[t]:
+            setup.append(entry(t, tx_of(t, TxType.ttTRUST_SET, {
+                sfLimitAmount: STAmount.from_iou(code[j], issuer[j], 1_000_000, 0)}),
+                "trust_set")[0])
+        if t in reg_keys:
+            setup.append(entry(t, tx_of(t, TxType.ttREGULAR_KEY_SET, {
+                sfRegularKey: reg_keys[t].account_id}), "regular_key_set")[0])
+    # 2. issuance
+    issue = []
+    for t in tr:
+        for j in held[t]:
+            g = gw[j // 2]
+            issue.append(entry(g, tx_of(g, TxType.ttPAYMENT, {
+                sfDestination: keys[t].account_id,
+                sfAmount: iou(j, int(rng.integers(1000, 5001)))}), "issue")[0])
+    # 3-4. the order book
+    live: list[tuple[int, int]] = []  # (trader, offer sequence)
+    merges = [(plain[i], plain[i + n_merges]) for i in range(n_merges)]
+    closes = [setup, issue]
+    for c in range(2):
+        entries = []
+        for src, dst in merges[c * n_merges // 2 : (c + 1) * n_merges // 2]:
+            entries.append(entry(src, tx_of(src, TxType.ttACCOUNT_MERGE, {
+                sfDestination: keys[dst].account_id}), "account_merge")[0])
+        for k in range(per_close - len(entries)):
+            t = tr[(c * per_close + k) % n_traders]
+            a, b = held[t]
+            u = rng.random()
+            corrupt = rng.random() < 0.01
+            if u < 0.12 and live:
+                owner, oseq = live.pop(int(rng.integers(len(live))))
+                e, ok = entry(owner, tx_of(owner, TxType.ttOFFER_CANCEL,
+                                           {sfOfferSequence: oseq}), "offer_cancel", corrupt)
+                if not ok:
+                    live.append((owner, oseq))
+                entries.append(e)
+                continue
+            if 0.12 <= u < 0.16 and t in reg_keys:
+                entries.append(entry(t, tx_of(t, TxType.ttACCOUNT_SET, {
+                    sfTransferRate: 1_000_000_000 + int(rng.integers(0, 7)) * 1_000_000},
+                    signer=reg_keys[t]), "regular_key_account_set", corrupt)[0])
+                continue
+            if 0.16 <= u < 0.18:
+                # pay a trader who holds an IOU this one does not, in that
+                # IOU, spending this one's IOU a through the STR books
+                v = tr[int(rng.integers(n_traders))]
+                cj = held[v][0] if held[v][0] not in held[t] else held[v][1]
+                if v == t or cj in held[t]:
+                    cj, v = None, None
+                if v is not None:
+                    units = int(rng.integers(1, 21))
+                    fields = {sfDestination: keys[v].account_id, sfAmount: iou(cj, units),
+                              sfSendMax: iou(a, units * mid[cj] / mid[a] * 1.5),
+                              sfPaths: STPathSet([[PathElement(currency=xrp),
+                                                   PathElement(currency=code[cj],
+                                                               issuer=issuer[cj])]])}
+                    entries.append(entry(t, tx_of(t, TxType.ttPAYMENT, fields),
+                                         "cross_payment", corrupt)[0])
+                    continue
+            # an offer: IOU/STR on a or b, or the IOU/IOU market a/(a+1)
+            ask = u < 0.58 or u >= 0.98
+            m = int(rng.integers(3))
+            units = int(rng.integers(1, 51))
+            step = int(rng.integers(-2, 8)) * 0.002
+            if m < 2:
+                j = (a, b)[m]
+                price = mid[j] * (1 + step if ask else 1 - step)
+                pays, gets = ((drops(units * price), iou(j, units)) if ask
+                              else (iou(j, units), drops(units * price)))
+            else:
+                price = mid[a] / mid[b] * (1 + step if ask else 1 - step)
+                pays, gets = ((iou(b, units * price), iou(a, units)) if ask
+                              else (iou(a, units), iou(b, units * price)))
+            oseq = seqs[t]
+            e, ok = entry(t, tx_of(t, TxType.ttOFFER_CREATE,
+                                   {sfTakerPays: pays, sfTakerGets: gets}),
+                          "offer_ask" if ask else "offer_bid", corrupt)
+            if ok:
+                live.append((t, oseq))
+            entries.append(e)
+        closes.append(entries)
+    # path searches on the last ledger
+    requests = []
+    while len(requests) < n_requests:
+        t, v = (tr[int(i)] for i in rng.integers(n_traders, size=2))
+        cj = held[v][int(rng.integers(2))]
+        if t == v or cj in held[t]:
+            continue
+        if same > 1 and len(requests) % 4 < 2 and code[cj] != code[held[t][0]]:
+            continue  # half the searches: the same currency, another issuer
+        amount = iou(cj, int(rng.integers(1, 11)))
+        send_max = iou(held[t][0], 10_000) if len(requests) % 2 else None
+        requests.append((keys[t].account_id, keys[v].account_id, amount, send_max))
+    return {"closes": closes, "requests": requests, "n_iou": n_iou}
+
+
+def paths_digest(answers) -> str:
+    """SHA-256 over every request's answers (either package's objects):
+    per alternative its paths' (account, currency, issuer) elements and
+    the wire bytes of its source and delivered amounts."""
+    h = hashlib.sha256()
+    for alts in answers:
+        h.update(len(alts).to_bytes(4, "big"))
+        for alt in alts:
+            for path in alt["paths"]:
+                h.update(b"P")
+                for e in path:
+                    for part in (e.account, e.currency, e.issuer):
+                        h.update(b"-" if part is None else part)
+            h.update(b"S" + alt["source_amount"].wire_bytes())
+            h.update(b"D" + alt["delivered"].wire_bytes())
+    return h.hexdigest()
+
+
+def run_book(node: dict, bwl: dict, verify_many, plane, first_close: int,
+             on_close=None) -> dict:
+    """The book phase on the node run_closes left: the order book's
+    closes (verify, open apply, close_and_advance as the close phase,
+    then ``plane.note_close``), then every path search of ``bwl`` on the
+    last ledger as the node's path_find door makes it (books from the
+    plane's live index, candidates pre-ranked by the plane)."""
+    from stellard_tpu_torch.engine.engine import TxParams
+    from stellard_tpu_torch.paths import find_paths
+
+    lm, router = node["lm"], node["router"]
+    t0 = time.perf_counter()
+    plane.note_close(lm.closed_ledger())  # the first advance: a full scan
+    index_ms = (time.perf_counter() - t0) * 1e3
+    mode = TxParams.OPEN_LEDGER | TxParams.RETRY
+    gc_clock = GcClock()
+    gc.callbacks.append(gc_clock)
+    closes = []
+    try:
+        for k, entries in enumerate(bwl["closes"]):
+            rec = _one_close(lm, router, verify_many, entries, first_close + k, mode,
+                             gc_clock)
+            t1 = time.perf_counter()
+            plane.note_close(lm.closed_ledger())
+            rec["index_ms"] = (time.perf_counter() - t1) * 1e3
+            closes.append(rec)
+            if on_close is not None:
+                on_close(k, lm.closed_ledger())
+        ledger = lm.closed_ledger()
+        candidates = []
+        pre_rank = plane.make_pre_rank(ledger)
+
+        def counted(les, cands):
+            candidates.append(len(cands))
+            return pre_rank(les, cands)
+
+        t2 = time.perf_counter()
+        answers = [
+            find_paths(ledger, src, dst, amount, send_max=send_max,
+                       books=plane.books_if_current(ledger), pre_rank=counted)
+            for src, dst, amount, send_max in bwl["requests"]
+        ]
+        paths_ms = (time.perf_counter() - t2) * 1e3
+    finally:
+        gc.callbacks.remove(gc_clock)
+    return {"closes": closes, "index_ms": index_ms, "answers": answers,
+            "paths_digest": paths_digest(answers), "paths_ms": paths_ms,
+            "candidates": candidates, "gc_ms_paths": gc_clock.ms
+            - sum(c["gc_ms"] for c in closes)}
+
+
+# --------------------------------------------------------------------------
 
 
 def run(dev) -> None:
@@ -603,7 +897,7 @@ def run(dev) -> None:
 
     from stellard_tpu_torch.crypto.backend import CpuHasher, CudaHasher, VerifyRequest
     from stellard_tpu_torch.node.verifyplane import VerifyPlane
-    from stellard_tpu_torch.ops import build, ed25519_cuda, ed25519_ref, treehash
+    from stellard_tpu_torch.ops import build, ed25519_cuda, ed25519_ref, pathq, treehash
     from stellard_tpu_torch.ops.ed25519 import prepare_batch, to_tensors, verify_kernel_ref
     from stellard_tpu_torch.ops.ed25519_cases import adversarial_cases
     from stellard_tpu_torch.ops.sha512 import digest_to_bytes
@@ -622,7 +916,7 @@ def run(dev) -> None:
          sms=props.multi_processor_count, max_sm_clock_mhz=clock_mhz,
          torch=torch.__version__, cuda=torch.version.cuda)
     t0 = time.perf_counter()
-    build.build([ed25519_cuda.LIB, treehash.LIB])
+    build.build([ed25519_cuda.LIB, treehash.LIB, pathq.LIB])
     build_s = time.perf_counter() - t0
     ptxas = {
         lib: [ln.strip() for ln in log.splitlines()
@@ -739,7 +1033,12 @@ def run(dev) -> None:
     # 5. the close phase, counted on its own ----------------------------------
     close = close_phase(dev, name_power)
 
-    # 6. K3 against plain, and times -----------------------------------------
+    # 6. the book phase on the same chain, counted on its own -----------------
+    book = book_phase(dev, name_power, close)
+    close_launches, close_k1_err = close["launches"], close["k1_max_abs_err"]
+    del close
+
+    # 7. K3 and K4 against plain, and times -----------------------------------
     inners = widest_inner_level(state.root)
     buf, template, child_rows, nkids, want = k3_inputs(inners, dev, HP_INNER_NODE)
     off = nkids
@@ -774,7 +1073,7 @@ def run(dev) -> None:
         k1_main_err = max(k1_main_err, err)
         emit("k1_vs_plain_main", chunk_start=lo, lanes=int(got.numel()),
              max_abs_err=err, equal=True)
-    k1_err = max(k1_err, k1_main_err, close["k1_max_abs_err"])
+    k1_err = max(k1_err, k1_main_err, close_k1_err)
     k1_b, k1_by = bound_ms(k1_ops(chunk_host), 130 * CHUNK, int32_rate)
 
     # K1's phases: the same chunk with every S non-canonical (each lane
@@ -831,33 +1130,61 @@ def run(dev) -> None:
                            template.numel() * 4 + child_rows.numel() * 4
                            + 32 * nkids + 32 * n3, int32_rate)
 
+    # K4 on a 1,048,576 x 8 matrix: against its plain version and the host
+    # arm, exactly; timed. Bound: each rate read once and each composite
+    # written once; per hop one 32x32->64 product (2 INT32 issue slots), a
+    # funnel shift, a compare and a select (5 slots)
+    k4_np = k4_matrix(K4_ROWS, seed=41)
+    k4_t = torch.from_numpy(k4_np).to(dev)
+    k4_ms, k4_got = cuda_ms(lambda: pathq.path_quality(k4_t), reps=20)
+    k4_plain_ms, k4_plain = cuda_ms(lambda: pathq.path_quality_ref(k4_t), reps=3)
+    k4_err = max_abs_err(k4_got, k4_plain)
+    require(k4_err == 0, "K4 differs from its plain version on the 1,048,576-row matrix")
+    require(np.array_equal(k4_got.cpu().numpy(), pathq.path_quality_host(k4_np)),
+            "K4 differs from the host arm on the 1,048,576-row matrix")
+    k4_err = max(k4_err, book["k4_max_abs_err"])
+    rows, hops = k4_np.shape
+    k4_b, k4_by = bound_ms(rows * hops * K4_HOP_OPS, rows * hops * 4 + rows * 4, int32_rate)
+    emit("k4_vs_plain", rows=rows, hops=hops, max_abs_err=k4_err, equal_host=True,
+         saturated_rows=int((k4_got == pathq.Q16_MAX).sum().item()))
+    del k4_t, k4_got, k4_plain
+
     emit("times", card=name_power, host_prep_ms_per_chunk=prep_ms, chunk=CHUNK,
          flood_sigs_per_s=N_FLOOD / flood_s,
          seal_ms={k: v["seal_ms"] for k, v in seals.items()},
          hashlib_seal_ms={k: v["hashlib_seal_ms"] for k, v in seals.items()},
-         k1_shape=[CHUNK], k2_shape=k2_shape, k3_nodes=n3,
+         k1_shape=[CHUNK], k2_shape=k2_shape, k3_nodes=n3, k4_shape=[rows, hops],
          int32_ops_per_s=int32_rate, total_s=time.perf_counter() - t_start)
     kernels = [
         dict(name="ed25519_verify", route="cuda",
              source="stellard_tpu_torch/csrc/ed25519_verify.cu",
              replaces="stellard_tpu/ops/ed25519_pallas.py:107",
-             launches=launches["ed25519_verify"] + close["launches"]["ed25519_verify"],
+             launches=(launches["ed25519_verify"] + close_launches["ed25519_verify"]
+                       + book["launches"]["ed25519_verify"]),
              max_abs_err=k1_err,
              ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_b, bound_by=k1_by,
              library_ms=None),
         dict(name="sha512_masked", route="cuda",
              source="stellard_tpu_torch/csrc/sha512.cu",
              replaces="stellard_tpu/ops/treehash_jax.py:49",
-             launches=launches["sha512_masked"] + close["launches"]["sha512_masked"],
+             launches=(launches["sha512_masked"] + close_launches["sha512_masked"]
+                       + book["launches"]["sha512_masked"]),
              max_abs_err=k2_err,
              ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=k2_b, bound_by=k2_by,
              library_ms=None),
         dict(name="tree_inner_level", route="cuda",
              source="stellard_tpu_torch/csrc/sha512.cu",
              replaces="stellard_tpu/parallel/mesh.py:149",
-             launches=launches["tree_inner_level"] + close["launches"]["tree_inner_level"],
+             launches=(launches["tree_inner_level"] + close_launches["tree_inner_level"]
+                       + book["launches"]["tree_inner_level"]),
              max_abs_err=k3_err,
              ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_b, bound_by=k3_by,
+             library_ms=None),
+        dict(name="path_quality", route="cuda",
+             source="stellard_tpu_torch/csrc/path_quality.cu",
+             replaces="stellard_tpu/ops/pathq_jax.py:68",
+             launches=book["launches"]["path_quality"], max_abs_err=k4_err,
+             ms=k4_ms, plain_ms=k4_plain_ms, bound_ms=k4_b, bound_by=k4_by,
              library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -900,7 +1227,7 @@ def close_phase(dev, name_power: str) -> dict:
     keys.host_verifies = 0
     try:
         t0 = time.perf_counter()
-        out = run_closes(wl, hasher, plane.verify_many, on_close)
+        out, node = run_closes(wl, hasher, plane.verify_many, on_close)
         closes_s = time.perf_counter() - t0
     finally:
         plane.stop()
@@ -963,7 +1290,174 @@ def close_phase(dev, name_power: str) -> dict:
         "launches": launches,
     }
     emit("close", **summary)
-    return {"launches": launches, "k1_max_abs_err": k1_err}
+    return {"launches": launches, "k1_max_abs_err": k1_err, "wl": wl, "node": node,
+            "hasher": hasher}
+
+
+# the book phase's sizes (BASELINE configs #2 and #3 on the close phase's
+# chain), and the path plane's prune floor for both packages: the
+# JAX node's `[paths] prune_floor` knob (its default is 64, and no search
+# of this graph reaches 64 candidates; see PERF.md)
+BOOK_SIZES = dict(n_gateways=16, n_traders=2048, n_regular=1024, per_close=4096,
+                  n_merges=16, n_requests=64, seed=31)
+BOOK_PRUNE_FLOOR = 32
+# what the JAX package gives on the same blobs (recomputed by
+# tests/test_torch_close.py's slow test, with CLOSE_*)
+BOOK_HASHES = [
+    "609aaf605b5d694d75af4fbaf3591c7de6df681ee34ec02d58e50c93a908e09a",
+    "11944a7086f9b19fb6eb7e5341cdefe9d38aac53207ce4db14671f9caf70d96d",
+    "3b2d55bcb84b98cbe6498a312012c10ba310aa2799ed1e81a06078840dd9ed1c",
+    "e70b269d6a4651cde3d40f04da9ee180230a94327b42da6dff1ec29aa17d0e52",
+]
+BOOK_DIGESTS = [
+    "f3988b0ce045cd379c1c13800ea1df98f714c72e7d6d4913c19388d8f8d2c261",
+    "f9cb231bc438d5ff433f7a498032465d15dd6b2c1346f32e1dfe47b5e70f33a5",
+    "68ff64f7593af429f904333b825242380210aceab6dd55417e1a20ee39dc995f",
+    "4fc5989d720f705e3d7440daf7d978391ee301dc106e047a2dfcecd419f721bc",
+]
+PATHS_DIGEST = "ce09b9dbd40e98226cd326b620dac943c828fb4d9c34e7a83362750e09dec1c4"
+
+
+def _expect_open_ters(entries) -> list[int]:
+    """In an open ledger every well-signed transaction of the book phase
+    passes its checks; a corrupted signature answers temINVALID."""
+    from stellard_tpu_torch.protocol.ter import TER
+
+    return [int(TER.temINVALID) if kind == "bad_sig" else int(TER.tesSUCCESS)
+            for _b, kind, _g in entries]
+
+
+def book_phase(dev, name_power: str, close: dict) -> dict:
+    """The order book on the close phase's chain (BOOK_SIZES): four
+    closes of book_workload — every signature verified on the card (K1),
+    every transaction applied by the port's transactors, both trees
+    sealed by CudaHasher (K2, K3), the path plane's live book index
+    advanced after each — then the path searches on the last ledger,
+    pre-ranked by K4 through PathPlane(evaluator=make_path_evaluator(
+    routing="device")). Every verdict, ledger hash, results digest and
+    the digest of the path answers is checked against the JAX package's;
+    the launch counts are this phase's alone. Then K4 against its plain
+    version on every batch the plane gave it."""
+    import numpy as np
+    import torch
+
+    from stellard_tpu_torch.crypto.backend import PathQualityEvaluator
+    from stellard_tpu_torch.node.verifyplane import VerifyPlane
+    from stellard_tpu_torch.ops import ed25519_cuda, pathq, treehash
+    from stellard_tpu_torch.paths.plane import PathPlane
+    from stellard_tpu_torch.protocol import keys
+
+    t0 = time.perf_counter()
+    bwl = book_workload(close["wl"], **BOOK_SIZES)
+    inputs_s = time.perf_counter() - t0
+    hasher = close["hasher"]
+    calls0, readbacks0 = hasher.tree_calls, hasher.tree_transfers.readbacks
+    plane = VerifyPlane(backend="cuda", routing="device", backend_opts={"device": dev})
+    batches = []
+
+    class Recording(PathQualityEvaluator):
+        """The device evaluator, keeping each batch it was given."""
+
+        def evaluate(self, rates):
+            batches.append(np.array(rates, dtype=np.uint32))
+            return super().evaluate(rates)
+
+    evaluator = Recording(routing="device", device=dev)
+    paths = PathPlane(evaluator=evaluator, prune_floor=BOOK_PRUNE_FLOOR)
+    k1_per_close = []
+
+    ed25519_cuda.launches = 0
+    pathq.launches = 0
+    for k in treehash.launches:
+        treehash.launches[k] = 0
+    keys.host_verifies = 0
+    try:
+        t0 = time.perf_counter()
+        res = run_book(close["node"], bwl, plane.verify_many, paths,
+                       first_close=len(CLOSE_HASHES),
+                       on_close=lambda _k, _l: k1_per_close.append(ed25519_cuda.launches))
+        phase_s = time.perf_counter() - t0
+    finally:
+        plane.stop()
+    launches = {"ed25519_verify": ed25519_cuda.launches, **treehash.launches,
+                "path_quality": pathq.launches}
+    host_verifies = keys.host_verifies
+
+    pj, pp, ev = plane.get_json(), paths.get_json(), evaluator.get_json()
+    for k, (c, entries) in enumerate(zip(res["closes"], bwl["closes"])):
+        require(c["verdicts"] == [g for _b, _k, g in entries], f"book close {k}: verdicts")
+        require(c["open_ters"] == _expect_open_ters(entries),
+                f"book close {k}: open-ledger TERs wrong")
+        require(c["hash"] == BOOK_HASHES[k], f"book close {k}: ledger hash {c['hash']} "
+                f"differs from the JAX package's {BOOK_HASHES[k]}")
+        require(c["digest"] == BOOK_DIGESTS[k], f"book close {k}: results digest differs")
+    require(res["paths_digest"] == PATHS_DIGEST,
+            f"path answers digest {res['paths_digest']} differs from the JAX package's")
+    require(host_verifies == 0, f"{host_verifies} host signature verifications in the book phase")
+    require(pj["device_share"] == 1.0, f"book phase device share {pj['device_share']}")
+    require(all(b - a >= 1 for a, b in zip([0] + k1_per_close, k1_per_close)),
+            f"K1 was not launched in every book close: {k1_per_close}")
+    require(hasher.tree_transfers.readbacks - readbacks0 == hasher.tree_calls - calls0,
+            "book phase: not one readback per sealed tree")
+    require(launches["sha512_masked"] > 0 and launches["tree_inner_level"] > 0,
+            "K2 or K3 never launched in the book phase")
+    require(pp["prune_batches"] > 0, "no path search was pre-ranked")
+    require(launches["path_quality"] == ev["device_batches"] == pp["prune_batches"]
+            and ev["host_batches"] == 0, "K4 did not rank every pruned search")
+
+    # K4 against its plain version on every batch the plane gave it
+    k4_err = 0
+    for rates in batches:
+        t = torch.from_numpy(rates).to(dev)
+        got, plain = pathq.path_quality(t), pathq.path_quality_ref(t)
+        err = max_abs_err(got, plain)
+        require(err == 0 and np.array_equal(got.cpu().numpy(), pathq.path_quality_host(rates)),
+                "K4 differs from its plain version on a pre-rank batch")
+        k4_err = max(k4_err, err)
+
+    kinds: dict = {}
+    for entries in bwl["closes"][2:]:
+        for _b, kind, _g in entries:
+            kinds[kind] = kinds.get(kind, 0) + 1
+    summary = {
+        "card": name_power, "sizes": BOOK_SIZES, "prune_floor": BOOK_PRUNE_FLOOR,
+        "inputs_s": inputs_s, "phase_s": phase_s, "index_first_advance_ms": res["index_ms"],
+        "per_close": [{key: c[key] for key in (
+            "seq", "wall_ms", "parse_verify_ms", "apply_ms", "close_ms", "seal_state_ms",
+            "seal_state_nodes", "seal_tx_ms", "seal_tx_nodes", "gc_ms",
+            "gc_full_collections", "index_ms")} | {"transactions": len(e)}
+            for c, e in zip(res["closes"], bwl["closes"])],
+        "book_kinds": kinds, "requests": len(bwl["requests"]),
+        "paths_ms": res["paths_ms"], "paths_gc_ms": res["gc_ms_paths"],
+        "candidates": res["candidates"], "answers": [len(a) for a in res["answers"]],
+        "k4_batch_rows": [len(b) for b in batches],
+        "hashes_equal_jax": True, "paths_digest_equal_jax": True,
+        "host_verifies": host_verifies, "device_share": pj["device_share"],
+        "k1_launches_per_close": np.diff([0] + k1_per_close).tolist(),
+        "tree_calls": hasher.tree_calls - calls0,
+        "readbacks": hasher.tree_transfers.readbacks - readbacks0,
+        "paths_plane": {k: pp[k] for k in ("prune_batches", "pruned_candidates",
+                                           "prune_floor", "prune_keep")},
+        "index": pp["index"], "evaluator": ev, "launches": launches,
+    }
+    emit("book", **summary)
+    return {"launches": launches, "k4_max_abs_err": k4_err}
+
+
+def k4_matrix(n: int, seed: int):
+    """[n, MAX_HOPS] u32 rates: rates near 1.0 as real books give, with
+    identity rows, saturating rows and full-range random rows mixed in."""
+    import numpy as np
+
+    from stellard_tpu_torch.ops.pathq import Q16_MAX, Q16_ONE
+    from stellard_tpu_torch.paths.quality import MAX_HOPS
+
+    rng = np.random.default_rng(seed)
+    r = rng.integers(Q16_ONE - 8000, Q16_ONE + 8000, (n, MAX_HOPS)).astype(np.uint32)
+    r[::16] = Q16_ONE
+    r[1::16] = Q16_MAX
+    r[2::16] = rng.integers(0, 2**32, (len(r[2::16]), MAX_HOPS), dtype=np.uint64)
+    return r
 
 
 def leaf_blocks(m):

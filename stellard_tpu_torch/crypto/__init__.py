@@ -1,4 +1,5 @@
-"""Crypto plane: the backend registry and the CUDA verifier/hasher."""
+"""Crypto plane: the backend registry, the CUDA verifier/hasher and the
+path-quality evaluator."""
 
 from .backend import (
     BatchHasher,
@@ -7,9 +8,11 @@ from .backend import (
     CpuVerifier,
     CudaHasher,
     CudaVerifier,
+    PathQualityEvaluator,
     TransferMeter,
     VerifyRequest,
     make_hasher,
+    make_path_evaluator,
     make_verifier,
     register_hasher,
     register_verifier,

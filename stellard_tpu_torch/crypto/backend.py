@@ -15,6 +15,7 @@ verification batches and the ledger seal run on.
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass
 from typing import Callable, Iterable, Optional, Sequence
@@ -488,3 +489,93 @@ register_verifier("cpu", CpuVerifier)
 register_verifier("cuda", CudaVerifier, options=("max_batch", "mesh", "device"))
 register_hasher("cpu", CpuHasher)
 register_hasher("cuda", CudaHasher, options=("mesh", "device"))
+
+
+# --------------------------------------------------------------------------
+# path-quality plane: Q16.16 candidate evaluation on K4
+
+
+class PathQualityEvaluator:
+    """Evaluation of flattened candidate-path rate matrices, the path
+    search's pre-rank (paths.plane.PathPlane.make_pre_rank).
+
+    Two arms give the same bytes: the NumPy host arm
+    (``ops.pathq.path_quality_host``) and K4 on the card
+    (``ops.pathq.path_quality``). ``routing``: "device" (default) runs
+    every batch on K4 on ``device``; "host" runs the host arm. The JAX
+    package's measured-cost routing ("cost") and mesh widths above one
+    are not ported (ROADMAP Queue A item 3 and item 2) and raise. A
+    device batch never falls back to the host arm: a failed build or
+    launch raises."""
+
+    def __init__(self, mesh=None, routing: Optional[str] = None, device="cuda"):
+        routing = (routing or "device").strip().lower()
+        if routing == "cost":
+            raise NotImplementedError(
+                "path evaluator routing='cost' needs the measured-cost model "
+                "(_HashCostModel), not ported yet (ROADMAP Queue A item 3); "
+                "use routing='device' or 'host'"
+            )
+        if routing not in ("device", "host"):
+            raise ValueError(
+                f"path evaluator routing must be device|host, got {routing!r}"
+            )
+        try:
+            self.width = parse_width(mesh)
+        except ValueError:
+            raise ValueError(
+                f"mesh={mesh!r}: path evaluation across more than one card is "
+                "not ported yet (ROADMAP Queue A item 2)"
+            ) from None
+        self.routing = routing
+        self.device = resolve_device(device) if routing == "device" else None
+        self._lock = threading.Lock()
+        self.host_batches = 0
+        self.device_batches = 0
+        self.rows_evaluated = 0
+
+    def evaluate_host(self, rates: np.ndarray) -> np.ndarray:
+        from ..ops.pathq import path_quality_host
+
+        return path_quality_host(rates)
+
+    def _evaluate_device(self, rates: np.ndarray) -> np.ndarray:
+        from ..ops.pathq import path_quality
+
+        t = torch.from_numpy(rates).to(self.device)
+        return path_quality(t).cpu().numpy()
+
+    def evaluate(self, rates: np.ndarray) -> np.ndarray:
+        """[B, H] uint32 -> [B] uint32 composites on the routed arm."""
+        rates = np.ascontiguousarray(rates, dtype=np.uint32)
+        n = int(rates.shape[0])
+        if n == 0:
+            return np.zeros((0,), dtype=np.uint32)
+        if self.routing == "host":
+            out = self.evaluate_host(rates)
+        else:
+            out = self._evaluate_device(rates)
+        with self._lock:
+            self.rows_evaluated += n
+            if self.routing == "host":
+                self.host_batches += 1
+            else:
+                self.device_batches += 1
+        return out
+
+    def get_json(self) -> dict:
+        with self._lock:
+            return {
+                "mesh": self.width,
+                "routing": self.routing,
+                "device": None if self.device is None else str(self.device),
+                "host_batches": self.host_batches,
+                "device_batches": self.device_batches,
+                "rows_evaluated": self.rows_evaluated,
+            }
+
+
+def make_path_evaluator(mesh=None, routing: Optional[str] = None,
+                        device="cuda") -> PathQualityEvaluator:
+    """The one wiring of the path-quality evaluator."""
+    return PathQualityEvaluator(mesh=mesh, routing=routing, device=device)

@@ -1,0 +1,652 @@
+"""OfferCreate / OfferCancel transactors and order-book crossing.
+
+Reference: src/ripple_app/transactors/{CreateOffer,CreateOfferDirect,
+CancelOffer}.cpp plus the book machinery (src/ripple_app/book/{BookTip,
+OfferStream,Taker,Quality}.h):
+
+- an offer (TakerPays P, TakerGets G) rests in the book directory
+  getBookBase(P, G) at quality getRate(G, P)  (quality = P/G, the price a
+  future taker pays per unit received; lower = better; dir walk ascending
+  = best first),
+- creating an offer first CROSSES the reversed book base(G, P) as a taker
+  with in=G, out=P (CreateOfferDirect.cpp:480 "Reverse as we are the
+  taker"), consuming resting offers while their quality is within the
+  taker's threshold (Taker::reject), limited by both sides' funds
+  (Taker::fill) with issuer transfer fees,
+- the remainder is placed at the ORIGINAL rate
+  (CreateOfferDirect.cpp:616-617).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from fractions import Fraction
+from typing import Optional
+
+from ..protocol.formats import LedgerEntryType, TxType
+from ..protocol.sfields import (
+    sfAccount,
+    sfBookDirectory,
+    sfBookNode,
+    sfExchangeRate,
+    sfExpiration,
+    sfFlags,
+    sfOfferSequence,
+    sfOwnerCount,
+    sfOwnerNode,
+    sfRootIndex,
+    sfSequence,
+    sfTakerGets,
+    sfTakerGetsCurrency,
+    sfTakerGetsIssuer,
+    sfTakerPays,
+    sfTakerPaysCurrency,
+    sfTakerPaysIssuer,
+)
+from ..protocol.stamount import ACCOUNT_ZERO, STAmount
+from ..protocol.ter import TER
+from ..state import indexes
+from .flags import (
+    lsfPassive,
+    lsfRequireAuth,
+    lsfSell,
+    lsfHighAuth,
+    lsfLowAuth,
+    tfFillOrKill,
+    tfImmediateOrCancel,
+    tfOfferCreateMask,
+    tfPassive,
+    tfSell,
+)
+from .transactor import Transactor, register_transactor
+from . import views
+
+# a non-zero currency marker for rate arithmetic (reference CURRENCY_ONE)
+CURRENCY_ONE = (1).to_bytes(20, "big")
+
+# maximal 64-bit quality encoding: accepts any tip price (bridge legs)
+PERMISSIVE_RATE = (1 << 64) - 1
+
+
+def get_rate(offer_out: STAmount, offer_in: STAmount) -> int:
+    """64-bit quality encoding of in/out
+    (reference: STAmount::getRate, STAmount.cpp:1044-1067)."""
+    if offer_out.is_zero():
+        return 0
+    try:
+        r = STAmount.divide(offer_in, offer_out, CURRENCY_ONE, views.ACCOUNT_ONE)
+    except (ZeroDivisionError, ValueError, OverflowError):
+        return 0
+    if r.is_zero():
+        return 0
+    return ((r.offset + 100) << 56) | r.mantissa
+
+
+@dataclass
+class Amounts:
+    """A (in, out) pair flowing through an offer
+    (reference: book/Amounts.h)."""
+
+    i: STAmount
+    o: STAmount
+
+
+def _scale_to_out(a: Amounts, limit_out: STAmount) -> Amounts:
+    """Clamp .o to limit_out keeping the ratio
+    (reference: Quality::ceil_out)."""
+    if a.o <= limit_out:
+        return a
+    new_in = STAmount.multiply(
+        STAmount.divide(a.i, a.o, CURRENCY_ONE, views.ACCOUNT_ONE),
+        limit_out,
+        a.i.currency,
+        a.i.issuer,
+    )
+    return Amounts(new_in, limit_out)
+
+
+def _scale_to_in(a: Amounts, limit_in: STAmount) -> Amounts:
+    """Clamp .i to limit_in keeping the ratio
+    (reference: Quality::ceil_in)."""
+    if a.i <= limit_in:
+        return a
+    new_out = STAmount.multiply(
+        STAmount.divide(a.o, a.i, CURRENCY_ONE, views.ACCOUNT_ONE),
+        limit_in,
+        a.o.currency,
+        a.o.issuer,
+    )
+    return Amounts(limit_in, new_out)
+
+
+def cross_offers(
+    les,
+    taker_id: bytes,
+    taker_pays_in: STAmount,  # what the taker pays into the book (in)
+    taker_wants_out: STAmount,  # what the taker wants out
+    sell: bool,
+    passive: bool,
+    parent_close_time: int,
+    max_quality_levels: Optional[int] = None,
+    threshold_rate: Optional[int] = None,
+) -> tuple[TER, STAmount, STAmount]:
+    """Cross the book base(in_currency, out_currency) as a taker; returns
+    (TER, paid_in_total, got_out_total).
+
+    reference: process_order/Taker loop (CreateOfferDirect.cpp:29-175,
+    Taker.h:120-290). Consumed / unfunded / expired / self offers are
+    deleted as encountered (BookTip::step deletes stepped-past tips).
+
+    ``max_quality_levels`` bounds how many distinct price levels may be
+    consumed — the auto-bridge uses 1 so it can re-compare the direct
+    book against the two-leg composite after every level.
+    ``threshold_rate`` overrides the worst-acceptable price (the bridge
+    legs enforce the COMPOSITE price themselves, so a leg must not be
+    capped by the in/out ratio of its bounding amounts).
+    """
+    book_base = indexes.book_base(
+        taker_pays_in.currency, taker_pays_in.issuer,
+        taker_wants_out.currency, taker_wants_out.issuer,
+    )
+    book_end = indexes.quality_next(book_base)
+    if threshold_rate is not None:
+        threshold = threshold_rate  # caller-enforced price cap
+    else:
+        threshold = get_rate(taker_wants_out, taker_pays_in)  # in/out price
+
+    paid = STAmount.zero_like(taker_pays_in.currency, taker_pays_in.issuer)
+    got = STAmount.zero_like(taker_wants_out.currency, taker_wants_out.issuer)
+    if taker_pays_in.is_native:
+        paid = STAmount.from_drops(0)
+    if taker_wants_out.is_native:
+        got = STAmount.from_drops(0)
+
+    in_left = taker_pays_in
+    out_left = taker_wants_out
+
+    cursor = book_base
+    levels_used = 0
+    while True:
+        # done? (reference: Taker::done)
+        if sell:
+            if in_left.signum() <= 0:
+                break
+        elif got >= taker_wants_out:
+            break
+        if views.account_funds(les, taker_id, in_left).signum() <= 0:
+            break
+
+        item = les.ledger.state_map.succ(cursor)
+        if item is None or item.tag >= book_end:
+            break
+        dir_idx = item.tag
+        cursor = dir_idx
+        if les.peek(dir_idx) is None:
+            continue  # directory deleted within this entry set
+
+        quality = indexes.get_quality(dir_idx)
+        # reject: quality worse than my threshold (passive: or equal)
+        if quality > threshold or (passive and quality == threshold):
+            break
+        if max_quality_levels is not None:
+            levels_used += 1
+            if levels_used > max_quality_levels:
+                break
+
+        for offer_idx in list(les.dir_entries(dir_idx)):
+            offer = les.peek(offer_idx)
+            if offer is None:
+                continue
+            owner = offer[sfAccount]
+            if owner == taker_id:
+                # self-crossing offers are removed (reference :116-128)
+                views.offer_delete(les, offer_idx)
+                continue
+            if (
+                sfExpiration in offer
+                and parent_close_time >= offer[sfExpiration]
+            ):
+                views.offer_delete(les, offer_idx)
+                continue
+
+            rest = Amounts(offer[sfTakerPays], offer[sfTakerGets])
+            owner_funds = views.account_funds(les, owner, rest.o)
+            if owner_funds.signum() <= 0:
+                views.offer_delete(les, offer_idx)  # unfunded
+                continue
+
+            # limit by owner funds net of transfer fee (Taker::fill)
+            owner_rate = views.ripple_transfer_rate(les, rest.o.issuer)
+            if not rest.o.is_native and owner != rest.o.issuer and owner_rate != views.QUALITY_ONE:
+                usable = STAmount.divide(
+                    owner_funds,
+                    STAmount.from_iou(CURRENCY_ONE, views.ACCOUNT_ONE,
+                                      owner_rate, -9),
+                    owner_funds.currency,
+                    owner_funds.issuer,
+                )
+            else:
+                usable = owner_funds
+            flow = _scale_to_out(rest, usable)
+
+            # limit by taker funds
+            taker_funds = views.account_funds(les, taker_id, in_left)
+            taker_rate = views.ripple_transfer_rate(les, in_left.issuer)
+            if not in_left.is_native and taker_id != in_left.issuer and taker_rate != views.QUALITY_ONE:
+                t_usable = STAmount.divide(
+                    taker_funds,
+                    STAmount.from_iou(CURRENCY_ONE, views.ACCOUNT_ONE,
+                                      taker_rate, -9),
+                    taker_funds.currency,
+                    taker_funds.issuer,
+                )
+            else:
+                t_usable = taker_funds
+            flow = _scale_to_in(flow, t_usable)
+            # in sell mode, also cap by remaining input
+            flow = _scale_to_in(flow, in_left)
+            if not sell:
+                flow = _scale_to_out(flow, out_left)
+
+            if flow.i.signum() <= 0 or flow.o.signum() <= 0:
+                break
+
+            consumed = flow.o >= rest.o
+
+            # reduce the resting offer (Taker::process)
+            offer[sfTakerPays] = rest.i - flow.i
+            offer[sfTakerGets] = rest.o - flow.o
+            les.modify(offer_idx)
+
+            # owner pays the taker, taker pays the owner
+            ter = views.account_send(les, owner, taker_id, flow.o)
+            if ter != TER.tesSUCCESS:
+                return TER.tecFAILED_PROCESSING, paid, got
+            ter = views.account_send(les, taker_id, owner, flow.i)
+            if ter != TER.tesSUCCESS:
+                return TER.tecFAILED_PROCESSING, paid, got
+
+            paid = paid + flow.i
+            got = got + flow.o
+            in_left = in_left - flow.i
+            if not sell:
+                out_left = out_left - flow.o
+
+            if consumed:
+                views.offer_delete(les, offer_idx)
+
+            if sell:
+                if in_left.signum() <= 0:
+                    break
+            elif got >= taker_wants_out:
+                break
+
+    return TER.tesSUCCESS, paid, got
+
+
+# --------------------------------------------------------------------------
+# auto-bridging (IOU/IOU offers crossing through the two STR books)
+#
+# The reference planned this seam (transactors/CreateOffer.cpp:21
+# "Autobridging is only in effect when an offer does not involve STR")
+# but its CreateOfferBridged transactor is an empty placeholder and it
+# always falls back to the direct book. Here the bridge is real: each
+# step compares the direct tip price against the composite of the
+# IN->STR and STR->OUT tips and consumes one price level from the
+# cheaper source, which is the modern FlowCross behavior.
+
+
+def _exact_price(pay: STAmount, get: STAmount) -> Fraction:
+    """in-per-out as an exact rational (lower = cheaper for the taker)."""
+    p_m, p_off = pay.mantissa, (0 if pay.is_native else pay.offset)
+    g_m, g_off = get.mantissa, (0 if get.is_native else get.offset)
+    if g_m <= 0:
+        return Fraction(0)
+    num, den = p_m, g_m
+    e = p_off - g_off
+    if e >= 0:
+        num *= 10**e
+    else:
+        den *= 10 ** (-e)
+    return Fraction(num, den)
+
+
+def _tip_info(
+    les, taker_id: bytes, want_in: STAmount, want_out: STAmount,
+    parent_close_time: int,
+):
+    """Peek the best live, funded, non-self tip of a book WITHOUT mutating:
+    -> (price Fraction in-per-out, in_capacity, out_capacity) or None.
+    Mirrors the skip rules of the consuming loop (unfunded / expired /
+    self offers are ignored here, deleted there)."""
+    base = indexes.book_base(
+        want_in.currency, want_in.issuer, want_out.currency, want_out.issuer
+    )
+    end = indexes.quality_next(base)
+    cursor = base
+    while True:
+        item = les.ledger.state_map.succ(cursor)
+        if item is None or item.tag >= end:
+            return None
+        dir_idx = item.tag
+        cursor = dir_idx
+        if les.peek(dir_idx) is None:
+            continue
+        for offer_idx in les.dir_entries(dir_idx):
+            offer = les.peek(offer_idx)
+            if offer is None:
+                continue
+            if offer[sfAccount] == taker_id:
+                continue
+            if (
+                sfExpiration in offer
+                and parent_close_time >= offer[sfExpiration]
+            ):
+                continue
+            rest = Amounts(offer[sfTakerPays], offer[sfTakerGets])
+            funds = views.account_funds(les, offer[sfAccount], rest.o)
+            if funds.signum() <= 0:
+                continue
+            flow = _scale_to_out(rest, funds)
+            if flow.i.signum() <= 0 or flow.o.signum() <= 0:
+                continue
+            return (_exact_price(flow.i, flow.o), flow.i, flow.o)
+
+
+def cross_offers_auto_bridged(
+    les,
+    taker_id: bytes,
+    taker_pays_in: STAmount,  # IOU the taker pays
+    taker_wants_out: STAmount,  # IOU the taker wants
+    sell: bool,
+    passive: bool,
+    parent_close_time: int,
+    max_steps: int = 64,
+) -> tuple[TER, STAmount, STAmount]:
+    """Best-execution crossing for an IOU/IOU taker over three books:
+    direct IN->OUT, plus the IN->STR / STR->OUT bridge."""
+    threshold = _exact_price(taker_pays_in, taker_wants_out)
+    # 64-bit encoding of the taker's ORIGINAL limit: sub-steps must use
+    # this, not a limit recomputed from the partially-consumed remainders
+    # (in sell mode out_left never shrinks, so a recomputed in/out ratio
+    # would tighten below the taker's actual limit and refuse good fills)
+    threshold_enc = get_rate(taker_wants_out, taker_pays_in)
+    xrp_zero = STAmount.from_drops(0)
+    paid = STAmount.zero_like(taker_pays_in.currency, taker_pays_in.issuer)
+    got = STAmount.zero_like(taker_wants_out.currency, taker_wants_out.issuer)
+    in_left = taker_pays_in
+    out_left = taker_wants_out
+
+    for _ in range(max_steps):
+        if sell:
+            if in_left.signum() <= 0:
+                break
+        elif got >= taker_wants_out:
+            break
+        if views.account_funds(les, taker_id, in_left).signum() <= 0:
+            break
+
+        tip_d = _tip_info(les, taker_id, in_left, out_left, parent_close_time)
+        tip_1 = _tip_info(les, taker_id, in_left, xrp_zero, parent_close_time)
+        tip_2 = _tip_info(les, taker_id, xrp_zero, out_left, parent_close_time)
+        price_d = tip_d[0] if tip_d else None
+        price_b = tip_1[0] * tip_2[0] if (tip_1 and tip_2) else None
+
+        def acceptable(p: Optional[Fraction]) -> bool:
+            if p is None or p <= 0:
+                return False
+            return p < threshold or (p == threshold and not passive)
+
+        use_direct = acceptable(price_d) and (
+            not acceptable(price_b) or price_d <= price_b
+        )
+        use_bridge = acceptable(price_b) and not use_direct
+        if not use_direct and not use_bridge:
+            break
+
+        if use_direct:
+            ter, p, g = cross_offers(
+                les, taker_id, in_left, out_left, sell, passive,
+                parent_close_time, max_quality_levels=1,
+                threshold_rate=threshold_enc,
+            )
+            if ter != TER.tesSUCCESS:
+                return ter, paid, got
+            if p.signum() <= 0 and g.signum() <= 0:
+                # a stale level (all offers unfunded/expired/self) was
+                # cleaned out with zero fill; re-peek — the funded tip
+                # _tip_info saw sits one level deeper (max_steps bounds us)
+                continue
+            paid = paid + p
+            got = got + g
+            in_left = in_left - p
+            if not sell:
+                out_left = out_left - g
+            continue
+
+        # bridge step: one price level on each leg, synchronized through
+        # an STR amount both legs can move
+        _p1, _i1, x_out = tip_1  # leg1 can sell up to x_out STR
+        _p2, x_in, _o2 = tip_2  # leg2 can absorb up to x_in STR
+        x_step = min(x_out, x_in)
+        if not sell:
+            # don't buy more STR than the remaining OUT needs at leg2's
+            # price (ceil to a whole drop so the target stays reachable)
+            need = out_left
+            frac = tip_2[0] * Fraction(need.mantissa) * Fraction(10) ** (
+                0 if need.is_native else need.offset
+            )
+            x_need = STAmount.from_drops(
+                int(frac) + (0 if frac.denominator == 1 else 1)
+            )
+            if x_need < x_step:
+                x_step = x_need
+        if x_step.signum() <= 0:
+            break
+        # leg1: buy x_step STR with IN (price capped by the composite
+        # acceptance above, not by the in_left/x_step ratio)
+        ter, p_a, g_x = cross_offers(
+            les, taker_id, in_left, x_step, False, passive,
+            parent_close_time, max_quality_levels=1,
+            threshold_rate=PERMISSIVE_RATE,
+        )
+        if ter != TER.tesSUCCESS:
+            return ter, paid, got
+        if g_x.signum() <= 0:
+            continue  # stale leg1 level cleaned; re-peek
+        # leg2: spend exactly the STR from leg1 for OUT (or up to the
+        # remaining OUT target when buying)
+        ter, p_x, g_b = cross_offers(
+            les, taker_id, g_x,
+            out_left if not sell else STAmount.zero_like(
+                taker_wants_out.currency, taker_wants_out.issuer
+            ),
+            True, passive, parent_close_time, max_quality_levels=1,
+            threshold_rate=PERMISSIVE_RATE,
+        )
+        if ter != TER.tesSUCCESS:
+            return ter, paid, got
+        if g_b.signum() <= 0:
+            continue  # stale leg2 level cleaned; leg1's STR stays banked
+        paid = paid + p_a
+        got = got + g_b
+        in_left = in_left - p_a
+        if not sell:
+            out_left = out_left - g_b
+
+    return TER.tesSUCCESS, paid, got
+
+
+@register_transactor(TxType.ttOFFER_CREATE)
+class OfferCreateTransactor(Transactor):
+    """reference: CreateOfferDirect.cpp DirectOfferCreateTransactor"""
+
+    def do_apply(self) -> TER:
+        tx = self.tx
+        flags = tx.flags
+        passive = bool(flags & tfPassive)
+        ioc = bool(flags & tfImmediateOrCancel)
+        fok = bool(flags & tfFillOrKill)
+        sell = bool(flags & tfSell)
+
+        taker_pays: STAmount = tx.obj[sfTakerPays]
+        taker_gets: STAmount = tx.obj[sfTakerGets]
+
+        if flags & tfOfferCreateMask:
+            return TER.temINVALID_FLAG
+        if ioc and fok:
+            return TER.temINVALID_FLAG
+        if taker_pays.is_native and taker_gets.is_native:
+            return TER.temBAD_OFFER  # STR for STR
+        if taker_pays.signum() <= 0 or taker_gets.signum() <= 0:
+            return TER.temBAD_OFFER
+        if taker_pays.currency == taker_gets.currency and (
+            taker_pays.issuer == taker_gets.issuer
+        ):
+            return TER.temREDUNDANT
+        has_expiration = sfExpiration in tx.obj
+        if has_expiration and not tx.obj[sfExpiration]:
+            return TER.temBAD_EXPIRATION
+
+        sequence = tx.sequence
+        offer_idx = indexes.offer_index(self.account_id, sequence)
+        rate = get_rate(taker_gets, taker_pays)  # original placement rate
+
+        # cancel companion offer (reference: :386-402)
+        if sfOfferSequence in tx.obj:
+            cancel_seq = tx.obj[sfOfferSequence]
+            if cancel_seq >= sequence:
+                return TER.temBAD_SEQUENCE
+            cancel_idx = indexes.offer_index(self.account_id, cancel_seq)
+            if self.les.peek(cancel_idx) is not None:
+                views.offer_delete(self.les, cancel_idx)
+
+        # expired: done, nothing placed (reference: :404-411)
+        if has_expiration and (
+            self.engine.ledger.parent_close_time >= tx.obj[sfExpiration]
+        ):
+            return TER.tesSUCCESS
+
+        # must be authorized to hold what we will receive (reference: :413-464)
+        if not taker_pays.is_native:
+            issuer = self.les.account_root(taker_pays.issuer)
+            if issuer is None:
+                return TER.tecNO_ISSUER
+            if issuer.get(sfFlags, 0) & lsfRequireAuth:
+                line = self.les.peek(indexes.ripple_state_index(
+                    self.account_id, taker_pays.issuer, taker_pays.currency
+                ))
+                if line is None:
+                    return TER.tecNO_LINE
+                my_high = self.account_id > taker_pays.issuer
+                auth_flag = lsfHighAuth if my_high else lsfLowAuth
+                if not (line.get(sfFlags, 0) & auth_flag):
+                    return TER.tecNO_AUTH
+        if views.account_funds(self.les, self.account_id, taker_gets).signum() <= 0:
+            return TER.tecUNFUNDED_OFFER
+
+        # cross the reversed book (reference: :469-515); IOU/IOU offers
+        # also auto-bridge through the two STR books (the seam the
+        # reference left unimplemented at CreateOffer.cpp:21)
+        crosser = (
+            cross_offers_auto_bridged
+            if not taker_pays.is_native and not taker_gets.is_native
+            else cross_offers
+        )
+        ter, paid, got = crosser(
+            self.les,
+            self.account_id,
+            taker_gets,  # we pay with what we give
+            taker_pays,  # we want what our offer asks
+            sell=sell,
+            passive=passive,
+            parent_close_time=self.engine.ledger.parent_close_time,
+        )
+        if ter != TER.tesSUCCESS:
+            return ter
+        taker_pays = taker_pays - got
+        taker_gets = taker_gets - paid
+
+        if fok and (taker_pays.signum() > 0 or taker_gets.signum() > 0):
+            # unfilled fill-or-kill: the reference restores a checkpoint
+            # view with only the fee paid (:541-546); returning a tec makes
+            # the engine's claim-fee-only reprocess do exactly that
+            return TER.tecFAILED_PROCESSING
+
+        if (
+            taker_pays.signum() <= 0
+            or taker_gets.signum() <= 0
+            or ioc
+            or views.account_funds(
+                self.les, self.account_id, taker_gets
+            ).signum() <= 0
+        ):
+            return TER.tesSUCCESS  # fully crossed / IoC / now unfunded
+
+        # reserve check (reference: :552-580)
+        owner_count = self.account.get(sfOwnerCount, 0)
+        if self.prior_balance.mantissa < self.engine.ledger.reserve(owner_count + 1):
+            if paid.is_zero() and got.is_zero():
+                return TER.tecINSUF_RESERVE_OFFER
+            return TER.tesSUCCESS  # partially crossed; remainder dropped
+
+        # place the remainder (reference: :582-660)
+        offer = self.les.create(LedgerEntryType.ltOFFER, offer_idx)
+        offer[sfAccount] = self.account_id
+        offer[sfSequence] = sequence
+        offer[sfTakerPays] = taker_pays
+        offer[sfTakerGets] = taker_gets
+        if has_expiration:
+            offer[sfExpiration] = tx.obj[sfExpiration]
+        offer_flags = 0
+        if passive:
+            offer_flags |= lsfPassive
+        if sell:
+            offer_flags |= lsfSell
+        if offer_flags:
+            offer[sfFlags] = offer_flags
+
+        ter, owner_node = self.les.dir_add(
+            indexes.owner_dir_index(self.account_id), offer_idx
+        )
+        if ter != TER.tesSUCCESS:
+            return ter
+        self.les.adjust_owner_count(self.account_id, 1)
+
+        book_root = indexes.quality_index(
+            indexes.book_base(
+                taker_pays.currency, taker_pays.issuer,
+                taker_gets.currency, taker_gets.issuer,
+            ),
+            rate,
+        )
+
+        def describe_book_dir(dir_sle, is_root):
+            # reference: Ledger::qualityDirDescriber
+            dir_sle[sfExchangeRate] = rate
+            dir_sle[sfTakerPaysCurrency] = taker_pays.currency
+            dir_sle[sfTakerPaysIssuer] = taker_pays.issuer
+            dir_sle[sfTakerGetsCurrency] = taker_gets.currency
+            dir_sle[sfTakerGetsIssuer] = taker_gets.issuer
+
+        ter, book_node = self.les.dir_add(book_root, offer_idx, describe_book_dir)
+        if ter != TER.tesSUCCESS:
+            return ter
+        offer[sfOwnerNode] = owner_node
+        offer[sfBookDirectory] = book_root
+        offer[sfBookNode] = book_node
+        return TER.tesSUCCESS
+
+
+@register_transactor(TxType.ttOFFER_CANCEL)
+class OfferCancelTransactor(Transactor):
+    """reference: CancelOffer.cpp"""
+
+    def do_apply(self) -> TER:
+        offer_seq = self.tx.obj[sfOfferSequence]
+        if not offer_seq or offer_seq >= self.tx.sequence:
+            return TER.temBAD_SEQUENCE
+        offer_idx = indexes.offer_index(self.account_id, offer_seq)
+        if self.les.peek(offer_idx) is not None:
+            return views.offer_delete(self.les, offer_idx)
+        return TER.tesSUCCESS  # not found: not an error

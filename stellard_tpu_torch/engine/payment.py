@@ -6,8 +6,9 @@ checks (:55-140), destination-account creation with reserve minimum
 ripple/IOU payments via RippleCalc (:185-248).
 
 IOU scope: direct rippling through the default path — sender↔issuer↔
-receiver (rippleSend semantics). Deliveries that need the path engine
-(`_flow_payment`) raise NotImplementedError until paths/ is ported.
+receiver (rippleSend semantics) — and, for explicit paths, SendMax
+conversions and third-party issuers, the flow engine (paths.flow, the
+RippleCalc replacement) behind `_flow_payment`.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from .flags import (
     lsfRequireDestTag,
     tfLimitQuality,
     tfNoRippleDirect,
+    tfPartialPayment,
     tfPaymentMask,
 )
 from .transactor import Transactor, register_transactor
@@ -204,8 +206,36 @@ class PaymentTransactor(Transactor):
                       max_amount: STAmount, flags: int) -> TER:
         """Path-engine delivery (reference: Payment.cpp:185-248 calling
         RippleCalc::rippleCalc with the tx's paths/flags)."""
-        raise NotImplementedError(
-            "Payment through the path engine (explicit paths, SendMax "
-            "conversions, third-party issuers): paths/flow.py is not ported "
-            "yet (ROADMAP Queue A, item 9)"
+        from ..paths.flow import flow
+
+        tx_paths = (
+            self.tx.obj[sfPaths].paths if sfPaths in self.tx.obj else []
         )
+        paths = list(tx_paths)
+        if not (flags & tfNoRippleDirect):
+            # the default path goes FIRST: on equal quality the flow
+            # loop keeps the earliest strand, and the reference builds
+            # the direct PathState before the explicit ones
+            # (RippleCalc.cpp pre-loop addPathState(STPath(), ...)), so
+            # ties drain the direct line before any attached path
+            paths.insert(0, [])
+        partial = bool(flags & tfPartialPayment)
+        limit_quality = None
+        if flags & tfLimitQuality:
+            # the tx's implied quality (Amount out per SendMax in) is the
+            # worst rate the sender accepts (reference: uQualityLimit)
+            from ..paths.flow import _ratio
+
+            limit_quality = _ratio(dst_amount, max_amount)
+        ter, _spent, _delivered = flow(
+            self.les,
+            self.account_id,
+            dst_id,
+            dst_amount,
+            max_amount,
+            paths,
+            partial,
+            self.engine.ledger.parent_close_time,
+            limit_quality=limit_quality,
+        )
+        return ter

@@ -54,31 +54,10 @@ def register_transactor(tx_type: TxType) -> Callable:
     return deco
 
 
-# types the JAX package's engine applies whose transactors are not ported
-# yet (ROADMAP Queue A, item 5): applying one raises rather than answer a
-# code the reference would not give
-_NOT_PORTED = {
-    TxType.ttTRUST_SET: "engine/trust.py",
-    TxType.ttOFFER_CREATE: "engine/offers.py",
-    TxType.ttOFFER_CANCEL: "engine/offers.py",
-    TxType.ttACCOUNT_SET: "engine/account.py",
-    TxType.ttREGULAR_KEY_SET: "engine/account.py",
-    TxType.ttACCOUNT_MERGE: "engine/account.py",
-    TxType.ttINFLATION: "engine/inflation.py",
-    TxType.ttAMENDMENT: "engine/change.py",
-    TxType.ttFEE: "engine/change.py",
-}
-
-
 def make_transactor(tx: SerializedTransaction, params: int, engine) -> Optional["Transactor"]:
     """reference: Transactor::makeTransactor (Transactor.cpp:34-84)"""
     cls = _REGISTRY.get(tx.tx_type)
     if cls is None:
-        if tx.tx_type in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{tx.tx_type.name}: its transactor ({_NOT_PORTED[tx.tx_type]}) "
-                "is not ported yet (ROADMAP Queue A, item 5)"
-            )
         return None
     return cls(tx, params, engine)
 

@@ -1,0 +1,684 @@
+"""Path execution: compile an STPath into hops, execute on a sandbox,
+combine strands by quality.
+
+Reference: src/ripple_app/paths/RippleCalc.cpp — rippleCalc multi-path
+loop (best-quality path per iteration, partial-payment rules),
+calcNodeAccountRev/Fwd (trust-line hops: capacity = balance + limit,
+issuer transfer fees, NoRipple pair rule), calcNodeDeliverRev/Fwd
+(order-book hops, owner-funds limits).
+
+Execution model: every strand runs FORWARD over a duplicated
+LedgerEntrySet with an exact output target per hop; book hops consume
+real offers via the same taker loop OfferCreate uses (engine.offers.
+cross_offers), so a path payment and an offer crossing move money
+through identical code.
+
+Recorded design bound: trust-line QualityIn/QualityOut rates
+(calcNodeRipple's uQualityIn/uQualityOut scaling, RippleCalc.cpp:
+1253-1340) are stored and reported (TrustSet/account_lines) but NOT
+applied to path delivery — faithful quality math requires the
+reference's per-node redeem-vs-issue split (quality scales only the
+ISSUE portion, calcNodeAccountFwd:1996-2010), which this engine's
+single-amount-per-edge model deliberately folds together. Lines with
+default (unset) quality — the overwhelming norm — behave identically.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from fractions import Fraction
+from typing import Optional, Union
+
+from ..engine import views
+from ..engine.flags import lsfHighNoRipple, lsfLowNoRipple
+from ..engine.offers import (
+    Amounts,
+    CURRENCY_ONE as _CUR_ONE,
+    PERMISSIVE_RATE,
+    _scale_to_out,
+    cross_offers,
+)
+from ..protocol.sfields import (
+    sfAccount,
+    sfFlags,
+    sfHighLimit,
+    sfLowLimit,
+    sfTakerGets,
+    sfTakerPays,
+)
+from ..protocol.stamount import ACCOUNT_ZERO, STAmount
+from ..engine.views import ACCOUNT_ONE
+from ..protocol.stobject import PathElement
+from ..protocol.ter import TER
+from ..state import indexes
+from ..state.entryset import LedgerEntrySet
+
+__all__ = ["flow", "plan_strand", "PathError", "AccountHop", "BookHop"]
+
+CURRENCY_XRP = b"\x00" * 20
+
+
+class PathError(Exception):
+    def __init__(self, ter: TER, why: str = ""):
+        super().__init__(why or ter.name)
+        self.ter = ter
+
+
+@dataclass
+class AccountHop:
+    """Move value from `src` to `dst` across their mutual trust line in
+    `currency` (reference: account node, calcNodeAccountRev/Fwd)."""
+
+    src: bytes
+    dst: bytes
+    currency: bytes
+
+
+@dataclass
+class BookHop:
+    """Convert via the order book (reference: offer node)."""
+
+    in_currency: bytes
+    in_issuer: bytes
+    out_currency: bytes
+    out_issuer: bytes
+
+
+Hop = Union[AccountHop, BookHop]
+
+
+def _asset(currency: bytes, issuer: bytes) -> STAmount:
+    if currency == CURRENCY_XRP:
+        return STAmount.from_drops(0)
+    return STAmount.zero_like(currency, issuer)
+
+
+def plan_strand(
+    src: bytes,
+    dst: bytes,
+    dst_amount: STAmount,
+    src_currency: bytes,
+    src_issuer: bytes,
+    path: list[PathElement],
+) -> list[Hop]:
+    """Compile src + path elements + dst into hops, inserting the implied
+    nodes the reference's PathState::expandPath inserts (first/last
+    account, books on currency switch).
+    """
+    hops: list[Hop] = []
+    cur_acct = src
+    cur_currency = src_currency
+    cur_issuer = src_issuer if src_currency != CURRENCY_XRP else ACCOUNT_ZERO
+
+    def push_account(acct: bytes) -> None:
+        nonlocal cur_acct, cur_issuer
+        if acct == cur_acct:
+            return
+        if cur_currency == CURRENCY_XRP:
+            raise PathError(TER.temBAD_PATH, "STR cannot ripple")
+        if (
+            not hops
+            and cur_acct == src
+            and cur_issuer not in (src, acct)
+        ):
+            # implied head: a spend of an externally-issued asset enters
+            # the network through its issuer (reference: expandPath
+            # inserts the SendMax issuer node after the source), so
+            # src -> [G1] -> M for a USD/G1 spend
+            hops.append(AccountHop(src, cur_issuer, cur_currency))
+            cur_acct = cur_issuer
+        hops.append(AccountHop(cur_acct, acct, cur_currency))
+        cur_acct = acct
+        # an account node becomes the issuer context of the leg it
+        # forwards (reference: PathState::pushNode account nodes carry
+        # issuer = account) — without this a cross-gateway chain like
+        # src -> G1 -> M -> G2 -> dst sprouts a spurious book hop
+        cur_issuer = acct
+
+    for el in path:
+        if el.account is not None:
+            push_account(el.account)
+        elif el.currency is not None or el.issuer is not None:
+            new_currency = el.currency if el.currency is not None else cur_currency
+            if new_currency == CURRENCY_XRP:
+                new_issuer = ACCOUNT_ZERO
+            elif el.issuer is not None:
+                new_issuer = el.issuer
+            else:
+                new_issuer = cur_issuer
+            if new_currency == cur_currency and new_issuer == cur_issuer:
+                raise PathError(TER.temBAD_PATH, "no-op book element")
+            hops.append(
+                BookHop(cur_currency, cur_issuer, new_currency, new_issuer)
+            )
+            cur_currency, cur_issuer = new_currency, new_issuer
+        else:
+            raise PathError(TER.temBAD_PATH, "empty path element")
+
+    # implied tail (reference: expandPath appends dst / final book).
+    # `cur_issuer == cur_acct` is the no-SendMax placeholder (the sender
+    # stands in as issuer of its own spend) — same-currency delivery from
+    # there needs no book, just the issuer ripple below.
+    # An IOU dst_amount whose issuer IS the destination account means
+    # "any issuer the destination accepts" (reference: STAmount
+    # issuer-of-self convention) — whatever issuer the strand carries is
+    # deliverable, so no issuer-correcting book is implied.
+    flexible = (
+        dst_amount.currency != CURRENCY_XRP and dst_amount.issuer == dst
+    )
+    if cur_currency != dst_amount.currency or (
+        cur_currency != CURRENCY_XRP
+        and dst_amount.currency != CURRENCY_XRP
+        and not flexible
+        and cur_issuer != dst_amount.issuer
+        and cur_issuer != cur_acct
+        and cur_acct != dst
+        and cur_issuer != dst
+    ):
+        out_iss = (
+            ACCOUNT_ZERO
+            if dst_amount.currency == CURRENCY_XRP
+            else dst_amount.issuer
+        )
+        hops.append(
+            BookHop(cur_currency, cur_issuer, dst_amount.currency, out_iss)
+        )
+        cur_currency, cur_issuer = dst_amount.currency, out_iss
+    if cur_acct != dst:
+        if cur_currency == CURRENCY_XRP:
+            hops.append(AccountHop(cur_acct, dst, CURRENCY_XRP))
+        else:
+            # deliver through the issuer when src/dst share no line
+            # (reference: implied issuer node for the default path).
+            # Flexible delivery routes through the issuer the strand
+            # actually carries.
+            issuer = (
+                cur_issuer
+                if (flexible and cur_issuer != cur_acct)
+                else dst_amount.issuer
+            )
+            if cur_acct != issuer and dst != issuer:
+                hops.append(AccountHop(cur_acct, issuer, cur_currency))
+                cur_acct = issuer
+            hops.append(AccountHop(cur_acct, dst, cur_currency))
+    return hops
+
+
+# -- capacity / quotes ----------------------------------------------------
+
+
+def line_capacity(
+    les: LedgerEntrySet, src: bytes, dst: bytes, currency: bytes
+) -> Optional[STAmount]:
+    """How much `src` can move to `dst` over their line: src's balance
+    (redeeming dst's IOU) plus dst's trust limit for src (issuing src's
+    own IOU) (reference: calcNodeAccountRev limit math). None = no line.
+    """
+    idx = indexes.ripple_state_index(src, dst, currency)
+    line = les.peek(idx)
+    if line is None:
+        return None
+    bal = views.ripple_balance(les, src, dst, currency)
+    # dst's limit lives on dst's side of the line (dst is high iff
+    # src < dst, since the low account sorts first)
+    dst_limit = line.get(sfHighLimit if src < dst else sfLowLimit)
+    if dst_limit is None:
+        dst_limit = STAmount.zero_like(currency, dst)
+    return bal + STAmount.from_iou(
+        currency, ACCOUNT_ONE, dst_limit.mantissa, dst_limit.offset,
+        dst_limit.negative,
+    )
+
+
+def no_ripple_blocked(
+    les: LedgerEntrySet, mid: bytes, prev: bytes, nxt: bytes, currency: bytes
+) -> bool:
+    """The NoRipple pair rule: rippling through `mid` between its lines
+    with `prev` and `nxt` is blocked when mid set NoRipple on BOTH
+    (reference: calcNodeRipple NoRipple enforcement)."""
+
+    def mid_no_ripple(other: bytes) -> bool:
+        line = les.peek(indexes.ripple_state_index(mid, other, currency))
+        if line is None:
+            return False
+        flags = line.get(sfFlags, 0)
+        mid_is_low = mid < other
+        return bool(flags & (lsfLowNoRipple if mid_is_low else lsfHighNoRipple))
+
+    return mid_no_ripple(prev) and mid_no_ripple(nxt)
+
+
+def book_quote(
+    les: LedgerEntrySet,
+    in_currency: bytes,
+    in_issuer: bytes,
+    out_need: STAmount,
+    in_cap: Optional[STAmount] = None,
+) -> tuple[STAmount, STAmount]:
+    """Read-only estimate: walking the book best-quality-first, what
+    input buys `out_need` (owner-funds-limited)? -> (in_needed,
+    out_available). With `in_cap`, also stop when the input budget is
+    exhausted — the quote for "how much does my budget buy".
+    reference: calcNodeDeliverRev."""
+    from ..engine.offers import _scale_to_in
+
+    in_total = _asset(in_currency, in_issuer)
+    out_total = _zero_of(out_need)
+
+    book_base = indexes.book_base(
+        in_currency, in_issuer, out_need.currency,
+        ACCOUNT_ZERO if out_need.is_native else out_need.issuer,
+    )
+    book_end = indexes.quality_next(book_base)
+    cursor = book_base
+    while out_total < out_need:
+        item = les.ledger.state_map.succ(cursor)
+        if item is None or item.tag >= book_end:
+            break
+        cursor = item.tag
+        if les.peek(item.tag) is None:
+            continue
+        for offer_idx in list(les.dir_entries(item.tag)):
+            offer = les.peek(offer_idx)
+            if offer is None:
+                continue
+            rest = Amounts(offer[sfTakerPays], offer[sfTakerGets])
+            funds = views.account_funds(les, offer[sfAccount], rest.o)
+            if funds.signum() <= 0 or rest.o.signum() <= 0:
+                continue
+            flow_amts = _scale_to_out(rest, funds)
+            remaining = out_need - out_total
+            flow_amts = _scale_to_out(flow_amts, remaining)
+            if in_cap is not None:
+                in_left = in_cap - in_total
+                if in_left.signum() <= 0:
+                    return in_total, out_total
+                flow_amts = _scale_to_in(flow_amts, in_left)
+            if flow_amts.o.signum() <= 0:
+                continue
+            in_total = in_total + flow_amts.i
+            out_total = out_total + flow_amts.o
+            if out_total >= out_need:
+                break
+    return in_total, out_total
+
+
+def _node_qualities(
+    les: LedgerEntrySet, hops: list, i: int, src: bytes
+) -> tuple[int, int]:
+    """(qualityIn, qualityOut) at the node SENDING hop i (an interior
+    AccountHop), 1e9 = parity (reference: calcNodeAccountRev's
+    rippleQualityIn/Out lookups, RippleCalc.cpp:1419-1424). qualityIn
+    covers the line the value arrived over — defined only when the
+    previous hop is an account-to-account ripple (the reference's
+    account-adjacent-to-account node shape; book boundaries carry no
+    line quality); qualityOut covers the line to this hop's receiver."""
+    hop = hops[i]
+    prev = hops[i - 1] if i > 0 else None
+    if not isinstance(prev, AccountHop) or hop.src == src:
+        return views.QUALITY_ONE, views.QUALITY_ONE
+    qin = views.ripple_quality(
+        les, hop.src, prev.src, hop.currency, inbound=True
+    )
+    qout = views.ripple_quality(
+        les, hop.src, hop.dst, hop.currency, inbound=False
+    )
+    return qin, qout
+
+
+# -- forward execution ----------------------------------------------------
+
+
+def execute_strand(
+    les: LedgerEntrySet,
+    src: bytes,
+    hops: list[Hop],
+    out_target: STAmount,
+    in_budget: STAmount,
+    parent_close_time: int,
+) -> tuple[STAmount, STAmount]:
+    """Run the strand forward on `les` (callers pass a duplicate); returns
+    (spent_at_src, delivered_at_dst). Raises PathError on a dry/broken
+    strand. Output is targeted exactly: every hop knows what the rest of
+    the strand still needs (reference: calcNode*Fwd with the rev-pass
+    requests folded in)."""
+    if not hops:
+        raise PathError(TER.tecPATH_DRY, "empty strand")
+    # REVERSE pass (reference: calcNodeAccountRev / calcNodeDeliverRev):
+    # per-hop output targets computed backwards, clamped by what each hop
+    # can actually move — a capacity-limited line downstream shrinks the
+    # request upstream, so a budget-limited book hop never buys input the
+    # rest of the strand cannot deliver (over-buying both wastes sendmax
+    # and degrades the strand's measured quality)
+    targets: list[STAmount] = [None] * len(hops)  # type: ignore[list-item]
+    need = out_target
+    for i in range(len(hops) - 1, -1, -1):
+        hop = hops[i]
+        if isinstance(hop, AccountHop):
+            # the clamp is valid only where upstream execution cannot
+            # raise this hop's capacity: an account hop directly after a
+            # book hop moves value over the very line the book crossing
+            # just credited, so its pre-execution capacity understates
+            # (reference: calcNodeAccountRev computes caps against the
+            # previous node's deliverable, not the static line state)
+            after_book = i > 0 and isinstance(hops[i - 1], BookHop)
+            if hop.currency != CURRENCY_XRP and not after_book:
+                cap = line_capacity(les, hop.src, hop.dst, hop.currency)
+                if cap is None or cap.signum() <= 0:
+                    raise PathError(
+                        TER.tecPATH_DRY, "no line capacity (rev pass)"
+                    )
+                if cap < need:
+                    need = STAmount.from_iou(
+                        need.currency, need.issuer,
+                        cap.mantissa, cap.offset, cap.negative,
+                    )
+            targets[i] = need
+            # the hop's source must first RECEIVE need*rate when it is an
+            # intermediary gateway (reference: rippleTransferFee)
+            if hop.src != src and hop.currency != CURRENCY_XRP:
+                rate = views.ripple_transfer_rate(les, hop.src)
+                if rate != views.QUALITY_ONE:
+                    need = STAmount.multiply(
+                        need,
+                        STAmount.from_iou(_CUR_ONE, ACCOUNT_ONE, rate, -9),
+                        need.currency,
+                        need.issuer,
+                    )
+                # line-quality fee at the interior node (reference:
+                # calcNodeRipple — in = out * qualityOut/qualityIn when
+                # qualityIn < qualityOut, never a bonus): the node rates
+                # inbound IOUs from the previous account by ITS OWN
+                # QualityIn on that line, and its forwarding to the next
+                # by its QualityOut
+                qin, qout = _node_qualities(les, hops, i, src)
+                if qin < qout:
+                    need = STAmount.multiply(
+                        STAmount.divide(
+                            need,
+                            STAmount.from_iou(_CUR_ONE, ACCOUNT_ONE, qin, -9),
+                            need.currency, need.issuer,
+                        ),
+                        STAmount.from_iou(_CUR_ONE, ACCOUNT_ONE, qout, -9),
+                        need.currency,
+                        need.issuer,
+                    )
+        else:
+            # the requirement carried backward may still be denominated
+            # in the FINAL delivery issuer (e.g. flexible issuer-of-dst
+            # amounts); this book produces hop.out_issuer's IOUs — quote
+            # and target in that denomination
+            if not need.is_native and need.issuer != hop.out_issuer:
+                need = STAmount.from_iou(
+                    hop.out_currency, hop.out_issuer,
+                    need.mantissa, need.offset, need.negative,
+                )
+            targets[i] = need
+            # book input requirement discovered by quote
+            in_needed, out_avail = book_quote(
+                les, hop.in_currency, hop.in_issuer, need
+            )
+            if out_avail.signum() <= 0:
+                raise PathError(TER.tecPATH_DRY, "empty book")
+            need = in_needed
+
+    holder = src
+    carried = in_budget  # value available entering the next hop
+    spent: Optional[STAmount] = None
+    for i, hop in enumerate(hops):
+        want_out = targets[i]
+        if isinstance(hop, AccountHop):
+            # NoRipple pair rule: an intermediary that set NoRipple on
+            # both adjacent lines has opted out of rippling through it
+            if (
+                hop.src != src
+                and i > 0
+                and isinstance(hops[i - 1], AccountHop)
+                and no_ripple_blocked(
+                    les, hop.src, hops[i - 1].src, hop.dst, hop.currency
+                )
+            ):
+                raise PathError(TER.tecPATH_DRY, "NoRipple blocks this hop")
+            if hop.currency == CURRENCY_XRP:
+                amount = min(carried, want_out)
+                if amount.signum() <= 0:
+                    raise PathError(TER.tecPATH_DRY, "no STR to deliver")
+                ter = views.account_send(les, hop.src, hop.dst, amount)
+                if ter != TER.tesSUCCESS:
+                    raise PathError(ter, "STR delivery failed")
+                if spent is None:
+                    spent = amount
+                carried = amount
+                holder = hop.dst
+                continue
+            cap = line_capacity(les, hop.src, hop.dst, hop.currency)
+            if cap is None:
+                raise PathError(TER.tecPATH_DRY, "no trust line")
+            deliver = want_out
+            # fee at an intermediary gateway: it forwards what it
+            # received net of its transfer rate
+            if hop.src != src:
+                rate = views.ripple_transfer_rate(les, hop.src)
+                usable = carried
+                if rate != views.QUALITY_ONE:
+                    usable = STAmount.divide(
+                        carried,
+                        STAmount.from_iou(_CUR_ONE, ACCOUNT_ONE, rate, -9),
+                        carried.currency,
+                        carried.issuer,
+                    )
+                # line-quality fee (mirror of the reverse pass): the
+                # node forwards in * qualityIn/qualityOut of what
+                # arrived when qualityIn < qualityOut
+                qin, qout = _node_qualities(les, hops, i, src)
+                if qin < qout:
+                    usable = STAmount.divide(
+                        STAmount.multiply(
+                            usable,
+                            STAmount.from_iou(_CUR_ONE, ACCOUNT_ONE, qin, -9),
+                            usable.currency, usable.issuer,
+                        ),
+                        STAmount.from_iou(_CUR_ONE, ACCOUNT_ONE, qout, -9),
+                        usable.currency,
+                        usable.issuer,
+                    )
+                deliver = min(deliver, usable)
+            else:
+                # strand source: limited by its own budget if same asset
+                if not carried.is_native and carried.currency == hop.currency:
+                    deliver = min(deliver, carried)
+            deliver = min(deliver, cap)
+            deliver = STAmount.from_iou(
+                hop.currency,
+                hop.dst,
+                deliver.mantissa,
+                deliver.offset,
+                deliver.negative,
+            )
+            if deliver.signum() <= 0:
+                raise PathError(TER.tecPATH_DRY, "line capacity exhausted")
+            ter = views.ripple_credit(les, hop.src, hop.dst, deliver)
+            if ter != TER.tesSUCCESS:
+                raise PathError(ter, "ripple credit failed")
+            if spent is None:
+                # at the strand source: cost = what src sent, plus the
+                # downstream fees are already embedded in later hops
+                spent = deliver
+            carried = deliver
+            holder = hop.dst
+        else:
+            in_cap = carried if (
+                carried.currency == hop.in_currency
+            ) else views.account_holds(
+                les, holder, hop.in_currency, hop.in_issuer
+            )
+            if in_cap.signum() <= 0:
+                raise PathError(TER.tecPATH_DRY, "no input for book")
+            # quote-then-cross, iterated: the quote's midpoint roundings
+            # (reference STAmount +7/+5 rounding) can price the need a
+            # drop short, and a multi-level fill then under-delivers by
+            # a rounding quantum; a follow-up pass buys the remainder.
+            # Budget-limited throughout: the quote finds what the budget
+            # actually buys (cross_offers caps both sides exactly).
+            total_paid: Optional[STAmount] = None
+            total_got: Optional[STAmount] = None
+            for _round in range(4):
+                still = (want_out if total_got is None
+                         else want_out - total_got)
+                if still.signum() <= 0:
+                    break
+                cap_left = (in_cap if total_paid is None
+                            else in_cap - total_paid)
+                if cap_left.signum() <= 0:
+                    break
+                _, est_out = book_quote(
+                    les, hop.in_currency, hop.in_issuer, still, cap_left
+                )
+                if est_out.signum() <= 0:
+                    if total_got is None:
+                        raise PathError(
+                            TER.tecPATH_DRY, "book too expensive or dry"
+                        )
+                    break
+                ter, paid, got = cross_offers(
+                    les,
+                    holder,
+                    # the full remaining budget, not est_in: the quote's
+                    # midpoint roundings can price the fill a drop short
+                    # and starve the marginal offer's input; the exact
+                    # est_out cap is what terminates the fill, so input
+                    # headroom cannot overshoot the out target
+                    cap_left,
+                    est_out,
+                    sell=False,
+                    passive=False,
+                    parent_close_time=parent_close_time,
+                    # a payment's book node has NO taker quality limit
+                    # (reference: calcNodeDeliverFwd consumes offers at
+                    # their own prices until the need is met; only
+                    # tfLimitQuality imposes one). The default in/out
+                    # threshold is the AVERAGE price of the quote, which
+                    # wrongly rejects the marginal offer of a multi-
+                    # level fill; est_in/est_out still cap both sides.
+                    threshold_rate=PERMISSIVE_RATE,
+                )
+                if ter != TER.tesSUCCESS:
+                    if total_got is None:
+                        raise PathError(ter, "book crossing failed")
+                    break  # keep the earlier rounds' successful fill
+                if got.signum() <= 0:
+                    break
+                total_paid = paid if total_paid is None else total_paid + paid
+                total_got = got if total_got is None else total_got + got
+            if total_got is None or total_got.signum() <= 0:
+                raise PathError(TER.tecPATH_DRY, "book gave nothing")
+            if spent is None:
+                spent = total_paid
+            carried = total_got
+    assert spent is not None
+    return spent, carried
+
+
+# -- multi-path combiner --------------------------------------------------
+
+
+def _ratio(delivered: STAmount, cost: STAmount) -> Fraction:
+    """Quality for ranking strands (higher = cheaper), as an exact rational
+    so edge-rate limit-quality comparisons match the reference's exact
+    STAmount::getRate arithmetic (no float precision boundary)."""
+    c_m = cost.mantissa
+    c_off = 0 if cost.is_native else cost.offset
+    d_m = delivered.mantissa
+    d_off = 0 if delivered.is_native else delivered.offset
+    if c_m <= 0:
+        return Fraction(0)
+    num, den = d_m, c_m
+    e = d_off - c_off
+    if e >= 0:
+        num *= 10**e
+    else:
+        den *= 10 ** (-e)
+    return Fraction(num, den)
+
+
+def flow(
+    les: LedgerEntrySet,
+    src: bytes,
+    dst: bytes,
+    dst_amount: STAmount,
+    send_max: STAmount,
+    paths: list[list[PathElement]],
+    partial: bool,
+    parent_close_time: int,
+    max_iterations: int = 30,
+    limit_quality: Optional[Fraction] = None,
+) -> tuple[TER, STAmount, STAmount]:
+    """Deliver `dst_amount` to dst using the given strands, best quality
+    first, spending at most `send_max` (reference: rippleCalc multi-path
+    loop). Returns (ter, actually_spent, actually_delivered); mutations
+    land in `les` only for the committed strands."""
+    src_currency = send_max.currency
+    src_issuer = (
+        ACCOUNT_ZERO if send_max.is_native else send_max.issuer
+    )
+    strands: list[list[Hop]] = []
+    for path in paths:
+        try:
+            strands.append(
+                plan_strand(src, dst, dst_amount, src_currency, src_issuer, path)
+            )
+        except PathError as e:
+            if -299 <= int(e.ter) <= -200:  # tem*: the tx is malformed
+                return e.ter, _zero_of(send_max), _zero_of(dst_amount)
+            continue
+    if not strands:
+        return TER.tecPATH_DRY, _zero_of(send_max), _zero_of(dst_amount)
+
+    remaining = dst_amount
+    budget = send_max
+    total_spent = _zero_of(send_max)
+    total_delivered = _zero_of(dst_amount)
+
+    for _ in range(max_iterations):
+        if remaining.signum() <= 0 or budget.signum() <= 0:
+            break
+        best = None  # (ratio, sandbox, spent, delivered)
+        for hops in strands:
+            sandbox = les.duplicate()
+            try:
+                spent, delivered = execute_strand(
+                    sandbox, src, hops, remaining, budget, parent_close_time
+                )
+            except PathError:
+                continue
+            if delivered.signum() <= 0 or spent.signum() <= 0:
+                continue
+            if spent > budget:
+                continue
+            r = _ratio(delivered, spent)
+            if limit_quality is not None and r < limit_quality:
+                continue  # tfLimitQuality: refuse worse-than-stated rates
+            if best is None or r > best[0]:
+                best = (r, sandbox, spent, delivered)
+        if best is None:
+            break
+        _r, sandbox, spent, delivered = best
+        les.swap_with(sandbox)
+        total_spent = total_spent + spent
+        total_delivered = total_delivered + delivered
+        remaining = remaining - delivered
+        budget = budget - spent
+
+    if remaining.signum() <= 0:
+        return TER.tesSUCCESS, total_spent, total_delivered
+    if partial and total_delivered.signum() > 0:
+        return TER.tesSUCCESS, total_spent, total_delivered
+    if total_delivered.signum() > 0:
+        return TER.tecPATH_PARTIAL, total_spent, total_delivered
+    return TER.tecPATH_DRY, total_spent, total_delivered
+
+
+def _zero_of(a: STAmount) -> STAmount:
+    if a.is_native:
+        return STAmount.from_drops(0)
+    return STAmount.zero_like(a.currency, a.issuer)

@@ -1,0 +1,287 @@
+"""OrderBookDB: index of the order books that exist in a ledger.
+
+Reference: src/ripple_app/ledger/OrderBookDB.cpp (326 LoC) — rebuilt on
+ledger switch (jtOB_SETUP), consulted by the Pathfinder for which
+currency conversions are available, and by book subscriptions.
+
+LiveBookIndex is this repo's incremental twin: instead of rescanning
+every ltOFFER per ledger switch, it carries an offer count per Book
+forward across closes and applies only the close's own write set —
+the Created/Deleted ltOFFER nodes in each transaction's metadata.
+A close that touches no books carries the previous index forward
+without a single state read (pinned by the `state_offers_scanned` /
+`book_rereads` counters); any discontinuity (gap, fork, missing
+metadata, count underflow) falls back to the full scan, which the
+`incremental=False` kill-switch forces unconditionally.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from ..protocol.formats import LedgerEntryType
+from ..protocol.sfields import (
+    sfAffectedNodes,
+    sfCreatedNode,
+    sfDeletedNode,
+    sfFinalFields,
+    sfLedgerEntryType,
+    sfNewFields,
+    sfTakerGets,
+    sfTakerPays,
+)
+from ..protocol.stamount import ACCOUNT_ZERO
+from ..protocol.stobject import STObject
+from ..state.ledger import Ledger
+
+__all__ = ["Book", "OrderBookDB", "LiveBookIndex", "book_of"]
+
+CURRENCY_XRP = b"\x00" * 20
+
+
+@dataclass(frozen=True)
+class Book:
+    """One direction of one market (reference: OrderBook)."""
+
+    in_currency: bytes  # what the taker pays (book's TakerPays)
+    in_issuer: bytes
+    out_currency: bytes  # what the taker gets (book's TakerGets)
+    out_issuer: bytes
+
+
+class OrderBookDB:
+    # (ledger seq, state root) -> OrderBookDB; tiny LRU so repeated
+    # pathfinding against the same ledger doesn't rescan the state map
+    # (reference: rebuilt once per ledger switch on jtOB_SETUP)
+    _cache: dict[tuple[int, bytes], "OrderBookDB"] = {}
+    _CACHE_MAX = 4
+
+    def __init__(self):
+        self.books: set[Book] = set()
+        # in-asset -> books consuming it (the pathfinder's fan-out edge)
+        self.by_in: dict[tuple[bytes, bytes], set[Book]] = {}
+        self.by_out: dict[tuple[bytes, bytes], set[Book]] = {}
+
+    @classmethod
+    def for_ledger(cls, ledger: Ledger) -> "OrderBookDB":
+        key = (ledger.seq, ledger.state_map.get_hash())
+        db = cls._cache.get(key)
+        if db is None:
+            db = cls().setup(ledger)
+            cls._cache[key] = db
+            while len(cls._cache) > cls._CACHE_MAX:
+                cls._cache.pop(next(iter(cls._cache)))
+        return db
+
+    def setup(self, ledger: Ledger) -> "OrderBookDB":
+        """Scan the state map's offers (reference: OrderBookDB::setup
+        walks ltOFFER entries)."""
+        self.books.clear()
+        self.by_in.clear()
+        self.by_out.clear()
+        for item in ledger.state_map.items():
+            sle = STObject.from_bytes(item.data)
+            if sle.get(sfLedgerEntryType) != int(LedgerEntryType.ltOFFER):
+                continue
+            self.add(book_of(sle[sfTakerPays], sle[sfTakerGets]))
+        return self
+
+    def add(self, book: Book) -> None:
+        if book not in self.books:
+            self.books.add(book)
+            self.by_in.setdefault(
+                (book.in_currency, book.in_issuer), set()
+            ).add(book)
+            self.by_out.setdefault(
+                (book.out_currency, book.out_issuer), set()
+            ).add(book)
+
+    def books_taking(self, currency: bytes, issuer: bytes) -> set[Book]:
+        return self.by_in.get((currency, issuer), set())
+
+    def books_delivering(self, currency: bytes, issuer: bytes) -> set[Book]:
+        return self.by_out.get((currency, issuer), set())
+
+    def __len__(self) -> int:
+        return len(self.books)
+
+
+def book_of(pays, gets) -> Book:
+    """The Book an offer with these TakerPays/TakerGets lives in."""
+    return Book(
+        pays.currency,
+        ACCOUNT_ZERO if pays.is_native else pays.issuer,
+        gets.currency,
+        ACCOUNT_ZERO if gets.is_native else gets.issuer,
+    )
+
+
+class LiveBookIndex:
+    """Per-close incremental OrderBookDB (reference: OrderBookDB is
+    rebuilt from scratch on every ledger switch; here only the books in
+    the close's write set are touched).
+
+    The source of truth for membership deltas is transaction metadata:
+    a CreatedNode for an ltOFFER adds one offer to its book (TakerPays/
+    TakerGets live in NewFields), a DeletedNode removes one (FinalFields).
+    ModifiedNode never moves an offer between books — partial fills
+    change amounts, never the currency/issuer pair — so it is ignored.
+
+    Identity contract: after advance(ledger), the book set equals what
+    OrderBookDB().setup(ledger) would compute, for every ledger — pinned
+    by tests and the pathsmoke gate against the kill-switch.
+    """
+
+    def __init__(self, incremental: bool = True):
+        import threading
+
+        self.incremental = incremental
+        # the close hook (persist/publish thread) and the jtUPDATE_PF
+        # publisher race to advance the same close; one coarse lock
+        # keeps the count/continuity state consistent (the second
+        # caller returns the memoized view)
+        self._advance_lock = threading.RLock()
+        self._counts: dict[Book, int] = {}
+        self._db: OrderBookDB | None = None
+        self._seq: int | None = None
+        self._hash: bytes | None = None
+        # observability (doc/observability.md `paths.index.*`)
+        self.full_rebuilds = 0
+        self.incremental_advances = 0
+        self.carries = 0
+        self.book_rereads = 0  # books touched by incremental deltas
+        self.state_offers_scanned = 0  # offers read by full scans
+
+    @property
+    def seq(self) -> int | None:
+        return self._seq
+
+    def counters(self) -> dict:
+        return {
+            "incremental": bool(self.incremental),
+            "seq": self._seq,
+            "books": len(self._counts),
+            "full_rebuilds": self.full_rebuilds,
+            "incremental_advances": self.incremental_advances,
+            "carries": self.carries,
+            "book_rereads": self.book_rereads,
+            "state_offers_scanned": self.state_offers_scanned,
+        }
+
+    def books_if_current(self, ledger: Ledger) -> OrderBookDB | None:
+        """The live view if it already reflects `ledger`, else None —
+        never mutates (RPC against historical ledgers must not wreck
+        the close-to-close continuity)."""
+        with self._advance_lock:
+            if self._db is not None and self._seq == ledger.seq \
+                    and self._hash == ledger.hash():
+                return self._db
+            return None
+
+    def advance(self, ledger: Ledger) -> OrderBookDB:
+        """Bring the index to `ledger` and return its OrderBookDB view.
+
+        Incremental when `ledger` is the direct successor of the last
+        advanced ledger (parent-hash continuity); a zero-delta close
+        carries the previous view forward untouched. Everything else —
+        first use, gaps, forks, a tx without metadata, the kill-switch —
+        is a full rebuild.
+        """
+        with self._advance_lock:
+            h = ledger.hash()
+            if self._db is not None and self._seq == ledger.seq \
+                    and self._hash == h:
+                return self._db
+            if (
+                not self.incremental
+                or self._db is None
+                or ledger.parent_hash != self._hash
+                or ledger.seq != (self._seq or 0) + 1
+            ):
+                return self._rebuild(ledger, h)
+            deltas = self._meta_deltas(ledger)
+            if deltas is None:  # metadata missing somewhere: rebuild
+                return self._rebuild(ledger, h)
+            if not any(deltas.values()):
+                self.carries += 1
+                self._seq, self._hash = ledger.seq, h
+                return self._db
+            counts = self._counts
+            for book, d in deltas.items():
+                if d == 0:
+                    continue
+                self.book_rereads += 1
+                c = counts.get(book, 0) + d
+                if c < 0:  # underflow: our view disagrees with the chain
+                    return self._rebuild(ledger, h)
+                if c == 0:
+                    counts.pop(book, None)
+                else:
+                    counts[book] = c
+            self.incremental_advances += 1
+            self._db = self._db_from_counts()
+            self._seq, self._hash = ledger.seq, h
+            return self._db
+
+    # -- internals --------------------------------------------------------
+
+    @staticmethod
+    def _meta_deltas(ledger: Ledger) -> dict[Book, int] | None:
+        """Net per-book offer-count deltas from the close's tx metadata,
+        or None when any tx lacks metadata."""
+        lt_offer = int(LedgerEntryType.ltOFFER)
+        deltas: dict[Book, int] = {}
+        parsed = getattr(ledger, "parsed_metas", None) or {}
+        for txid, _blob, meta_blob in ledger.tx_entries():
+            if not meta_blob:
+                return None
+            # leader closes memoize the parsed meta (record_transaction);
+            # only follower-ingested ledgers pay the deserialization
+            meta = parsed.get(txid)
+            if meta is None:
+                meta = STObject.from_bytes(meta_blob)
+            affected = meta.get(sfAffectedNodes)
+            if affected is None:
+                return None
+            for field, node in affected:
+                if node.get(sfLedgerEntryType) != lt_offer:
+                    continue
+                if field == sfCreatedNode:
+                    inner, d = node.get(sfNewFields), 1
+                elif field == sfDeletedNode:
+                    inner, d = node.get(sfFinalFields), -1
+                else:
+                    continue  # ModifiedNode: amounts only, same book
+                if inner is None:
+                    return None
+                pays = inner.get(sfTakerPays)
+                gets = inner.get(sfTakerGets)
+                if pays is None or gets is None:
+                    return None
+                book = book_of(pays, gets)
+                deltas[book] = deltas.get(book, 0) + d
+        return deltas
+
+    def _rebuild(self, ledger: Ledger, h: bytes) -> OrderBookDB:
+        self.full_rebuilds += 1
+        lt_offer = int(LedgerEntryType.ltOFFER)
+        counts: dict[Book, int] = {}
+        scanned = 0
+        for item in ledger.state_map.items():
+            sle = STObject.from_bytes(item.data)
+            if sle.get(sfLedgerEntryType) != lt_offer:
+                continue
+            scanned += 1
+            book = book_of(sle[sfTakerPays], sle[sfTakerGets])
+            counts[book] = counts.get(book, 0) + 1
+        self.state_offers_scanned += scanned
+        self._counts = counts
+        self._db = self._db_from_counts()
+        self._seq, self._hash = ledger.seq, h
+        return self._db
+
+    def _db_from_counts(self) -> OrderBookDB:
+        db = OrderBookDB()
+        for book in self._counts:
+            db.add(book)
+        return db

@@ -483,6 +483,33 @@ class SHAMap:
             return leaf.item
         return None
 
+    def succ(self, key: bytes) -> Optional[SHAMapItem]:
+        """First item with tag strictly greater than `key` (reference:
+        SHAMap::peekNextItem — order-book/directory iteration). Key-guided
+        descent, O(depth): at each inner node, recurse into the key's own
+        branch first, then scan higher branches for their smallest leaf."""
+
+        def smallest(node) -> Optional[SHAMapItem]:
+            while isinstance(node, Inner):
+                node = next((c for c in node.children if c is not None), None)
+            return node.item if node is not None else None
+
+        def descend(node, depth) -> Optional[SHAMapItem]:
+            if node is None:
+                return None
+            if isinstance(node, Leaf):
+                return node.item if node.item.tag > key else None
+            b = _nibble(key, depth)
+            found = descend(node.children[b], depth + 1)
+            if found is not None:
+                return found
+            for c in node.children[b + 1 :]:
+                if c is not None:
+                    return smallest(c)
+            return None
+
+        return descend(self.root, 0)
+
     # -- mutation ---------------------------------------------------------
 
     def set_item(self, item: SHAMapItem, leaf_type: Optional[TNType] = None) -> None:

@@ -9,9 +9,14 @@ transaction blobs, each package starting from its own build of the same
 AccountRoots. Every ledger hash, verdict and TER must be equal: the
 tolerance is zero, since these are bytes.
 
-The full-size run (1,000,000 accounts, 4 closes x 4,096 payments) is the
-`slow` test that recomputes chip_smoke.py's constants through the JAX
-package alone:
+The book phase (chip_smoke.book_workload: gateways, trust lines, regular
+keys, issuance, then offer crossings and cancels, regular-key AccountSets,
+cross-currency path payments and merges; then path searches pre-ranked on
+the path plane) goes on on the same chain, at a small size here.
+
+The full-size run (1,000,000 accounts, 4 closes x 4,096 payments, then
+the book phase's 4 closes and 64 path searches) is the `slow` test that
+recomputes chip_smoke.py's constants through the JAX package alone:
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_close.py -m slow -q -s
 """
@@ -60,29 +65,65 @@ def jax_start_ledger(accounts) -> JaxLedger:
     return led
 
 
-def run_jax_closes(wl: dict) -> list[dict]:
+def _jax_close(lm, entries, k: int) -> dict:
+    mode = JaxTxParams.OPEN_LEDGER | JaxTxParams.RETRY
+    txs = [JaxSTTx.from_bytes(blob) for blob, _kind, _good in entries]
+    open_ters = [(tx.txid(), lm.do_transaction(tx, mode)[0]) for tx in txs]
+    ledger, results = lm.close_and_advance(cs.START_CLOSE_TIME + 30 * (k + 1), 30)
+    return {
+        "seq": ledger.seq, "hash": ledger.hash().hex(),
+        "digest": cs.results_digest(open_ters, results),
+        "verdicts": [tx.check_sign() for tx in txs],
+        "open_ters": [int(t) for _, t in open_ters],
+        "close_ters": {txid: int(t) for txid, t in results.items()},
+    }
+
+
+def run_jax_closes(wl: dict, book=None) -> list[dict]:
     """The JAX package's LedgerMaster (defaults: delta replay on, its
-    default hasher, host verify in the engine) over the same blobs."""
+    default hasher, host verify in the engine) over the same blobs. With
+    ``book`` = (book workload, prune floor), the book phase goes on on
+    the same chain: its closes, each followed by the JAX PathPlane's
+    note_close, then its path searches as the JAX node's path_find door
+    makes them (books_if_current, make_pre_rank with the host-routed
+    evaluator) -> an extra last entry {"book": closes, "answers",
+    "paths_digest", "prune_batches"}."""
     start = jax_start_ledger(wl["accounts"])
     lm = JaxLedgerMaster()
     lm.load_ledger(start)
     out = [{"hash": start.hash().hex()}]
-    mode = JaxTxParams.OPEN_LEDGER | JaxTxParams.RETRY
     try:
         for k, entries in enumerate(wl["closes"]):
-            txs = [JaxSTTx.from_bytes(blob) for blob, _kind, _good in entries]
-            open_ters = [(tx.txid(), lm.do_transaction(tx, mode)[0]) for tx in txs]
-            ledger, results = lm.close_and_advance(cs.START_CLOSE_TIME + 30 * (k + 1), 30)
-            out.append({
-                "seq": ledger.seq, "hash": ledger.hash().hex(),
-                "digest": cs.results_digest(open_ters, results),
-                "verdicts": [tx.check_sign() for tx in txs],
-                "open_ters": [int(t) for _, t in open_ters],
-                "close_ters": {txid: int(t) for txid, t in results.items()},
-            })
+            out.append(_jax_close(lm, entries, k))
+        if book is not None:
+            out.append(_jax_book(lm, *book, first_close=len(wl["closes"])))
     finally:
         lm.stop_seal_drainer()
     return out
+
+
+def _jax_book(lm, bwl: dict, prune_floor: int, first_close: int) -> dict:
+    from stellard_tpu.crypto.backend import make_path_evaluator as jax_evaluator
+    from stellard_tpu.paths import find_paths as jax_find_paths
+    from stellard_tpu.paths.plane import PathPlane as JaxPathPlane
+
+    plane = JaxPathPlane(evaluator=jax_evaluator(routing="host"), prune_floor=prune_floor)
+    plane.note_close(lm.closed_ledger())
+    closes = []
+    for k, entries in enumerate(bwl["closes"]):
+        closes.append(_jax_close(lm, entries, first_close + k))
+        plane.note_close(lm.closed_ledger())
+    ledger = lm.closed_ledger()
+    answers = [
+        jax_find_paths(ledger, src, dst, JaxSTAmount.from_json(amount.to_json()),
+                       send_max=(None if send_max is None
+                                 else JaxSTAmount.from_json(send_max.to_json())),
+                       books=plane.books_if_current(ledger),
+                       pre_rank=plane.make_pre_rank(ledger))
+        for src, dst, amount, send_max in bwl["requests"]
+    ]
+    return {"book": closes, "answers": answers, "paths_digest": cs.paths_digest(answers),
+            "prune_batches": plane.get_json()["prune_batches"]}
 
 
 def txids(wl: dict, close: int) -> list[bytes]:
@@ -96,7 +137,7 @@ def small_runs():
                         backend_opts={"device": "cpu"})
     tkeys.host_verifies = 0
     try:
-        port = cs.run_closes(wl, CudaHasher(device="cpu"), plane.verify_many)
+        port, _node = cs.run_closes(wl, CudaHasher(device="cpu"), plane.verify_many)
     finally:
         plane.stop()
     host_verifies = tkeys.host_verifies
@@ -140,18 +181,100 @@ def test_no_host_verify_and_all_on_the_plane(small_runs):
     assert pj["device_batches"] == SMALL["n_closes"]
 
 
+# the book phase at a small size: 4 gateways (8 IOUs), 48 traders, 24 with
+# a regular key, 128 transactions a book close, 16 path searches; a prune
+# floor low enough that the searches of this small graph are pre-ranked
+SMALL_BOOK = dict(n_gateways=4, n_traders=48, n_regular=24, per_close=128,
+                  n_merges=4, n_requests=16, seed=3)
+SMALL_PRUNE_FLOOR = 3
+
+
+@pytest.fixture(scope="module")
+def small_book_runs():
+    """The close phase and then the book phase on the same chain, through
+    the port (the verify plane's K1 and the evaluator's K4 on the CPU,
+    which take their plain versions; the seal on the default hasher) and
+    through the JAX package."""
+    from stellard_tpu_torch.crypto.backend import make_path_evaluator
+    from stellard_tpu_torch.paths.plane import PathPlane
+
+    wl = cs.close_workload(**SMALL)
+    bwl = cs.book_workload(wl, **SMALL_BOOK)
+    plane = VerifyPlane(backend="cuda", routing="device",
+                        backend_opts={"device": "cpu"})
+    paths = PathPlane(evaluator=make_path_evaluator(routing="device", device="cpu"),
+                      prune_floor=SMALL_PRUNE_FLOOR)
+    tkeys.host_verifies = 0
+    try:
+        _closes, node = cs.run_closes(wl, None, plane.verify_many)
+        port = cs.run_book(node, bwl, plane.verify_many, paths, first_close=SMALL["n_closes"])
+    finally:
+        plane.stop()
+    jax = run_jax_closes(wl, book=(bwl, SMALL_PRUNE_FLOOR))[-1]
+    return bwl, port, jax, paths.get_json(), tkeys.host_verifies
+
+
+@pytest.mark.parametrize("close", range(4))
+def test_book_close_equal_to_jax(small_book_runs, close):
+    bwl, port, jax, _pp, _hv = small_book_runs
+    p, j = port["closes"][close], jax["book"][close]
+    assert p["seq"] == j["seq"] == cs.START_SEQ + SMALL["n_closes"] + close + 1
+    assert p["hash"] == j["hash"]
+    assert p["open_ters"] == j["open_ters"] == cs._expect_open_ters(bwl["closes"][close])
+    assert p["close_ters"] == j["close_ters"]
+    assert p["digest"] == j["digest"]
+    assert p["verdicts"] == j["verdicts"] == [g for _b, _k, g in bwl["closes"][close]]
+
+
+def test_book_workload_covers_every_kind(small_book_runs):
+    bwl, port, _jax, _pp, _hv = small_book_runs
+    kinds = {k for c in bwl["closes"] for _b, k, _g in c}
+    assert {"transfer_rate", "trust_set", "regular_key_set", "issue", "account_merge",
+            "offer_ask", "offer_bid", "offer_cancel", "regular_key_account_set",
+            "cross_payment", "bad_sig"} <= kinds
+    # the book closes applied what they carried: offers crossed and rested
+    closed = [t for c in port["closes"][2:] for t in c["close_ters"].values()]
+    assert closed.count(int(TER.tesSUCCESS)) > len(closed) // 2
+
+
+def test_book_paths_equal_to_jax(small_book_runs):
+    """Every path answer equal (the digest covers every element and
+    amount); the searches were pre-ranked on the plane, by the evaluator's
+    device arm, in both packages alike."""
+    _bwl, port, jax, pp, host_verifies = small_book_runs
+    assert port["paths_digest"] == jax["paths_digest"]
+    assert any(port["answers"])
+    assert pp["prune_batches"] == jax["prune_batches"] > 0
+    assert pp["evaluator"]["device_batches"] == pp["prune_batches"]
+    assert pp["evaluator"]["host_batches"] == 0
+    assert host_verifies == 0
+    assert pp["index"]["full_rebuilds"] == 1 and pp["index"]["incremental_advances"] >= 2
+
+
 @pytest.mark.slow
 def test_chip_smoke_constants_through_the_jax_package():
-    """Recomputes chip_smoke.py's CLOSE_HASHES / CLOSE_DIGESTS at full
-    size through the JAX package (its LedgerMaster, defaults)."""
+    """Recomputes chip_smoke.py's CLOSE_HASHES / CLOSE_DIGESTS and the
+    book phase's BOOK_HASHES / BOOK_DIGESTS / PATHS_DIGEST at full size
+    through the JAX package (its LedgerMaster, defaults; its PathPlane
+    with BOOK_PRUNE_FLOOR and the host-routed evaluator)."""
     wl = cs.close_workload(**cs.CLOSE_SIZES)
-    jax = run_jax_closes(wl)
+    bwl = cs.book_workload(wl, **cs.BOOK_SIZES)
+    jax = run_jax_closes(wl, book=(bwl, cs.BOOK_PRUNE_FLOOR))
+    book = jax.pop()
     got = [c["hash"] for c in jax[1:]], [c["digest"] for c in jax[1:]]
+    got_book = [c["hash"] for c in book["book"]], [c["digest"] for c in book["book"]]
     print("START_HASH =", jax[0]["hash"])
     print("CLOSE_HASHES =", got[0])
     print("CLOSE_DIGESTS =", got[1])
+    print("BOOK_HASHES =", got_book[0])
+    print("BOOK_DIGESTS =", got_book[1])
+    print("PATHS_DIGEST =", book["paths_digest"])
+    print("prune_batches =", book["prune_batches"])
     assert jax[0]["hash"] == cs.START_HASH
     assert got == (cs.CLOSE_HASHES, cs.CLOSE_DIGESTS)
+    assert got_book == (cs.BOOK_HASHES, cs.BOOK_DIGESTS)
+    assert book["paths_digest"] == cs.PATHS_DIGEST
+    assert book["prune_batches"] > 0
 
 
 def test_genesis_chain_with_held_transactions_equal():

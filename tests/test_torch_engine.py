@@ -8,8 +8,9 @@ same sender twice in one open window) are built by the JAX package's
 testkit, and each blob is applied by both packages' TransactionEngine
 to their own genesis chain. Per transaction the TER, whether it applied,
 and the metadata bytes must be equal; after every stream the state and
-tx tree hashes must be equal. Tolerance: zero. A transaction type the
-port has not ported raises NotImplementedError instead of answering.
+tx tree hashes must be equal. Tolerance: zero. TrustSet, OfferCreate and
+a payment through the path engine are held the same way here; every
+other flow of every transactor is in test_torch_transactors.py.
 """
 
 from __future__ import annotations
@@ -137,43 +138,74 @@ def test_open_window_second_payment_is_predicted():
     assert [r[0] for r in results[0::2][4:8]] == [0, 0, int(TER.terPRE_SEQ), 0]
 
 
-def _unported(fac: TxFactory):
-    a, b = fac.accounts[0], fac.accounts[1]
-    usd = b"\x00" * 12 + b"USD" + b"\x00" * 5
-    return {
-        "TrustSet": fac.trust(a, fac.gateway, 100),
-        "OfferCreate": fac.offer(a, JaxSTAmount.from_drops(10), JaxSTAmount.from_iou(
-            usd, b.account_id, 10**15, -15)),
-    }
+def _book_setup(fac: TxFactory):
+    """Funding, trust lines and issuance that a TrustSet, an OfferCreate
+    and a path payment then act on."""
+    a, b, gw = fac.accounts[0], fac.accounts[1], fac.gateway
+    usd = lambda v: JaxSTAmount.from_iou(_USD, gw.account_id, v, 0)  # noqa: E731
+    txs = [fac.payment(fac.master, k.account_id, 1000 * STR) for k in (a, b, gw)]
+    txs += [fac.trust(a, gw, 1000), fac.trust(b, gw, 1000)]
+    txs += [fac.iou_payment(gw, a.account_id, 300), fac.iou_payment(gw, b.account_id, 200)]
+    # b sells 50 USD for 100 STR (rests in the STR -> USD book)
+    txs.append(fac.offer(b, JaxSTAmount.from_drops(100 * STR), usd(50)))
+    return txs, usd
+
+
+_USD = b"\x00" * 12 + b"USD" + b"\x00" * 5
+
+
+def _formerly_unported(fac: TxFactory, name: str):
+    """The blob of each transaction type the port once refused."""
+    a, b, gw = fac.accounts[0], fac.accounts[1], fac.gateway
+    usd = lambda v: JaxSTAmount.from_iou(_USD, gw.account_id, v, 0)  # noqa: E731
+    if name == "TrustSet":
+        return fac.trust(b, gw, 500)  # raise an existing line's limit
+    if name == "OfferCreate":
+        # a buys STR with USD: crosses nothing, rests in the USD -> STR book
+        return fac.offer(a, usd(20), JaxSTAmount.from_drops(30 * STR))
+    # a third-party issuer on the default path: the flow engine's delivery
+    return fac.iou_payment(a, b.account_id, 40)
+
+
+def _run_both(fac: TxFactory, stream):
+    root = fac.master.account_id
+    jl = JaxLedger.genesis(root).open_successor()
+    tl = Ledger.genesis(root).open_successor()
+    out = []
+    for blob, mode in stream:
+        want = _apply(jl, JaxEngine, JaxSTTx.from_bytes, blob, mode)
+        got = _apply(tl, TransactionEngine, SerializedTransaction.from_bytes, blob, mode)
+        assert got == want, (mode, got[:2], want[:2])
+        out.append(got[0])
+    assert tl.state_map.get_hash() == jl.state_map.get_hash()
+    assert tl.tx_map.get_hash() == jl.tx_map.get_hash()
+    return out
 
 
 @pytest.mark.parametrize("name", ["TrustSet", "OfferCreate"])
 @pytest.mark.parametrize("mode", [CLOSE, OPEN])
-def test_unported_type_raises(name, mode):
+def test_formerly_unported_type_equal_to_jax(name, mode):
+    """TrustSet and OfferCreate, on the blobs that once raised
+    NotImplementedError: TER, metadata bytes and state hash equal to the
+    JAX engine's, in closing and in open-ledger mode."""
     fac = TxFactory(seed=4, n_accounts=2)
-    blob = _unported(fac)[name].serialize()
-    led = Ledger.genesis(fac.master.account_id).open_successor()
-    led_j = JaxLedger.genesis(fac.master.account_id).open_successor()
-    jax_ter, _applied = JaxEngine(led_j).apply_transaction(JaxSTTx.from_bytes(blob), mode)
-    assert int(jax_ter) != int(TER.temUNKNOWN)  # the JAX package applies it
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TransactionEngine(led).apply_transaction(SerializedTransaction.from_bytes(blob), mode)
+    setup, _usd = _book_setup(fac)
+    tx = _formerly_unported(fac, name)
+    ters = _run_both(fac, [(t.serialize(), CLOSE) for t in setup] + [(tx.serialize(), mode)])
+    assert ters == [int(TER.tesSUCCESS)] * len(ters)
 
 
-def test_path_payment_raises():
+def test_path_payment_equal_to_jax():
     """A payment that needs the path engine (an IOU from a third-party
-    issuer on the default path) raises instead of answering."""
-    fac = TxFactory(seed=5, n_accounts=3)
-    setup = [fac.payment(fac.master, a.account_id, 1000 * STR) for a in fac.accounts]
-    iou = fac.iou_payment(fac.accounts[0], fac.accounts[1].account_id, 5)
-    led = Ledger.genesis(fac.master.account_id).open_successor()
-    for tx in setup:
-        ter, _ = TransactionEngine(led).apply_transaction(
-            SerializedTransaction.from_bytes(tx.serialize()), CLOSE)
-        assert ter == TER.tesSUCCESS
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TransactionEngine(led).apply_transaction(
-            SerializedTransaction.from_bytes(iou.serialize()), CLOSE)
+    issuer on the default path), then one past the sender's holdings:
+    TERs, metadata bytes and state hash equal to the JAX engine's."""
+    fac = TxFactory(seed=5, n_accounts=2)
+    setup, _usd = _book_setup(fac)
+    pay = _formerly_unported(fac, "Payment")
+    too_much = fac.iou_payment(fac.accounts[0], fac.accounts[1].account_id, 5000)
+    ters = _run_both(fac, [(t.serialize(), CLOSE) for t in setup]
+                     + [(pay.serialize(), CLOSE), (too_much.serialize(), CLOSE)])
+    assert ters[-2] == int(TER.tesSUCCESS) and ters[-1] != int(TER.tesSUCCESS)
 
 
 def test_iou_default_path_equal_on_a_carried_state():

@@ -36,6 +36,13 @@ def test_every_module_imports_without_jax():
     assert {"stellard_tpu_torch.protocol.sttx", "stellard_tpu_torch.state.ledger",
             "stellard_tpu_torch.engine.payment", "stellard_tpu_torch.node.ledgermaster",
             "stellard_tpu_torch.utils.ripemd160"} <= set(mods)
+    # and so is the order-book slice: every transactor, the path engine, K4
+    assert {"stellard_tpu_torch.engine.offers", "stellard_tpu_torch.engine.trust",
+            "stellard_tpu_torch.engine.account", "stellard_tpu_torch.engine.change",
+            "stellard_tpu_torch.engine.inflation", "stellard_tpu_torch.paths.flow",
+            "stellard_tpu_torch.paths.pathfinder", "stellard_tpu_torch.paths.orderbook",
+            "stellard_tpu_torch.paths.quality", "stellard_tpu_torch.paths.plane",
+            "stellard_tpu_torch.ops.pathq"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"

@@ -58,6 +58,7 @@ SHIM = r"""
 #define __launch_bounds__(...)
 
 struct dim3 { unsigned x = 0, y = 0, z = 0; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
 inline thread_local dim3 threadIdx;
 inline dim3 blockIdx, blockDim;
 typedef void* cudaStream_t;
