@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Drives the ledger close's device plane, then a standalone node's
-closes and its order book and path searches, through the entry points a
-node calls, at the sizes a close really has, and checks every result:
+closes and its order book and path searches, then the catch-up replay of
+the chain it saved, through the entry points a node calls, at the sizes
+a close really has, and checks every result:
 
 1. device   — the card's name and power limit; builds the four CUDA
               kernels (one nvcc a source, started together) and prints
@@ -58,6 +59,10 @@ node calls, at the sizes a close really has, and checks every result:
               PATHS_DIGEST, from the same slow test), no host signature
               check, one readback per sealed tree, K1-K4 launched. Then
               K4 against its plain version on every batch it ranked.
+              The start ledger and each of the 8 closed ledgers are
+              saved, as they close, to an on-disk segstore node store
+              (the JAX node's defaults), each save timed apart from its
+              close.
 7. times    — every kernel against its plain version again, exactly, at
               the shapes the main path gave it: K1 on both flood
               chunks, K2 on every leaf of the
@@ -65,15 +70,36 @@ node calls, at the sizes a close really has, and checks every result:
               inner level, K4 on a 1,048,576 x 8 rate matrix (identity
               and saturating rows among rates near 1.0, also held to the
               NumPy host arm); each kernel and plain version timed with
-              CUDA events on those inputs, with its bound. K1 is timed
-              again on the first chunk with every S non-canonical and
-              with every key undecodable, which stop each lane before and
-              after the decode: the split of its time by phase.
+              CUDA events on those inputs, with its bound. K4's kernel
+              time is taken on raw launches cycling over four such
+              matrices (134 MB, more than the L2), its wrapper's per-call
+              time apart. K1 is timed again on the first chunk with
+              every S non-canonical and with every key undecodable,
+              which stop each lane before and after the decode: the
+              split of its time by phase.
+8. replay   — catch-up replay (BASELINE config #5) of that chain: the
+              store's records and each save's node count equal to the
+              JAX package's (STORE_DIGEST, SAVE_NODES, from the same slow
+              test); a forged copy of 1006 (one signature bit flipped in
+              its tx map) saved beside it; the store closed and reopened
+              from disk; then node/ledgertools.replay_range over 1005,
+              1006, the forged 1006 and 1007 — every signature of the
+              span in one verify_many on the card (K1), each ledger
+              loaded eagerly with its parent, re-applied and sealed by
+              CudaHasher (K2, K3). Every real ledger's replayed hash and
+              closed results equal to its close's and to the JAX
+              package's (CLOSE_RESULT_DIGESTS, BOOK_RESULT_DIGESTS), no
+              host signature check, no node hashed on the host but the
+              ones its close did (leaves too long for K2's block
+              ladder), one readback per sealed tree; K1 rejects exactly
+              the forged lane and the forged ledger alone fails. The
+              span is cut from the 8 saved ledgers to 3 to fit the time
+              limit (PERF.md §4). The store is removed at the end.
 
 Launch counts are zeroed just before phases 3-4 and read just after, and
-again around phase 5 and around phase 6; the kernels line shows the sum,
-the launches of the main path alone. Any failed check exits non-zero
-without the final line. Without a CUDA device, or without the package
+again around phase 5, around phase 6 and around phase 8's replay; the
+kernels line shows the sum, the launches of the main path alone. Any
+failed check exits non-zero without the final line. Without a CUDA device, or without the package
 beside it, the script exits non-zero at once.
 """
 
@@ -82,6 +108,7 @@ from __future__ import annotations
 import gc
 import hashlib
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -97,6 +124,7 @@ N_STATE = 1_000_000
 N_TX = N_FLOOD
 N_DELTA = 3000
 K4_ROWS = 1 << 20  # K4's timed matrix: 1,048,576 candidate paths
+K4_ROTATE = 4  # distinct K4 matrices its kernel-only time cycles over (134 MB, > L2)
 N_DEL = N_DELTA // 10
 K2_LANES = 4096  # per ladder size, kernel-vs-plain comparison
 
@@ -182,6 +210,25 @@ def cuda_ms(fn, reps: int):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def raw_launch_ms(fn, args: list, reps: int) -> float:
+    """Mean ms of a C launcher called `reps` times back to back, cycling
+    over the prepared argument tuples `args`, by CUDA events (warmed once
+    on each); every call's error code must be 0."""
+    import torch
+
+    errs = [fn(*a) for a in args]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(reps):
+        errs.append(fn(*args[i % len(args)]))
+    end.record()
+    end.synchronize()
+    require(not any(errs), f"a raw launch failed: CUDA error {max(errs)}")
+    return start.elapsed_time(end) / reps
 
 
 def max_abs_err(a, b) -> int:
@@ -538,6 +585,54 @@ def results_digest(open_ters, close_results) -> str:
     return h.hexdigest()
 
 
+def close_results_digest(close_results) -> str:
+    """The close half of results_digest: SHA-256 over (txid, TER) of
+    every closed transaction in txid order. `close_results` maps txids
+    (bytes, or hex as replay_ledger reports them) to TERs."""
+    h = hashlib.sha256()
+    for txid, ter in sorted((bytes.fromhex(t) if isinstance(t, str) else t, r)
+                            for t, r in close_results.items()):
+        h.update(txid + int(ter).to_bytes(4, "big", signed=True))
+    return h.hexdigest()
+
+
+def save_counted(ledger, db) -> dict:
+    """Ledger.save into `db` (either package's node store), with what it
+    wrote: tree nodes the store did not hold yet plus the header, the
+    bytes its backend appended (segstore) and the wall ms."""
+    n0 = len(db.flushed)
+    b0 = getattr(db.backend, "bytes_appended", 0)
+    t0 = time.perf_counter()
+    h = ledger.save(db)
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"seq": ledger.seq, "hash": h.hex(), "nodes": len(db.flushed) - n0 + 1,
+            "bytes": getattr(db.backend, "bytes_appended", 0) - b0, "ms": ms}
+
+
+def segstore_records(backend):
+    """Every (key, type, blob) record of a segstore backend (either
+    package's), read back through its segment door."""
+    import struct
+
+    for meta in backend.segments():
+        _meta, raw = backend.fetch_segment(meta["id"])
+        off = 0
+        while off + 37 <= len(raw):
+            body_len = struct.unpack_from("<I", raw, off)[0]
+            yield raw[off + 5 : off + 37], raw[off + 37], raw[off + 38 : off + 37 + body_len]
+            off += 37 + body_len
+
+
+def store_digest(records) -> str:
+    """SHA-256 over (key, type, blob length, blob) of every record, in
+    key order."""
+    h = hashlib.sha256()
+    for key, type_, blob in sorted(records):
+        h.update(key + bytes([type_]) + len(blob).to_bytes(4, "big"))
+        h.update(blob)
+    return h.hexdigest()
+
+
 class GcClock:
     """Wall ms the cyclic garbage collector ran (gc.callbacks), and how
     many of its runs were full (generation 2) collections."""
@@ -556,14 +651,17 @@ class GcClock:
             self._t0 = None
 
 
-def run_closes(wl: dict, hash_batch, verify_many, on_close=None) -> tuple[list[dict], dict]:
+def run_closes(wl: dict, hash_batch, verify_many, on_close=None,
+               on_start=None) -> tuple[list[dict], dict]:
     """The port's standalone node over the workload: the start ledger
-    through LedgerMaster.load_ledger, then per close one batched verify
-    of its transactions (node/ledgertools._reverify_memoized, verdicts
-    memoized and flagged SF_SIGGOOD), do_transaction on each in
-    OPEN_LEDGER|RETRY mode and close_and_advance. Returns per close the
-    ledger hash, the results digest, the verdicts, the TERs and times,
-    and the node (``lm``, ``router``) for the book phase to go on with."""
+    through LedgerMaster.load_ledger (then ``on_start(start)``), then per
+    close one batched verify of its transactions (node/ledgertools.
+    _reverify_memoized, verdicts memoized and flagged SF_SIGGOOD),
+    do_transaction on each in OPEN_LEDGER|RETRY mode and
+    close_and_advance (then ``on_close(k, ledger)``). Returns per close
+    the ledger hash, the results digest, the verdicts, the TERs and
+    times, and the node (``lm``, ``router``) for the book phase to go on
+    with."""
     from stellard_tpu_torch.engine.engine import TxParams
     from stellard_tpu_torch.interop import ledger_from_items
     from stellard_tpu_torch.node.hashrouter import HashRouter
@@ -579,6 +677,8 @@ def run_closes(wl: dict, hash_batch, verify_many, on_close=None) -> tuple[list[d
     t2 = time.perf_counter()
     out = [{"build_state_ms": (t1 - t0) * 1e3, "load_ms": (t2 - t1) * 1e3,
             "hash": start.hash().hex()}]
+    if on_start is not None:
+        on_start(start)
     mode = TxParams.OPEN_LEDGER | TxParams.RETRY
     gc_clock = GcClock()
     gc.callbacks.append(gc_clock)
@@ -610,6 +710,7 @@ def _one_close(lm, router, verify_many, entries, k: int, mode, gc_clock) -> dict
     return {
         "seq": ledger.seq, "hash": ledger.hash().hex(),
         "digest": results_digest(open_ters, results),
+        "close_digest": close_results_digest(results),
         "verdicts": verdicts, "open_ters": [int(t) for _, t in open_ters],
         "close_ters": {txid: int(t) for txid, t in results.items()},
         "wall_ms": (td - ta) * 1e3, "parse_verify_ms": (tb - ta) * 1e3,
@@ -1030,12 +1131,14 @@ def run(dev) -> None:
          device_nodes=cuda_hasher.device_nodes, host_nodes=cuda_hasher.host_nodes)
     emit("launches", **launches)
 
-    # 5. the close phase, counted on its own ----------------------------------
-    close = close_phase(dev, name_power)
+    # 5. the close phase, counted on its own; the chain saved as it closes ---
+    saver = ChainSaver(STORE_DIR)
+    close = close_phase(dev, name_power, saver)
 
     # 6. the book phase on the same chain, counted on its own -----------------
-    book = book_phase(dev, name_power, close)
+    book = book_phase(dev, name_power, close, saver)
     close_launches, close_k1_err = close["launches"], close["k1_max_abs_err"]
+    close_digests = close["close_digests"] + book["close_digests"]
     del close
 
     # 7. K3 and K4 against plain, and times -----------------------------------
@@ -1136,7 +1239,7 @@ def run(dev) -> None:
     # funnel shift, a compare and a select (5 slots)
     k4_np = k4_matrix(K4_ROWS, seed=41)
     k4_t = torch.from_numpy(k4_np).to(dev)
-    k4_ms, k4_got = cuda_ms(lambda: pathq.path_quality(k4_t), reps=20)
+    k4_wrapper_ms, k4_got = cuda_ms(lambda: pathq.path_quality(k4_t), reps=20)
     k4_plain_ms, k4_plain = cuda_ms(lambda: pathq.path_quality_ref(k4_t), reps=3)
     k4_err = max_abs_err(k4_got, k4_plain)
     require(k4_err == 0, "K4 differs from its plain version on the 1,048,576-row matrix")
@@ -1145,9 +1248,30 @@ def run(dev) -> None:
     k4_err = max(k4_err, book["k4_max_abs_err"])
     rows, hops = k4_np.shape
     k4_b, k4_by = bound_ms(rows * hops * K4_HOP_OPS, rows * hops * 4 + rows * 4, int32_rate)
+    # the kernel alone: raw launches with pointers and stream prepared
+    # outside the timed window, rotating over K4_ROTATE distinct matrices
+    # that together exceed the L2, so that each launch reads HBM
+    mats = [k4_t] + [torch.from_numpy(k4_matrix(K4_ROWS, seed=41 + i)).to(dev)
+                     for i in range(1, K4_ROTATE)]
+    outs = [torch.empty(rows, dtype=torch.uint32, device=dev) for _ in mats]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    k4_args = [(m.data_ptr(), o.data_ptr(), rows, hops, 1, stream) for m, o in zip(mats, outs)]
+    k4_ms = raw_launch_ms(pathq.launcher(), k4_args, reps=40)
+    for m, o in zip(mats, outs):
+        err = max_abs_err(o, pathq.path_quality_ref(m))
+        require(err == 0, "K4's raw launch differs from its plain version")
+        k4_err = max(k4_err, err)
     emit("k4_vs_plain", rows=rows, hops=hops, max_abs_err=k4_err, equal_host=True,
-         saturated_rows=int((k4_got == pathq.Q16_MAX).sum().item()))
-    del k4_t, k4_got, k4_plain
+         saturated_rows=int((k4_got == pathq.Q16_MAX).sum().item()),
+         kernel_ms=k4_ms, wrapper_ms=k4_wrapper_ms, rotated_matrices=len(mats),
+         rotated_mb=sum(m.numel() * 4 for m in mats) / 1e6)
+    del k4_t, k4_got, k4_plain, mats, outs
+
+    # 8. catch-up replay of the saved chain, counted on its own; the seal
+    # phase's trees go first (a smaller heap for the collector)
+    del state, txmap, base_items, sets, deletes, inners, buf, buf_plain, template, child_rows
+    replay = replay_phase(dev, name_power, saver, close_digests)
+    del saver
 
     emit("times", card=name_power, host_prep_ms_per_chunk=prep_ms, chunk=CHUNK,
          flood_sigs_per_s=N_FLOOD / flood_s,
@@ -1155,37 +1279,36 @@ def run(dev) -> None:
          hashlib_seal_ms={k: v["hashlib_seal_ms"] for k, v in seals.items()},
          k1_shape=[CHUNK], k2_shape=k2_shape, k3_nodes=n3, k4_shape=[rows, hops],
          int32_ops_per_s=int32_rate, total_s=time.perf_counter() - t_start)
+    phases = (launches, close_launches, book["launches"], replay["launches"])
+    main_launches = lambda name: sum(ph.get(name, 0) for ph in phases)  # noqa: E731
     kernels = [
         dict(name="ed25519_verify", route="cuda",
              source="stellard_tpu_torch/csrc/ed25519_verify.cu",
              replaces="stellard_tpu/ops/ed25519_pallas.py:107",
-             launches=(launches["ed25519_verify"] + close_launches["ed25519_verify"]
-                       + book["launches"]["ed25519_verify"]),
+             launches=main_launches("ed25519_verify"),
              max_abs_err=k1_err,
              ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_b, bound_by=k1_by,
              library_ms=None),
         dict(name="sha512_masked", route="cuda",
              source="stellard_tpu_torch/csrc/sha512.cu",
              replaces="stellard_tpu/ops/treehash_jax.py:49",
-             launches=(launches["sha512_masked"] + close_launches["sha512_masked"]
-                       + book["launches"]["sha512_masked"]),
+             launches=main_launches("sha512_masked"),
              max_abs_err=k2_err,
              ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=k2_b, bound_by=k2_by,
              library_ms=None),
         dict(name="tree_inner_level", route="cuda",
              source="stellard_tpu_torch/csrc/sha512.cu",
              replaces="stellard_tpu/parallel/mesh.py:149",
-             launches=(launches["tree_inner_level"] + close_launches["tree_inner_level"]
-                       + book["launches"]["tree_inner_level"]),
+             launches=main_launches("tree_inner_level"),
              max_abs_err=k3_err,
              ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_b, bound_by=k3_by,
              library_ms=None),
         dict(name="path_quality", route="cuda",
              source="stellard_tpu_torch/csrc/path_quality.cu",
              replaces="stellard_tpu/ops/pathq_jax.py:68",
-             launches=book["launches"]["path_quality"], max_abs_err=k4_err,
+             launches=main_launches("path_quality"), max_abs_err=k4_err,
              ms=k4_ms, plain_ms=k4_plain_ms, bound_ms=k4_b, bound_by=k4_by,
-             library_ms=None),
+             library_ms=None, wrapper_ms=k4_wrapper_ms),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(name_power, flush=True)
@@ -1194,13 +1317,14 @@ def run(dev) -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def close_phase(dev, name_power: str) -> dict:
+def close_phase(dev, name_power: str, saver=None) -> dict:
     """The standalone node under a payment flood (CLOSE_SIZES): 4 closes
     of 4,096 signed Payments over 1,000,000 AccountRoots, each close one
     batched verify on the card (K1), the transactor engine's open apply
     and close, and both trees sealed by CudaHasher (K2, K3). Every
     verdict, TER, ledger hash and results digest is checked; the launch
-    counts are this phase's alone."""
+    counts are this phase's alone. A ``saver`` (ChainSaver) saves the
+    start ledger and each closed ledger, outside the closes' walls."""
     import numpy as np
 
     from stellard_tpu_torch.crypto.backend import CudaHasher
@@ -1218,8 +1342,10 @@ def close_phase(dev, name_power: str) -> dict:
     plane = VerifyPlane(backend="cuda", routing="device", backend_opts={"device": dev})
     k1_per_close = []
 
-    def on_close(_k, _ledger):
+    def on_close(k, ledger):
         k1_per_close.append(ed25519_cuda.launches)
+        if saver is not None:
+            saver(k, ledger)
 
     ed25519_cuda.launches = 0
     for k in treehash.launches:
@@ -1227,7 +1353,8 @@ def close_phase(dev, name_power: str) -> dict:
     keys.host_verifies = 0
     try:
         t0 = time.perf_counter()
-        out, node = run_closes(wl, hasher, plane.verify_many, on_close)
+        out, node = run_closes(wl, hasher, plane.verify_many, on_close,
+                               on_start=None if saver is None else lambda led: saver(-1, led))
         closes_s = time.perf_counter() - t0
     finally:
         plane.stop()
@@ -1291,7 +1418,7 @@ def close_phase(dev, name_power: str) -> dict:
     }
     emit("close", **summary)
     return {"launches": launches, "k1_max_abs_err": k1_err, "wl": wl, "node": node,
-            "hasher": hasher}
+            "hasher": hasher, "close_digests": [c["close_digest"] for c in closes]}
 
 
 # the book phase's sizes (BASELINE configs #2 and #3 on the close phase's
@@ -1317,6 +1444,26 @@ BOOK_DIGESTS = [
 ]
 PATHS_DIGEST = "ce09b9dbd40e98226cd326b620dac943c828fb4d9c34e7a83362750e09dec1c4"
 
+# the replay phase: per closed ledger the close half of results_digest
+# (the closed transactions' TERs, which a replay must reproduce), the
+# digest of the store that saved the start ledger and the 8 closed
+# ledgers as they closed, and the nodes each of those 9 saves wrote — as
+# the JAX package gives them (the same slow test)
+CLOSE_RESULT_DIGESTS = [
+    "8092f9844179c91af2e0d99f8ffaf4394cab7c8de2e587396a60b578a43e5620",
+    "f53266ed4abd871d7122276142f9b9e3f3f2dee2270c80b5157b6b4dc0db8ceb",
+    "0b8555c13ce03a6f34847fb10bac4c12a7cc0a454e1aa2c72f6c428e98101798",
+    "1d16b8f73584c16a5ebf58c5465dce68da15d8d14ff3a9fcb0e7fb0ca6e61da2",
+]
+BOOK_RESULT_DIGESTS = [
+    "94b11782b4dd00341623bbbe3c92467f4820787b7b621423c34b09dea66fd199",
+    "68be128af5bb3e4e48ebc9f741c0b4d5fd2e787b1df0562ce7cd4cc93a1844a8",
+    "72e9b9ae547341f50d73617ab014d525683b06ddce418c0546d53a20a505035e",
+    "8f982dd2d435ed945772262f73f16aea60f0f82d3d3e94a6a66e99a7ddfd959b",
+]
+STORE_DIGEST = "c64a11c53559b9db4008fe73165a5c32c62465fba9a3c7f088ef4bf863834252"
+SAVE_NODES = [1359552, 30294, 30126, 30351, 30238, 32564, 19245, 35487, 37569]
+
 
 def _expect_open_ters(entries) -> list[int]:
     """In an open ledger every well-signed transaction of the book phase
@@ -1327,7 +1474,7 @@ def _expect_open_ters(entries) -> list[int]:
             for _b, kind, _g in entries]
 
 
-def book_phase(dev, name_power: str, close: dict) -> dict:
+def book_phase(dev, name_power: str, close: dict, saver=None) -> dict:
     """The order book on the close phase's chain (BOOK_SIZES): four
     closes of book_workload — every signature verified on the card (K1),
     every transaction applied by the port's transactors, both trees
@@ -1337,7 +1484,8 @@ def book_phase(dev, name_power: str, close: dict) -> dict:
     routing="device")). Every verdict, ledger hash, results digest and
     the digest of the path answers is checked against the JAX package's;
     the launch counts are this phase's alone. Then K4 against its plain
-    version on every batch the plane gave it."""
+    version on every batch the plane gave it. A ``saver`` saves each
+    closed ledger, outside the closes' walls."""
     import numpy as np
     import torch
 
@@ -1373,9 +1521,13 @@ def book_phase(dev, name_power: str, close: dict) -> dict:
     keys.host_verifies = 0
     try:
         t0 = time.perf_counter()
+        def on_close(k, ledger):
+            k1_per_close.append(ed25519_cuda.launches)
+            if saver is not None:
+                saver(len(CLOSE_HASHES) + k, ledger)
+
         res = run_book(close["node"], bwl, plane.verify_many, paths,
-                       first_close=len(CLOSE_HASHES),
-                       on_close=lambda _k, _l: k1_per_close.append(ed25519_cuda.launches))
+                       first_close=len(CLOSE_HASHES), on_close=on_close)
         phase_s = time.perf_counter() - t0
     finally:
         plane.stop()
@@ -1441,7 +1593,245 @@ def book_phase(dev, name_power: str, close: dict) -> dict:
         "index": pp["index"], "evaluator": ev, "launches": launches,
     }
     emit("book", **summary)
-    return {"launches": launches, "k4_max_abs_err": k4_err}
+    return {"launches": launches, "k4_max_abs_err": k4_err,
+            "close_digests": [c["close_digest"] for c in res["closes"]]}
+
+
+# the replay phase (BASELINE config #5): the on-disk store the chain is
+# saved to (git-ignored, removed at the end); the span replayed, the book
+# phase's first 3 ledgers (1005-1007: every transactor), cut from the 8
+# ledgers saved to fit the smoke's time limit (PERF.md §4); and the
+# ledger forged with a bad signature, a copy of 1006 (the issuance
+# close) replayed in the same span right after the real one
+STORE_DIR = HERE / "build" / "chip_smoke_store"
+REPLAY_FIRST = len(CLOSE_HASHES)  # index of 1005 among the closed ledgers
+REPLAY_LEDGERS = 3
+FORGE_SEQ = START_SEQ + REPLAY_FIRST + 2
+
+
+class ChainSaver:
+    """Saves the start ledger and each closed ledger to an on-disk
+    segstore as the chain closes — the JAX node's defaults: durability
+    fsync, 5 ms group commit, 64 MB segments — each save timed apart
+    from its close (save_counted). Keeps the ledger FORGE_SEQ for the
+    replay phase's forgery."""
+
+    def __init__(self, path: Path):
+        from stellard_tpu_torch.nodestore import make_database
+
+        shutil.rmtree(path, ignore_errors=True)
+        self.path = path
+        self.db = make_database(type="segstore", path=str(path))
+        self.kept = None
+        self.saves: list[dict] = []
+
+    def __call__(self, _k, ledger) -> None:
+        records0 = self.db.backend.records
+        rec = save_counted(ledger, self.db)
+        rec["records"] = self.db.backend.records - records0
+        # the chain's hasher: nodes it has hashed on the host so far
+        # (leaves too long for K2's block ladder)
+        rec["host_nodes"] = getattr(ledger.state_map.hash_batch, "host_nodes", 0)
+        self.saves.append(rec)
+        if ledger.seq == FORGE_SEQ:
+            self.kept = ledger
+
+
+def forge_ledger(ledger):
+    """A copy of the closed `ledger` with one bit of one transaction's
+    signature flipped in its tx map (the low bit of R, which no verifier
+    may accept): the item re-keyed by the forged blob's txid, its
+    metadata kept, every header field but the tx tree's hash as it was.
+    -> (forged ledger, forged txid)."""
+    from stellard_tpu_torch.protocol.sfields import sfTxnSignature
+    from stellard_tpu_torch.protocol.sttx import SerializedTransaction
+
+    entries = list(ledger.tx_entries())
+    txid, blob, meta = entries[len(entries) // 2]
+    tx = SerializedTransaction.from_bytes(blob)
+    sig = bytearray(tx.signature)
+    sig[0] ^= 1
+    tx.obj[sfTxnSignature] = bytes(sig)
+    forged = ledger.snapshot()
+    forged.tx_map.del_item(txid)
+    return forged, forged.add_transaction(tx.serialize(), meta)
+
+
+def replay_phase(dev, name_power: str, saver: ChainSaver, close_digests: list) -> dict:
+    """Catch-up replay (BASELINE config #5) of the chain the close and
+    book phases saved as they closed. The store is held to the JAX
+    package's (STORE_DIGEST over its records, SAVE_NODES per save), a
+    forged copy of 1006 (one signature bit flipped) is saved beside the
+    chain, and the store is closed and reopened from disk, as a
+    restarting node does. Then node/ledgertools.replay_range over 1005,
+    1006, the forged 1006 and 1007: one verify_many for the whole span on
+    the card (K1), each ledger loaded eagerly with its parent,
+    re-applied by the transactors and sealed by CudaHasher (K2, K3).
+    Every real ledger replays to its hash, with its close's results and
+    the nodes its close hashed on the host; K1 rejects exactly the
+    forged lane, and the forged ledger alone fails. The launch counts
+    are this phase's alone; the store is removed at the end."""
+    import resource
+
+    import numpy as np
+
+    from stellard_tpu_torch.crypto.backend import CudaHasher
+    from stellard_tpu_torch.node.ledgertools import replay_range
+    from stellard_tpu_torch.node.verifyplane import VerifyPlane
+    from stellard_tpu_torch.nodestore import make_database
+    from stellard_tpu_torch.ops import ed25519_cuda, ed25519_ref, treehash
+    from stellard_tpu_torch.protocol import keys
+    from stellard_tpu_torch.protocol.sttx import SerializedTransaction
+    from stellard_tpu_torch.protocol.ter import TER
+
+    class TreeCounts(CudaHasher):
+        """CudaHasher noting, per sealed tree, the nodes it hashed on
+        the host."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.host_per_tree: list[int] = []
+
+        def hash_tree(self, root):
+            before = self.host_nodes
+            n = super().hash_tree(root)
+            self.host_per_tree.append(self.host_nodes - before)
+            return n
+
+    chain = CLOSE_HASHES + BOOK_HASHES
+    saves = saver.saves
+    first, last = REPLAY_FIRST, REPLAY_FIRST + REPLAY_LEDGERS
+    try:
+        db = saver.db
+        require([s["hash"] for s in saves[1:]] == chain,
+                "the saved ledgers are not the closed chain")
+        require([s["nodes"] for s in saves] == [s["records"] for s in saves],
+                "a save's node count differs from the records it appended")
+        require([s["nodes"] for s in saves] == SAVE_NODES,
+                f"nodes written per save {[s['nodes'] for s in saves]} differ from "
+                f"the JAX package's {SAVE_NODES}")
+        t0 = time.perf_counter()
+        records = list(segstore_records(db.backend))
+        require(len(records) == db.backend.count() == sum(SAVE_NODES),
+                "the store's records are not the saves' nodes")
+        digest = store_digest(records)
+        digest_ms = (time.perf_counter() - t0) * 1e3
+        del records
+        require(digest == STORE_DIGEST,
+                f"store digest {digest} differs from the JAX package's {STORE_DIGEST}")
+        require(saver.kept is not None, f"ledger {FORGE_SEQ} was not kept")
+        forged, forged_txid = forge_ledger(saver.kept)
+        forged_hash = forged.hash()
+        forged_save = save_counted(forged, db)
+        forged_txids = [t for t, _b, _m in forged.tx_entries()]
+        forged_tx = SerializedTransaction.from_bytes(forged.get_transaction(forged_txid)[0])
+        saver.kept = forged = None
+        store = db.get_json()["backend_stats"]
+        db.close()
+
+        # a restart: the store reopens from disk, and the replay reads it
+        db = make_database(type="segstore", path=str(saver.path))
+        reopened = db.get_json()["backend_stats"]
+        require(reopened["opened_from_checkpoint"] and reopened["objects"] == store["objects"],
+                "the store did not reopen from its checkpoint")
+        hasher = TreeCounts(device=dev)
+        plane = VerifyPlane(backend="cuda", routing="device", backend_opts={"device": dev})
+        batches: list = []
+
+        def verify_many(reqs):
+            flags = np.asarray(plane.verify_many(reqs), bool)
+            batches.append(flags)
+            return flags
+
+        real = [bytes.fromhex(h) for h in chain[first:last]]
+        forged_at = FORGE_SEQ - START_SEQ - first
+        span = real[:forged_at] + [forged_hash] + real[forged_at:]
+        gc_clock = GcClock()
+        ed25519_cuda.launches = 0
+        for k in treehash.launches:
+            treehash.launches[k] = 0
+        keys.host_verifies = 0
+        rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        gc.collect()
+        gc.callbacks.append(gc_clock)
+        try:
+            stats = replay_range(db, span, hash_batch=hasher, verify_many=verify_many)
+            fetched = db.get_json()
+        finally:
+            gc.callbacks.remove(gc_clock)
+            plane.stop()
+            db.close()
+        launches = {"ed25519_verify": ed25519_cuda.launches, **treehash.launches}
+        host_verifies = keys.host_verifies
+        rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    finally:
+        saver.db.close()
+        shutil.rmtree(saver.path, ignore_errors=True)
+
+    per = stats["ledgers"]
+    ok = [s["ok"] for s in per]
+    require(ok == [i != forged_at for i in range(len(span))],
+            f"span verdicts {ok}: every ledger must replay but the forged one")
+    per_real = per[:forged_at] + per[forged_at + 1:]
+    require([s["replayed_hash"] for s in per_real] == chain[first:last],
+            "a replayed hash differs from the chain's")
+    got = [close_results_digest(s["results"]) for s in per_real]
+    require(got == close_digests[first:last],
+            "a replayed ledger's results differ from its close's")
+    require(got == (CLOSE_RESULT_DIGESTS + BOOK_RESULT_DIGESTS)[first:last],
+            "replayed results differ from the JAX package's")
+    require(len(batches) == 1, f"{len(batches)} verify_many calls for one span")
+    n_span = stats["tx_count"]
+    lane = sum(s["tx_count"] for s in per[:forged_at]) + forged_txids.index(forged_txid)
+    require(len(batches[0]) == n_span and np.flatnonzero(~batches[0]).tolist() == [lane],
+            "K1 did not reject exactly the forged lane of the span")
+    require(not ed25519_ref.verify(forged_tx.signing_pub_key, forged_tx.signing_hash(),
+                                   forged_tx.signature), "the oracle accepts the forgery")
+    require(per[forged_at]["results"][forged_txid.hex()] == int(TER.temINVALID),
+            "the forged transaction did not answer temINVALID")
+    require(launches["ed25519_verify"] >= 1, "K1 did not verify the span")
+    require(host_verifies == 0, f"{host_verifies} host signature verifications in replay")
+    pj = plane.get_json()
+    require(pj["device_share"] == 1.0, f"replay device share {pj['device_share']}")
+    tt = hasher.tree_transfers
+    require(tt.readbacks == hasher.tree_calls == 2 * len(span),
+            f"readbacks {tt.readbacks}, tree calls {hasher.tree_calls}")
+    require(launches["sha512_masked"] > 0 and launches["tree_inner_level"] > 0,
+            "K2 or K3 never launched in the replay phase")
+    # the host hashes only leaves too long for K2: per real ledger, the
+    # nodes its close hashed on the host
+    host_per = [sum(hasher.host_per_tree[2 * i: 2 * i + 2]) for i in range(len(span))]
+    closes_host = [saves[k + 1]["host_nodes"] - saves[k]["host_nodes"] for k in range(first, last)]
+    require(host_per[:forged_at] + host_per[forged_at + 1:] == closes_host,
+            f"host-hashed nodes per replayed ledger {host_per} differ from the closes' "
+            f"{closes_host}")
+
+    n_loads = 2 * len(span)
+    summary = {
+        "card": name_power, "span": [s["ledger_seq"] for s in per], "forged_at": forged_at,
+        "txs": n_span, "elapsed_s": stats["elapsed_s"], "tx_per_s": stats["tx_per_s"],
+        "targets_load_ms": stats["load_s"] * 1e3,
+        "parent_load_ms": [s["load_s"] * 1e3 for s in per],
+        "eager_load_ms_mean": (stats["load_s"] + sum(s["load_s"] for s in per)) * 1e3 / n_loads,
+        "apply_seal_ms": [s["elapsed_s"] * 1e3 for s in per],
+        "seal_ms": [s["seal_s"] * 1e3 for s in per],
+        "node_fetches": fetched["cache_hits"] + fetched["backend_fetches"],
+        "k1_batch": n_span, "gc_ms": gc_clock.ms, "gc_full_collections": gc_clock.full,
+        "peak_rss_mb": [rss0 / 1024, rss1 / 1024],
+        "saves": [{k: s[k] for k in ("seq", "nodes", "bytes", "ms")} for s in saves],
+        "store_digest_ms": digest_ms, "store_bytes": store["disk_bytes"],
+        "store_objects": store["objects"], "segments": store["segments"],
+        "fsyncs": store["fsyncs"], "native_index": store["native_index"],
+        "durability": store["durability"], "reopen_replayed_records": reopened["replayed_records"],
+        "forged": {"seq": FORGE_SEQ, "hash": forged_hash.hex(), "lane": lane,
+                   "nodes": forged_save["nodes"]},
+        "host_verifies": host_verifies, "device_share": pj["device_share"],
+        "tree_calls": hasher.tree_calls, "readbacks": tt.readbacks,
+        "host_nodes_per_ledger": host_per, "device_nodes": hasher.device_nodes,
+        "hashes_equal_jax": True, "store_equal_jax": True, "launches": launches,
+    }
+    emit("replay", **summary)
+    return {"launches": launches}
 
 
 def k4_matrix(n: int, seed: int):

@@ -1,0 +1,359 @@
+"""NodeStore core: NodeObject, Backend interface, factory registry,
+Database façade with cache + async batch writer.
+
+Reference: src/ripple_core/nodestore/api/{Backend,Factory,Manager}.h,
+impl/{DatabaseImp.h,BatchWriter.cpp}. The write path preserves the
+reference's shape — callers store synchronously into a pending map while a
+writer thread drains batches to the backend (BatchWriter.cpp) — because
+that's also the right shape for device-adjacent IO: large sequential batches,
+no per-object fsync.
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass
+from enum import IntEnum
+from typing import Callable, Iterator, Optional
+
+__all__ = [
+    "NodeObjectType",
+    "NodeObject",
+    "Backend",
+    "Database",
+    "register_backend",
+    "make_backend",
+    "make_database",
+]
+
+
+class NodeObjectType(IntEnum):
+    """reference: nodestore/api/NodeObject.h:30-36"""
+
+    UNKNOWN = 0
+    LEDGER = 1
+    TRANSACTION = 2
+    ACCOUNT_NODE = 3
+    TRANSACTION_NODE = 4
+
+
+@dataclass(frozen=True)
+class NodeObject:
+    type: NodeObjectType
+    hash: bytes  # 32-byte content hash (the key)
+    data: bytes  # payload (prefix-format SHAMap node / ledger header)
+
+
+class Backend:
+    """Key-value backend interface (reference: nodestore/api/Backend.h:35-85)."""
+
+    name = "abstract"
+
+    def fetch(self, hash: bytes) -> Optional[NodeObject]:
+        raise NotImplementedError
+
+    def store(self, obj: NodeObject) -> None:
+        self.store_batch([obj])
+
+    def store_batch(self, batch: list[NodeObject]) -> None:
+        raise NotImplementedError
+
+    def store_packed(self, type: NodeObjectType, hashes, buf,
+                     offsets) -> int:
+        """Batch store straight from the flat-buffer node encoding
+        (state.shamap.encode_nodes: node i's blob — which IS its hashed
+        byte sequence — lives at buf[offsets[i]:offsets[i+1]]).
+        `hashes` is a list of 32-byte keys or one packed 32n buffer.
+        Backends with a one-append door (segstore) override this; the
+        default decodes into NodeObjects for plain store_batch."""
+        n = len(offsets) - 1
+        if n <= 0:
+            return 0
+        if isinstance(hashes, (bytes, bytearray)):
+            hashes = [bytes(hashes[32 * i: 32 * i + 32]) for i in range(n)]
+        mv = memoryview(buf)
+        self.store_batch([
+            NodeObject(type, hashes[i],
+                       bytes(mv[offsets[i]: offsets[i + 1]]))
+            for i in range(n)
+        ])
+        return n
+
+    def iterate(self) -> Iterator[NodeObject]:
+        raise NotImplementedError
+
+    def close(self) -> None:
+        pass
+
+
+_FACTORIES: dict[str, Callable[..., Backend]] = {}
+
+
+def register_backend(name: str, factory: Callable[..., Backend]) -> None:
+    """reference: nodestore/api/Factory.h + Manager::addFactory"""
+    _FACTORIES[name] = factory
+
+
+def make_backend(type: str = "memory", **kwargs) -> Backend:
+    if type not in _FACTORIES:
+        raise KeyError(f"unknown nodestore backend {type!r}; have {sorted(_FACTORIES)}")
+    return _FACTORIES[type](**kwargs)
+
+
+class Database:
+    """Backend + in-memory cache + async batched write-behind
+    (reference: nodestore/impl/DatabaseImp.h, BatchWriter.cpp).
+
+    Writes land synchronously in `_pending` (so reads always see them) and
+    a background thread drains them to the backend in batches of up to
+    `batch_size`.
+    """
+
+    def __init__(self, backend: Backend, cache_size: int = 65536,
+                 batch_size: int = 256, async_writes: bool = True):
+        self.backend = backend
+        # hashes known to be durably in THIS store — the `known` set for
+        # SHAMap.flush incremental writes
+        self.flushed: set[bytes] = set()
+        # fetch counters (the node_store observability block)
+        self.cache_hits = 0
+        self.backend_fetches = 0
+        self.backend_misses = 0
+        self._cache: dict[bytes, NodeObject] = {}
+        self._cache_size = cache_size
+        self._pending: dict[bytes, NodeObject] = {}
+        self._lock = threading.Lock()
+        self._wake = threading.Condition(self._lock)
+        self._batch_size = batch_size
+        self._stopping = False
+        self._write_error: Optional[BaseException] = None
+        self._writer: Optional[threading.Thread] = None
+        if async_writes:
+            self._writer = threading.Thread(
+                target=self._write_loop, name="nodestore-writer", daemon=True
+            )
+            self._writer.start()
+
+    # -- public api -------------------------------------------------------
+
+    def fetch(self, hash: bytes, *,
+              populate_cache: bool = True) -> Optional[NodeObject]:
+        """`populate_cache=False` serves O(store) scans (the online-
+        deletion mark walk) that must still see pending writes but must
+        not flush the hot close-path entries out of the LRU."""
+        with self._lock:
+            obj = self._pending.get(hash) or self._cache.get(hash)
+            if obj is not None:
+                self.cache_hits += 1
+                return obj
+            self.backend_fetches += 1
+        obj = self.backend.fetch(hash)
+        if obj is not None:
+            if populate_cache:
+                self._cache_put(obj)
+        else:
+            with self._lock:
+                self.backend_misses += 1
+        return obj
+
+    def store(self, type: NodeObjectType, hash: bytes, data: bytes) -> None:
+        obj = NodeObject(type, hash, data)
+        with self._lock:
+            if self._write_error is not None:
+                raise RuntimeError("nodestore writer failed") from self._write_error
+            self._pending[hash] = obj
+            if self._writer is None:
+                self.backend.store(obj)
+                self._pending.pop(hash)
+                self._cache_unlocked(obj)
+            else:
+                self._wake.notify()
+
+    def store_fn(self, type: NodeObjectType) -> Callable[[bytes, bytes], None]:
+        """Adapter with the (hash, blob) signature SHAMap.flush expects."""
+        return lambda h, d: self.store(type, h, d)
+
+    def store_many(self, type: NodeObjectType,
+                   pairs: list[tuple[bytes, bytes]]) -> None:
+        """Batch store: every (hash, blob) pair lands in `_pending` under
+        ONE lock hold (the flat-buffer flush path — a per-close tree
+        delta is thousands of nodes, and per-node lock round-trips were
+        pure overhead). Async mode wakes the writer once; sync mode
+        drains through the backend's own batch call."""
+        if not pairs:
+            return
+        batch = [NodeObject(type, h, d) for h, d in pairs]
+        with self._lock:
+            if self._write_error is not None:
+                raise RuntimeError("nodestore writer failed") from self._write_error
+            for obj in batch:
+                self._pending[obj.hash] = obj
+            if self._writer is not None:
+                self._wake.notify()
+        if self._writer is None:
+            self.backend.store_batch(batch)
+            with self._lock:
+                for obj in batch:
+                    if self._pending.get(obj.hash) is obj:
+                        del self._pending[obj.hash]
+                    self._cache_unlocked(obj)
+
+    def store_many_fn(self, type: NodeObjectType) -> Callable[[list], None]:
+        """Adapter with the batch signature SHAMap.flush's `store_many`
+        expects."""
+        return lambda pairs: self.store_many(type, pairs)
+
+    def store_packed(self, type: NodeObjectType, hashes, buf,
+                     offsets) -> int:
+        """Flat-buffer batch door (SHAMap.flush `store_packed` sink):
+        the whole chunk goes to the backend in ONE synchronous call —
+        blob == hashed bytes, zero per-node objects on the segstore
+        path. Runs on the caller's thread (the close pipeline's drain
+        worker), bypassing the pending map: content-addressed writes
+        need no ordering against the async writer, and read-your-writes
+        holds because the backend indexes the batch before returning."""
+        with self._lock:
+            if self._write_error is not None:
+                raise RuntimeError("nodestore writer failed") \
+                    from self._write_error
+        return self.backend.store_packed(type, hashes, buf, offsets)
+
+    def store_packed_fn(self, type: NodeObjectType) -> Callable:
+        """Adapter with the (hashes, buf, offsets) signature
+        SHAMap.flush's `store_packed` expects."""
+        return lambda hashes, buf, offsets: self.store_packed(
+            type, hashes, buf, offsets
+        )
+
+    # -- online deletion ---------------------------------------------------
+
+    def begin_sweep(self) -> None:
+        """Arm the backend's sweep guards (see SegStoreBackend)."""
+        begin = getattr(self.backend, "begin_sweep", None)
+        if begin is None:
+            raise NotImplementedError(
+                f"backend {self.backend.name!r} does not support "
+                f"online deletion"
+            )
+        begin()
+
+    def cancel_sweep(self) -> None:
+        cancel = getattr(self.backend, "cancel_sweep", None)
+        if cancel is not None:
+            cancel()
+
+    def apply_sweep(self, live: set) -> int:
+        """Remove every stored node not in `live`, then purge the
+        façade's own state for the removed keys: the cache must stop
+        resolving them and — critically — the `flushed` known-set must
+        forget them, or a later flush would skip re-writing a deleted
+        node a new ledger re-created. Returns nodes removed."""
+        apply = getattr(self.backend, "apply_sweep", None)
+        if apply is None:
+            raise NotImplementedError(
+                f"backend {self.backend.name!r} does not support "
+                f"online deletion"
+            )
+        removed = apply(live)
+        with self._lock:
+            for key in removed:
+                self._cache.pop(key, None)
+        self.flushed.difference_update(removed)
+        return len(removed)
+
+    def sync(self) -> None:
+        """Block until all pending writes hit the backend. Raises the
+        writer thread's error if the backend failed (otherwise a dead
+        writer would make this hang forever)."""
+        with self._lock:
+            while self._pending:
+                if self._write_error is not None:
+                    raise RuntimeError("nodestore writer failed") from self._write_error
+                self._wake.notify()
+                self._wake.wait(0.01)
+            if self._write_error is not None:
+                raise RuntimeError("nodestore writer failed") from self._write_error
+        # durability barrier: backends with deferred fsync (segstore
+        # durability=batch|async) flush their group-commit window too
+        backend_sync = getattr(self.backend, "sync", None)
+        if backend_sync is not None:
+            backend_sync()
+
+    def close(self) -> None:
+        try:
+            self.sync()
+        finally:
+            with self._lock:
+                self._stopping = True
+                self._wake.notify()
+            if self._writer:
+                self._writer.join(timeout=5)
+            self.backend.close()
+
+    def get_json(self) -> dict:
+        """The `node_store` observability block (server_state /
+        get_counts): façade cache + write-behind stats, plus whatever
+        the backend itself reports (segstore: segments, live ratio,
+        appends/fsyncs, compaction and checkpoint counters)."""
+        with self._lock:
+            out = {
+                "cache_size": len(self._cache),
+                "cache_hits": self.cache_hits,
+                "backend_fetches": self.backend_fetches,
+                "backend_misses": self.backend_misses,
+                "pending_writes": len(self._pending),
+                "flushed_known": len(self.flushed),
+                "backend": self.backend.name,
+            }
+        backend_json = getattr(self.backend, "get_json", None)
+        if backend_json is not None:
+            out["backend_stats"] = backend_json()
+        return out
+
+    # -- internals --------------------------------------------------------
+
+    def _cache_put(self, obj: NodeObject) -> None:
+        with self._lock:
+            self._cache_unlocked(obj)
+
+    def _cache_unlocked(self, obj: NodeObject) -> None:
+        if len(self._cache) >= self._cache_size:
+            # simple clock-less eviction: drop ~25% oldest-inserted
+            drop = len(self._cache) // 4 or 1
+            for k in list(self._cache)[:drop]:
+                del self._cache[k]
+        self._cache[obj.hash] = obj
+
+    def _write_loop(self) -> None:
+        while True:
+            with self._lock:
+                while not self._pending and not self._stopping:
+                    self._wake.wait(0.1)
+                if self._stopping and not self._pending:
+                    return
+                keys = list(self._pending)[: self._batch_size]
+                batch = [self._pending[k] for k in keys]
+            try:
+                self.backend.store_batch(batch)
+            except BaseException as exc:  # surface via sync(); keep pending
+                with self._lock:
+                    self._write_error = exc
+                    self._wake.notify_all()
+                return
+            with self._lock:
+                for k, o in zip(keys, batch):
+                    if self._pending.get(k) is o:
+                        del self._pending[k]
+                    self._cache_unlocked(o)
+                self._wake.notify_all()
+
+
+def make_database(type: str = "memory", *, cache_size: int = 65536,
+                  async_writes: bool = True, **backend_kwargs) -> Database:
+    """reference: NodeStore::Manager::make_Database; `type=` is the config
+    knob ([node_db] type=..., doc/stellard-example.cfg:795-802)."""
+    return Database(
+        make_backend(type, **backend_kwargs),
+        cache_size=cache_size,
+        async_writes=async_writes,
+    )

@@ -1,0 +1,1089 @@
+"""Segmented log-structured NodeStore backend.
+
+The LSM-tree argument (O'Neil et al. 1996) specialized to a ledger
+store: keys are immutable 32-byte content hashes, so random keyed
+writes convert to ONE sequential segment append per flush and the
+"merge" component degenerates to segment compaction — no levels, no
+range order to maintain. Three production properties the flat cpplog
+backend lacks:
+
+- **one-append flush**: ``store_packed`` consumes the flat-buffer node
+  encoding (state/shamap.py ``pack_nodes``: blob == hashed bytes) as
+  one contiguous buffer and lands the whole batch as a single
+  ``write()`` + (durability-dependent) one ``fsync`` — replacing the
+  per-key put loop that dominated the persist stage;
+- **checkpointed open**: the in-memory index snapshots to
+  ``index.ckpt`` every ``checkpoint_bytes`` of appends, so open loads
+  the snapshot and replays only the post-checkpoint tail instead of
+  scanning the whole log (O(tail), not O(store));
+- **online deletion + compaction**: rippled's ``SHAMapStore``
+  online_delete role — a sweep (driven by node/ledgercleaner.py's
+  rotation) removes index entries for unreachable nodes, per-segment
+  liveness accounting flags segments below ``compact_ratio``, and a
+  background maintenance thread rewrites their live records into the
+  active segment and deletes the file, keeping a validator's disk
+  bounded near the live set.
+
+Record layout is shared with cpplog so torn-tail recovery stays
+uniform: ``[u32 body_len LE | u8 flags | 32B key | u8 type | blob]``
+(body_len counts type byte + blob). A torn tail on the active segment
+(crash mid-append) is truncated away on open, exactly like cpplog.
+
+``loc`` encoding (shared contract with native segstore_replay):
+``(seg_id << 44) | record_offset``.
+
+Durability modes (``[node_db] durability=``):
+
+- ``fsync`` (default): one fsync per store batch — the equal-durability
+  comparison point against cpplog's fsync-per-batch;
+- ``batch``: group commit — appends mark the store dirty and the
+  maintenance thread fsyncs once per ``group_commit_ms`` window, so a
+  flood shares fsyncs across batches (bounded loss window on crash);
+- ``async``: no explicit fsync outside segment rolls, checkpoints,
+  compaction and close (the OS page cache decides).
+
+Compaction and checkpoints always fsync regardless of mode: a moved
+record's only remaining copy and a checkpoint's covered region must be
+durable before the old bytes (or the replay work) are dropped.
+
+The native fast paths (native/src/nodestore.cc: segidx_* index,
+segstore_pack, segstore_replay) carry the O(store)/O(batch) inner
+loops; every one has a pure-Python mirror below, differential-tested,
+so a toolchain-less box runs the same semantics slower.
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+import threading
+import time
+import zlib
+from typing import Iterator, Optional
+
+from .core import Backend, NodeObject, NodeObjectType, register_backend
+
+__all__ = ["SegStoreBackend"]
+
+_REC_HEADER = 37  # u32 body_len + u8 flags + 32B key
+_SEG_SHIFT = 44
+_SEG_NAME = "seg-%08d.seg"
+_CKPT_NAME = "index.ckpt"
+_CKPT_MAGIC = b"SEGCKPT1"
+_CKPT_VERSION = 1
+
+
+def _seg_path(root: str, sid: int) -> str:
+    return os.path.join(root, _SEG_NAME % sid)
+
+
+def _loc(sid: int, off: int) -> int:
+    return (sid << _SEG_SHIFT) | off
+
+
+def _loc_split(loc: int) -> tuple[int, int]:
+    return loc >> _SEG_SHIFT, loc & ((1 << _SEG_SHIFT) - 1)
+
+
+# --------------------------------------------------------------------------
+# pure-Python mirrors of the native primitives
+
+
+class _PyIndex:
+    """dict-backed mirror of native SegIdxNative (same API)."""
+
+    def __init__(self, cap_hint: int = 0):
+        self._d: dict[bytes, int] = {}
+
+    def __len__(self) -> int:
+        return len(self._d)
+
+    def get(self, key: bytes) -> Optional[int]:
+        return self._d.get(key)
+
+    def put_batch(self, packed_keys: bytes, locs: list[int]) -> None:
+        d = self._d
+        for i, loc in enumerate(locs):
+            d[packed_keys[32 * i: 32 * i + 32]] = loc
+
+    def remove(self, key: bytes, expect_loc: Optional[int] = None) -> bool:
+        cur = self._d.get(key)
+        if cur is None or (expect_loc is not None and cur != expect_loc):
+            return False
+        del self._d[key]
+        return True
+
+    def filter_new(self, packed_keys: bytes, n: int) -> bytes:
+        d = self._d
+        out = bytearray(n)
+        seen: set[bytes] = set()
+        for i in range(n):
+            k = packed_keys[32 * i: 32 * i + 32]
+            if k not in d and k not in seen:
+                out[i] = 1
+                seen.add(k)
+        return bytes(out)
+
+    def dump(self) -> bytes:
+        parts = bytearray()
+        for k, loc in self._d.items():
+            parts += k
+            parts += struct.pack("<Q", loc)
+        return bytes(parts)
+
+    def load(self, blob: bytes) -> None:
+        d = self._d
+        for i in range(len(blob) // 40):
+            base = i * 40
+            d[blob[base: base + 32]] = struct.unpack_from(
+                "<Q", blob, base + 32
+            )[0]
+
+    def items(self):
+        return self._d.items()
+
+
+def _pack_records_py(packed_keys: bytes, types: bytes, buf,
+                     offsets) -> bytes:
+    out = bytearray()
+    mv = memoryview(buf)
+    for i in range(len(types)):
+        blen = offsets[i + 1] - offsets[i]
+        out += struct.pack("<IB", blen + 1, 0)
+        out += packed_keys[32 * i: 32 * i + 32]
+        out.append(types[i])
+        out += mv[offsets[i]: offsets[i + 1]]
+    return bytes(out)
+
+
+def _replay_py(index, path: str, sid: int, start: int) -> tuple[int, int, int]:
+    """Mirror of native segstore_replay: scan `path` from `start`,
+    inserting key -> loc; -> (clean_end, records, bytes)."""
+    start = min(start, os.path.getsize(path))  # clamp like the C side
+    with open(path, "rb") as f:
+        f.seek(start)
+        data = f.read()
+    off = 0
+    end = len(data)
+    keys = bytearray()
+    locs: list[int] = []
+    while off + _REC_HEADER <= end:
+        body_len = struct.unpack_from("<I", data, off)[0]
+        if body_len < 1 or off + _REC_HEADER + body_len > end:
+            break  # torn tail
+        keys += data[off + 5: off + 37]
+        locs.append(_loc(sid, start + off))
+        off += _REC_HEADER + body_len
+    if locs:
+        index.put_batch(bytes(keys), locs)
+    return start + off, len(locs), off
+
+
+def _parse_records(data: bytes, sid: int, base: int):
+    """-> [(key, loc, record_bytes)] for every clean record in `data`
+    (a whole-segment read; `base` is data's file offset)."""
+    out = []
+    off = 0
+    end = len(data)
+    while off + _REC_HEADER <= end:
+        body_len = struct.unpack_from("<I", data, off)[0]
+        if body_len < 1 or off + _REC_HEADER + body_len > end:
+            break
+        rec = data[off: off + _REC_HEADER + body_len]
+        out.append((rec[5:37], _loc(sid, base + off), rec))
+        off += _REC_HEADER + body_len
+    return out
+
+
+class _Seg:
+    __slots__ = ("size", "live_bytes")
+
+    def __init__(self, size: int = 0, live_bytes: int = 0):
+        self.size = size
+        self.live_bytes = live_bytes
+
+
+# --------------------------------------------------------------------------
+
+
+class SegStoreBackend(Backend):
+    """Segmented log-structured backend (see module docstring)."""
+
+    name = "segstore"
+    supports_online_delete = True
+
+    DURABILITY_MODES = ("fsync", "batch", "async")
+
+    def __init__(self, path: str = "nodestore.segstore", *,
+                 durability: str = "fsync",
+                 segment_bytes: int = 64 << 20,
+                 checkpoint_bytes: int = 32 << 20,
+                 compact_ratio: float = 0.5,
+                 group_commit_ms: float = 5.0,
+                 tracer=None, use_native: Optional[bool] = None, **_):
+        if durability not in self.DURABILITY_MODES:
+            raise ValueError(
+                f"[node_db] durability must be one of "
+                f"{self.DURABILITY_MODES}, got {durability!r}"
+            )
+        self.root = path
+        self.durability = durability
+        self.segment_bytes = max(1 << 16, int(segment_bytes))
+        self.checkpoint_bytes = max(1 << 16, int(checkpoint_bytes))
+        self.compact_ratio = float(compact_ratio)
+        self.group_commit_ms = float(group_commit_ms)
+        self._tracer = tracer
+        os.makedirs(path, exist_ok=True)
+
+        self._native = False
+        if use_native is not False:
+            try:
+                from ..native import SegIdxNative, load_native
+
+                lib = load_native()
+                if lib is not None and getattr(lib, "has_segstore", False):
+                    self._idx = SegIdxNative()
+                    self._lib = lib
+                    self._native = True
+            except Exception:  # noqa: BLE001 — toolchain-less box
+                pass
+        if not self._native:
+            if use_native is True:
+                raise RuntimeError("native segstore primitives unavailable")
+            self._idx = _PyIndex()
+            self._lib = None
+
+        self._lock = threading.RLock()
+        self._segs: dict[int, _Seg] = {}
+        self._read_fds: dict[int, int] = {}
+        self._active_id = 0
+        self._active_f = None
+        self._failed = False
+        self._fail_reason = ""
+        self._dirty = False
+        self._last_fsync = time.monotonic()
+        self._bytes_since_ckpt = 0
+        self._sweep_active = False
+        self._recent_keys: set[bytes] = set()
+        # counters (get_json / the node_store observability block)
+        self.appends = 0
+        self.records = 0
+        self.bytes_appended = 0
+        self.fsyncs = 0
+        self.dedup_skips = 0
+        self.fetches = 0
+        self.fetch_misses = 0
+        self.checkpoints = 0
+        self.compactions = 0
+        self.compacted_bytes_in = 0
+        self.compacted_bytes_out = 0
+        self.sweeps = 0
+        self.swept_records = 0
+        self.swept_bytes = 0
+        # open-time replay evidence (the checkpointed-open tests pin it)
+        self.replayed_records = 0
+        self.replayed_bytes = 0
+        self.opened_from_checkpoint = False
+
+        self._open_store()
+
+        # maintenance thread: group-commit fsync (durability=batch),
+        # compaction, post-sweep checkpoints. Lazy wake via condition.
+        self._compact_mutex = threading.Lock()
+        self._maint_wake = threading.Condition(self._lock)
+        self._stopping = False
+        self._compact_requested = False
+        self._ckpt_requested = False
+        self._maint: Optional[threading.Thread] = None
+
+    # -- open / replay -----------------------------------------------------
+
+    def _discover_segs(self) -> list[int]:
+        ids = []
+        for name in os.listdir(self.root):
+            if name.startswith("seg-") and name.endswith(".seg"):
+                try:
+                    ids.append(int(name[4:-4]))
+                except ValueError:
+                    continue
+        return sorted(ids)
+
+    def _open_store(self) -> None:
+        ids = self._discover_segs()
+        ckpt = self._load_checkpoint(ids)
+        if ckpt is not None:
+            start_sid, start_off = ckpt
+            self.opened_from_checkpoint = True
+        elif ids:
+            start_sid, start_off = ids[0], 0
+        else:
+            start_sid, start_off = 1, 0
+        # tail replay: every segment at/after the checkpoint position
+        for sid in ids:
+            if sid < start_sid:
+                continue
+            begin = start_off if sid == start_sid else 0
+            path = _seg_path(self.root, sid)
+            file_size = os.path.getsize(path)
+            if self._native:
+                end, recs, byts = self._idx.replay(path, sid, begin)
+            else:
+                end, recs, byts = _replay_py(self._idx, path, sid, begin)
+            self.replayed_records += recs
+            self.replayed_bytes += byts
+            seg = self._segs.setdefault(sid, _Seg())
+            if end < file_size:
+                if sid == ids[-1]:
+                    # torn tail from a crash mid-append: truncate so the
+                    # next append lands on a clean record boundary
+                    with open(path, "rb+") as f:
+                        f.truncate(end)
+                    file_size = end
+                # non-final segments are sealed; a torn record there
+                # leaves the tail unreachable but the segment readable
+            seg.size = end if sid == ids[-1] else max(seg.size, end)
+            seg.live_bytes += byts
+        if not ids:
+            self._segs[1] = _Seg()
+            self._active_id = 1
+        else:
+            self._active_id = ids[-1]
+        self._ensure_active_file()
+        if self._segs[self._active_id].size >= self.segment_bytes:
+            self._roll_locked()
+
+    def _ensure_active_file(self) -> None:
+        if self._active_f is None:
+            self._active_f = open(
+                _seg_path(self.root, self._active_id), "ab"
+            )
+
+    def _load_checkpoint(self, ids: list[int]) -> Optional[tuple[int, int]]:
+        """Load index.ckpt when valid; -> (active_sid, covered_offset)
+        replay start position, or None for a full replay."""
+        path = os.path.join(self.root, _CKPT_NAME)
+        try:
+            with open(path, "rb") as f:
+                blob = f.read()
+        except OSError:
+            return None
+        if len(blob) < 44 or blob[:8] != _CKPT_MAGIC:
+            return None
+        body, crc = blob[:-4], struct.unpack("<I", blob[-4:])[0]
+        if zlib.crc32(body) & 0xFFFFFFFF != crc:
+            return None
+        ver, n_segs = struct.unpack_from("<II", blob, 8)
+        if ver != _CKPT_VERSION:
+            return None
+        active_sid, covered = struct.unpack_from("<IQ", blob, 16)
+        n_entries = struct.unpack_from("<Q", blob, 28)[0]
+        pos = 36
+        seg_stats = []
+        for _ in range(n_segs):
+            sid, size, live = struct.unpack_from("<IQQ", blob, pos)
+            pos += 20
+            seg_stats.append((sid, size, live))
+        entries_end = pos + n_entries * 40
+        if entries_end > len(body):
+            return None
+        # the checkpoint must reference only segments that still exist —
+        # a manual deletion (or a crash between compaction's file remove
+        # and its checkpoint) degrades to a full replay, never to index
+        # entries pointing at missing files
+        have = set(ids)
+        if any(sid not in have for sid, _, _ in seg_stats):
+            return None
+        self._idx.load(body[pos:entries_end])
+        for sid, size, live in seg_stats:
+            self._segs[sid] = _Seg(size, live)
+        return active_sid, covered
+
+    # -- append path -------------------------------------------------------
+
+    def store_batch(self, batch: list[NodeObject]) -> None:
+        if not batch:
+            return
+        keys = b"".join(o.hash for o in batch)
+        types = bytes(int(o.type) & 0xFF for o in batch)
+        offsets = [0]
+        parts = []
+        pos = 0
+        for o in batch:
+            parts.append(o.data)
+            pos += len(o.data)
+            offsets.append(pos)
+        self._append(keys, types, b"".join(parts), offsets)
+
+    def store_packed(self, type: NodeObjectType, hashes: list[bytes],
+                     buf, offsets) -> int:
+        """The one-append flush door: consumes the flat-buffer node
+        encoding AS-IS (blob == hashed bytes), no per-node objects.
+        `hashes` is a list of 32-byte keys or one packed 32n buffer.
+        Returns the number of records actually appended (dedup may
+        skip already-stored nodes)."""
+        n = len(offsets) - 1
+        if n <= 0:
+            return 0
+        packed_keys = (
+            hashes if isinstance(hashes, (bytes, bytearray))
+            else b"".join(hashes)
+        )
+        return self._append(
+            bytes(packed_keys), bytes([int(type) & 0xFF]) * n, buf, offsets
+        )
+
+    def _append(self, packed_keys: bytes, types: bytes, buf,
+                offsets) -> int:
+        n = len(types)
+        with self._lock:
+            if self._failed:
+                raise OSError(f"segstore failed ({self._fail_reason})")
+            # dedup: content-addressed, a second write of a key is a
+            # no-op — EXCEPT while a sweep is marking: a node re-written
+            # mid-sweep must get a fresh record + loc so the sweep's
+            # compare-and-delete can never drop the only copy (only
+            # in-batch duplicates are still collapsed)
+            if not self._sweep_active:
+                mask = self._idx.filter_new(packed_keys, n)
+            else:
+                seen: set[bytes] = set()
+                m = bytearray(n)
+                for i in range(n):
+                    k = packed_keys[32 * i: 32 * i + 32]
+                    if k not in seen:
+                        m[i] = 1
+                        seen.add(k)
+                mask = bytes(m)
+            if not any(mask):
+                self.dedup_skips += n
+                return 0
+            if all(mask):
+                sel_keys, sel_types, sel_buf, sel_offsets = (
+                    packed_keys, types, buf, offsets
+                )
+                n_sel = n
+            else:
+                mv = memoryview(buf)
+                kparts, tparts, bparts = bytearray(), bytearray(), bytearray()
+                sel_offsets = [0]
+                for i in range(n):
+                    if not mask[i]:
+                        continue
+                    kparts += packed_keys[32 * i: 32 * i + 32]
+                    tparts.append(types[i])
+                    bparts += mv[offsets[i]: offsets[i + 1]]
+                    sel_offsets.append(len(bparts))
+                sel_keys, sel_types, sel_buf = (
+                    bytes(kparts), bytes(tparts), bytes(bparts)
+                )
+                n_sel = len(sel_types)
+                self.dedup_skips += n - n_sel
+            if self._native:
+                img = self._idx.pack_records(
+                    sel_keys, sel_types, sel_buf, sel_offsets
+                )
+            else:
+                img = _pack_records_py(
+                    sel_keys, sel_types, sel_buf, sel_offsets
+                )
+            seg = self._segs[self._active_id]
+            if seg.size and seg.size + len(img) > self.segment_bytes:
+                self._roll_locked()
+                seg = self._segs[self._active_id]
+            base = seg.size
+            t0 = time.perf_counter()
+            try:
+                self._active_f.write(img)
+                self._active_f.flush()  # page cache: preads must see it
+            except OSError:
+                # a torn record would desynchronize replay at its header
+                # — truncate back to the last clean boundary; if THAT
+                # fails the store cannot guarantee a clean tail: fail it
+                try:
+                    os.ftruncate(self._active_f.fileno(), base)
+                except OSError:
+                    self._mark_failed_locked("torn append not truncatable")
+                raise
+            t1 = time.perf_counter()
+            locs = []
+            off = base
+            for i in range(n_sel):
+                locs.append(_loc(self._active_id, off))
+                off += _REC_HEADER + 1 + (
+                    sel_offsets[i + 1] - sel_offsets[i]
+                )
+            self._idx.put_batch(sel_keys, locs)
+            if self._sweep_active:
+                self._recent_keys.update(
+                    sel_keys[32 * i: 32 * i + 32] for i in range(n_sel)
+                )
+            seg.size += len(img)
+            seg.live_bytes += len(img)
+            self.appends += 1
+            self.records += n_sel
+            self.bytes_appended += len(img)
+            self._bytes_since_ckpt += len(img)
+            tr = self._tracer
+            if tr is not None:
+                tr.complete("persist.nodestore.append", "persist", t0, t1,
+                            records=n_sel, bytes=len(img),
+                            seg=self._active_id)
+            if self.durability == "fsync":
+                self._fsync_locked()
+            else:
+                self._dirty = True
+                if self.durability == "batch":
+                    now = time.monotonic()
+                    if (now - self._last_fsync) * 1000.0 >= \
+                            self.group_commit_ms:
+                        self._fsync_locked()
+                    else:
+                        self._kick_maint_locked()
+            if self._bytes_since_ckpt >= self.checkpoint_bytes:
+                self._checkpoint_locked()
+            return n_sel
+
+    def _fsync_locked(self) -> None:
+        t0 = time.perf_counter()
+        self._active_f.flush()
+        os.fsync(self._active_f.fileno())
+        t1 = time.perf_counter()
+        self.fsyncs += 1
+        self._dirty = False
+        self._last_fsync = time.monotonic()
+        tr = self._tracer
+        if tr is not None:
+            tr.complete("persist.nodestore.fsync", "persist", t0, t1,
+                        seg=self._active_id)
+
+    def _group_fsync(self) -> None:
+        """Maintenance-thread group commit: fsync OUTSIDE the store lock
+        so appenders never block behind the barrier (the whole point of
+        durability=batch — on a slow filesystem an in-lock fsync would
+        re-serialize every append behind ~100ms waits). The fd is duped
+        so a concurrent segment roll closing the file object cannot
+        invalidate the descriptor mid-fsync; dirtiness re-checks after:
+        bytes appended while the barrier ran stay dirty for the next
+        window."""
+        with self._lock:
+            if self._active_f is None or not self._dirty:
+                return
+            self._active_f.flush()
+            fd = os.dup(self._active_f.fileno())
+            seg_id = self._active_id
+            covered = self._segs[seg_id].size
+        t0 = time.perf_counter()
+        try:
+            os.fsync(fd)
+        finally:
+            os.close(fd)
+        t1 = time.perf_counter()
+        with self._lock:
+            self.fsyncs += 1
+            self._last_fsync = time.monotonic()
+            if self._active_id == seg_id and \
+                    self._segs[seg_id].size == covered:
+                self._dirty = False
+            tr = self._tracer
+            if tr is not None:
+                tr.complete("persist.nodestore.fsync", "persist", t0, t1,
+                            seg=seg_id, group=True)
+
+    def _roll_locked(self) -> None:
+        """Seal the active segment and start a new one. A sealed segment
+        is always fsynced (it will never be written again; compaction
+        and deletion decisions assume its bytes are durable)."""
+        if self._active_f is not None:
+            self._active_f.flush()
+            os.fsync(self._active_f.fileno())
+            self.fsyncs += 1
+            self._dirty = False
+            self._active_f.close()
+        self._active_id += 1
+        self._segs[self._active_id] = _Seg()
+        self._active_f = open(_seg_path(self.root, self._active_id), "ab")
+
+    # -- read path ---------------------------------------------------------
+
+    def _read_fd(self, sid: int) -> int:
+        fd = self._read_fds.get(sid)
+        if fd is None:
+            fd = os.open(_seg_path(self.root, sid), os.O_RDONLY)
+            self._read_fds[sid] = fd
+        return fd
+
+    # speculative single-pread size: tree nodes are ≤ ~1KB (an inner is
+    # 517B with the type byte), so one read covers header + body for
+    # nearly every record; only oversized blobs pay a second pread.
+    # Sized so the out-of-core fault path (state/shamap.NodeSource) is
+    # one syscall per cold node.
+    FETCH_CHUNK = 1536
+
+    def fetch(self, hash: bytes) -> Optional[NodeObject]:
+        with self._lock:
+            self.fetches += 1
+            loc = self._idx.get(hash)
+            if loc is None:
+                self.fetch_misses += 1
+                return None
+            sid, off = _loc_split(loc)
+            fd = self._read_fd(sid)
+            buf = os.pread(fd, self.FETCH_CHUNK, off)
+            if len(buf) < 5:
+                raise OSError(
+                    f"segstore: index points past segment {sid} end"
+                )
+            body_len = struct.unpack_from("<I", buf)[0]
+            end = _REC_HEADER + body_len
+            if end <= len(buf):
+                body = buf[_REC_HEADER:end]
+            else:
+                body = os.pread(fd, body_len, off + _REC_HEADER)
+            if len(body) != body_len:
+                raise OSError(f"segstore: short record read in seg {sid}")
+        return NodeObject(NodeObjectType(body[0]), hash, body[1:])
+
+    def iterate(self) -> Iterator[NodeObject]:
+        """Every LIVE node (index snapshot order). Records whose key was
+        swept are invisible even when their bytes still sit in an
+        uncompacted segment."""
+        with self._lock:
+            blob = self._idx.dump()
+        for i in range(len(blob) // 40):
+            key = blob[i * 40: i * 40 + 32]
+            obj = self.fetch(key)
+            if obj is not None:
+                yield obj
+
+    # -- segment-granular read door (catch-up serving) ---------------------
+
+    def segments(self) -> list[dict]:
+        with self._lock:
+            return [
+                {
+                    "id": sid,
+                    "size": seg.size,
+                    "live_bytes": seg.live_bytes,
+                    "active": sid == self._active_id,
+                }
+                for sid, seg in sorted(self._segs.items())
+            ]
+
+    def fetch_segment(self, seg_id: int, offset: int = 0,
+                      length: Optional[int] = None,
+                      ) -> Optional[tuple[dict, bytes]]:
+        """(meta, raw bytes) of one segment — contiguous hashed byte
+        ranges for catch-up serving: every record's blob is exactly its
+        hashed prefix-format bytes, so a receiver can verify each record
+        against its key without per-node round-trips. ``offset``/
+        ``length`` bound the read so a chunked wire transfer costs
+        O(chunk) per request, not O(segment); meta always carries the
+        FULL segment size."""
+        with self._lock:
+            seg = self._segs.get(seg_id)
+            if seg is None:
+                return None
+            fd = self._read_fd(seg_id)
+            off = max(0, int(offset))
+            n = seg.size - off
+            if length is not None:
+                n = min(n, int(length))
+            data = os.pread(fd, n, off) if n > 0 else b""
+            return (
+                {
+                    "id": seg_id,
+                    "size": seg.size,
+                    "live_bytes": seg.live_bytes,
+                    "active": seg_id == self._active_id,
+                },
+                data,
+            )
+
+    # -- online deletion (sweep) -------------------------------------------
+
+    def begin_sweep(self) -> None:
+        """Arm the sweep guards: until apply_sweep, (a) every incoming
+        key is recorded so the sweep never deletes a node written after
+        its mark started, and (b) dedup is disabled so re-written keys
+        get fresh records (see _append)."""
+        with self._lock:
+            self._sweep_active = True
+            self._recent_keys = set()
+
+    def cancel_sweep(self) -> None:
+        """Disarm the sweep guards without deleting anything (a mark
+        pass aborted by shutdown must not leave dedup disabled)."""
+        with self._lock:
+            self._sweep_active = False
+            self._recent_keys = set()
+
+    def apply_sweep(self, live: set) -> list[bytes]:
+        """Remove every indexed key not in `live` (mark-and-sweep's
+        sweep half). Returns the removed keys so the Database façade can
+        purge its cache/flushed sets. Compare-and-delete per key: a key
+        re-appended since the snapshot has a new loc and survives."""
+        with self._lock:
+            blob = self._idx.dump()
+        # candidate selection + size reads happen OFF the lock (an
+        # O(store) pass must not stall the close path's appends)
+        dead: list[tuple[bytes, int]] = []
+        for i in range(len(blob) // 40):
+            key = blob[i * 40: i * 40 + 32]
+            if key in live:
+                continue
+            loc = struct.unpack_from("<Q", blob, i * 40 + 32)[0]
+            dead.append((key, loc))
+        sized: list[tuple[bytes, int, int]] = []
+        for key, loc in dead:
+            sid, off = _loc_split(loc)
+            with self._lock:
+                if sid not in self._segs:
+                    continue
+                hdr = os.pread(self._read_fd(sid), 4, off)
+            if len(hdr) == 4:
+                body_len = struct.unpack("<I", hdr)[0]
+                sized.append((key, loc, _REC_HEADER + body_len))
+        removed: list[bytes] = []
+        removed_bytes = 0
+        with self._lock:
+            for key, loc, size in sized:
+                if key in self._recent_keys:
+                    continue
+                if self._idx.remove(key, expect_loc=loc):
+                    sid, _ = _loc_split(loc)
+                    seg = self._segs.get(sid)
+                    if seg is not None:
+                        seg.live_bytes = max(0, seg.live_bytes - size)
+                    removed.append(key)
+                    removed_bytes += size
+            self._sweep_active = False
+            self._recent_keys = set()
+            self.sweeps += 1
+            self.swept_records += len(removed)
+            self.swept_bytes += removed_bytes
+            # deletions become durable through the checkpoint (replay
+            # starts past the swept records); compaction then reclaims
+            # the dead bytes
+            self._compact_requested = True
+            self._ckpt_requested = True
+            self._kick_maint_locked()
+        return removed
+
+    # -- compaction --------------------------------------------------------
+
+    def _mark_failed_locked(self, reason: str) -> None:
+        self._failed = True
+        self._fail_reason = reason
+
+    def _kick_maint_locked(self) -> None:
+        if self._maint is None:
+            self._maint = threading.Thread(
+                target=self._maint_loop, name="segstore-maint", daemon=True
+            )
+            self._maint.start()
+        self._maint_wake.notify_all()
+
+    def request_compact(self) -> None:
+        with self._lock:
+            self._compact_requested = True
+            self._kick_maint_locked()
+
+    def _maint_loop(self) -> None:
+        while True:
+            with self._maint_wake:
+                while not (self._compact_requested or self._ckpt_requested
+                           or self._stopping):
+                    if self._dirty and self.durability == "batch":
+                        remaining = (
+                            self.group_commit_ms / 1000.0
+                            - (time.monotonic() - self._last_fsync)
+                        )
+                        if remaining <= 0:
+                            break  # group-commit window elapsed
+                        self._maint_wake.wait(timeout=remaining)
+                    else:
+                        self._maint_wake.wait(timeout=1.0)
+                if self._stopping:
+                    return
+                do_compact = self._compact_requested
+                do_ckpt = self._ckpt_requested
+                self._compact_requested = False
+                self._ckpt_requested = False
+                do_fsync = self._dirty and self.durability == "batch" and (
+                    (time.monotonic() - self._last_fsync) * 1000.0
+                    >= self.group_commit_ms
+                )
+            try:
+                if do_fsync:
+                    self._group_fsync()  # out-of-lock: appends continue
+            except OSError:
+                # a failed fsync means the kernel may have DROPPED the
+                # dirty pages (fsyncgate semantics): bytes the caller
+                # believes are headed to disk can be silently gone, so
+                # the store must refuse further writes, loudly
+                with self._lock:
+                    self._mark_failed_locked("group-commit fsync failed")
+                return
+            # checkpoint and compaction are OPTIMIZATIONS over an intact
+            # log: a transient failure (disk briefly full, EINTR) must
+            # not brick the store or kill this thread — log it and let
+            # the next trigger retry. _compact_pass marks the store
+            # failed itself for the one genuinely dangerous sub-case (a
+            # torn move-append it cannot truncate away).
+            try:
+                if do_compact:
+                    self._compact_once()
+            except OSError:
+                import logging
+
+                logging.getLogger("stellard.segstore").exception(
+                    "segment compaction failed (will retry on next "
+                    "trigger)"
+                )
+                if self._failed:
+                    return
+            try:
+                if do_ckpt:
+                    self.checkpoint()
+            except OSError:
+                import logging
+
+                logging.getLogger("stellard.segstore").exception(
+                    "index checkpoint failed (open will replay a longer "
+                    "tail until one lands)"
+                )
+
+    def compact(self) -> int:
+        """Synchronous compaction pass (tests / admin); -> segments
+        rewritten."""
+        return self._compact_once()
+
+    def _compact_once(self) -> int:
+        # one pass at a time: a synchronous compact() racing the
+        # maintenance thread's pass must not double-process a segment
+        with self._compact_mutex:
+            return self._compact_pass()
+
+    def _compact_pass(self) -> int:
+        with self._lock:
+            # a mostly-dead ACTIVE segment would otherwise never be
+            # reclaimed (compaction only rewrites sealed segments):
+            # seal it first so it joins the candidate set
+            active = self._segs[self._active_id]
+            if active.size > 0 and \
+                    active.live_bytes < active.size * self.compact_ratio:
+                self._roll_locked()
+            candidates = [
+                sid for sid, seg in self._segs.items()
+                if sid != self._active_id and seg.size > 0
+                and seg.live_bytes < seg.size * self.compact_ratio
+            ]
+        done = 0
+        for sid in sorted(candidates):
+            t0 = time.perf_counter()
+            with self._lock:
+                seg = self._segs.get(sid)
+                if seg is None or sid == self._active_id:
+                    continue
+                size = seg.size
+                fd = self._read_fd(sid)
+                data = os.pread(fd, size, 0)
+            # parse OFF the lock; validate + move under ONE lock hold so
+            # no record can change ownership between check and copy
+            records = _parse_records(data, sid, 0)
+            with self._lock:
+                if sid not in self._segs or sid == self._active_id:
+                    continue
+                live = [
+                    (key, rec) for key, loc, rec in records
+                    if self._idx.get(key) == loc
+                ]
+                img = b"".join(rec for _, rec in live)
+                if img:
+                    active = self._segs[self._active_id]
+                    if active.size and \
+                            active.size + len(img) > self.segment_bytes:
+                        self._roll_locked()
+                        active = self._segs[self._active_id]
+                    base = active.size
+                    try:
+                        self._active_f.write(img)
+                        self._active_f.flush()
+                        # the moved records' only copy must be durable
+                        # BEFORE the old segment is deleted, in every
+                        # durability mode
+                        os.fsync(self._active_f.fileno())
+                    except OSError:
+                        # same contract as _append: a torn move-append
+                        # must truncate away or the store is failed
+                        try:
+                            os.ftruncate(self._active_f.fileno(), base)
+                        except OSError:
+                            self._mark_failed_locked(
+                                "torn compaction append not truncatable"
+                            )
+                        raise
+                    self.fsyncs += 1
+                    keys = bytearray()
+                    locs = []
+                    off = base
+                    for key, rec in live:
+                        keys += key
+                        locs.append(_loc(self._active_id, off))
+                        off += len(rec)
+                    self._idx.put_batch(bytes(keys), locs)
+                    active.size += len(img)
+                    active.live_bytes += len(img)
+                    self.bytes_appended += len(img)
+                rfd = self._read_fds.pop(sid, None)
+                if rfd is not None:
+                    os.close(rfd)
+                del self._segs[sid]
+                try:
+                    os.remove(_seg_path(self.root, sid))
+                except OSError:
+                    pass
+                self.compactions += 1
+                self.compacted_bytes_in += size
+                self.compacted_bytes_out += len(img)
+                self._ckpt_requested = True
+                done += 1
+                tr = self._tracer
+                if tr is not None:
+                    tr.complete(
+                        "store.compact", "persist", t0,
+                        time.perf_counter(), seg=sid, bytes_in=size,
+                        bytes_out=len(img), moved=len(live),
+                    )
+        return done
+
+    # -- checkpoint --------------------------------------------------------
+
+    def checkpoint(self) -> None:
+        with self._lock:
+            self._checkpoint_locked()
+
+    def _checkpoint_locked(self) -> None:
+        t0 = time.perf_counter()
+        # the covered region must be durable: index entries referencing
+        # bytes the page cache later loses would survive the crash
+        if self._active_f is not None:
+            self._fsync_locked()
+        entries = self._idx.dump()
+        seg_items = sorted(self._segs.items())
+        head = _CKPT_MAGIC + struct.pack(
+            "<IIIQQ", _CKPT_VERSION, len(seg_items), self._active_id,
+            self._segs[self._active_id].size, len(entries) // 40,
+        )
+        stats = b"".join(
+            struct.pack("<IQQ", sid, seg.size, seg.live_bytes)
+            for sid, seg in seg_items
+        )
+        body = head + stats + entries
+        blob = body + struct.pack("<I", zlib.crc32(body) & 0xFFFFFFFF)
+        tmp = os.path.join(self.root, _CKPT_NAME + ".tmp")
+        with open(tmp, "wb") as f:
+            f.write(blob)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, os.path.join(self.root, _CKPT_NAME))
+        try:
+            dfd = os.open(self.root, os.O_RDONLY)
+            try:
+                os.fsync(dfd)
+            finally:
+                os.close(dfd)
+        except OSError:
+            pass  # some filesystems refuse directory fsync
+        self.checkpoints += 1
+        self._bytes_since_ckpt = 0
+        tr = self._tracer
+        if tr is not None:
+            tr.complete("store.checkpoint", "persist", t0,
+                        time.perf_counter(),
+                        entries=len(entries) // 40,
+                        bytes=len(blob))
+
+    # -- misc --------------------------------------------------------------
+
+    def sync(self) -> None:
+        """Flush + fsync outstanding appends (all durability modes) —
+        the explicit durability barrier Database.sync drives."""
+        with self._lock:
+            if self._failed:
+                raise OSError(f"segstore failed ({self._fail_reason})")
+            if self._active_f is not None and self._dirty:
+                self._fsync_locked()
+
+    def count(self) -> int:
+        with self._lock:
+            return len(self._idx)
+
+    def disk_bytes(self) -> int:
+        with self._lock:
+            return sum(seg.size for seg in self._segs.values())
+
+    def live_bytes(self) -> int:
+        with self._lock:
+            return sum(seg.live_bytes for seg in self._segs.values())
+
+    def get_json(self) -> dict:
+        with self._lock:
+            disk = sum(seg.size for seg in self._segs.values())
+            live = sum(seg.live_bytes for seg in self._segs.values())
+            return {
+                "backend": self.name,
+                "durability": self.durability,
+                "native_index": self._native,
+                "objects": len(self._idx),
+                "segments": len(self._segs),
+                "disk_bytes": disk,
+                "live_bytes": live,
+                "live_ratio": round(live / disk, 4) if disk else 1.0,
+                "appends": self.appends,
+                "records": self.records,
+                "bytes_appended": self.bytes_appended,
+                "fsyncs": self.fsyncs,
+                "dedup_skips": self.dedup_skips,
+                "fetches": self.fetches,
+                "fetch_misses": self.fetch_misses,
+                "checkpoints": self.checkpoints,
+                "compactions": self.compactions,
+                "compacted_bytes_in": self.compacted_bytes_in,
+                "compacted_bytes_out": self.compacted_bytes_out,
+                "sweeps": self.sweeps,
+                "swept_records": self.swept_records,
+                "swept_bytes": self.swept_bytes,
+                "replayed_records": self.replayed_records,
+                "replayed_bytes": self.replayed_bytes,
+                "opened_from_checkpoint": self.opened_from_checkpoint,
+            }
+
+    def close(self) -> None:
+        with self._lock:
+            self._stopping = True
+            self._maint_wake.notify_all()
+            maint = self._maint
+        if maint is not None:
+            maint.join(timeout=5)
+        with self._lock:
+            if self._active_f is not None and not self._failed:
+                try:
+                    self._checkpoint_locked()  # next open: zero replay
+                except OSError:
+                    pass
+            if self._active_f is not None:
+                try:
+                    self._active_f.close()
+                except OSError:
+                    pass
+                self._active_f = None
+            for fd in self._read_fds.values():
+                try:
+                    os.close(fd)
+                except OSError:
+                    pass
+            self._read_fds.clear()
+
+
+register_backend("segstore", SegStoreBackend)

@@ -37,6 +37,7 @@ __all__ = [
     "path_quality",
     "path_quality_host",
     "path_quality_ref",
+    "launcher",
     "launches",
 ]
 
@@ -47,6 +48,22 @@ Q16_MAX = (1 << 32) - 1  # saturation rail
 
 # launches of the CUDA kernel in this process (never counts plain runs)
 launches = 0
+
+_launch = None
+
+
+def launcher():
+    """K4's C entry point ``path_quality_launch(rates, out, n, hops, vec4,
+    stream) -> cudaError_t``, from the library built at first use, its
+    argument and result types set once."""
+    global _launch
+    if _launch is None:
+        fn = build.load(LIB).path_quality_launch
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _launch = fn
+    return _launch
 
 
 def _qmul(xp, a, b, u32):
@@ -113,11 +130,7 @@ def path_quality(rates: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return out
     vec4 = int(hops % 4 == 0 and rates.data_ptr() % 16 == 0)
-    lib = build.load(LIB)
-    fn = lib.path_quality_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = launcher()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(rates.data_ptr(), out.data_ptr(), n, hops, vec4, stream)

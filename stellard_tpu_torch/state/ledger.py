@@ -12,14 +12,16 @@ with the reference (src/ripple_app/ledger/Ledger.cpp):
 
 Closing a ledger is functional: `close()` snapshots into an immutable
 closed ledger and the caller opens a successor with `open_successor()` —
-the persistent SHAMap makes both O(1). Persistence (``save``/``load``
-through the node store) is not part of this package yet.
+the persistent SHAMap makes both O(1). ``save`` persists both trees and
+the header into a NodeStore; ``load`` rebuilds a ledger from one
+eagerly (the lazy, out-of-core load is not part of this package yet).
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional
 
+from ..nodestore.core import Database, NodeObjectType
 from ..protocol.serializer import Serializer
 from ..protocol.sfields import (
     sfBalance,
@@ -40,7 +42,7 @@ __all__ = [
 
 def strip_ledger_prefix(body: bytes) -> bytes:
     """Drop the HP_LEDGER_MASTER domain prefix when present — stored
-    ledger-header blobs carry it, wire headers do not."""
+    ledger-header blobs carry it (save() below), wire headers do not."""
     if len(body) >= 4 and int.from_bytes(body[:4], "big") == HP_LEDGER_MASTER:
         return body[4:]
     return body
@@ -402,4 +404,86 @@ class Ledger:
         led.reserve_base = self.reserve_base
         led.reserve_increment = self.reserve_increment
         led.load_factor = self.load_factor
+        return led
+
+    # -- persistence ------------------------------------------------------
+
+    def save(self, db: Database) -> bytes:
+        """Persist both trees + the header into the NodeStore (reference:
+        consensus flushDirty + Ledger::pendSaveValidated; header stored as
+        hotLEDGER under the ledger hash). Uses the store's `flushed` set so
+        repeated saves only write the delta; node blobs come off the
+        shared flat-buffer encoding and are handed through the packed
+        door AS-IS — (hashes, buf, offsets), blob == hashed bytes — so
+        a log-structured backend lands the whole delta as one segment
+        append (other backends decode once inside the façade)."""
+        self.state_map.flush(
+            db.store_fn(NodeObjectType.ACCOUNT_NODE), db.flushed,
+            store_packed=db.store_packed_fn(NodeObjectType.ACCOUNT_NODE),
+        )
+        self.tx_map.flush(
+            db.store_fn(NodeObjectType.TRANSACTION_NODE), db.flushed,
+            store_packed=db.store_packed_fn(NodeObjectType.TRANSACTION_NODE),
+        )
+        h = self.hash()
+        # the header rides the same SYNCHRONOUS door as the trees: a
+        # header blob parked in the async write-behind queue when a
+        # caller commits its own records after save() returns would be
+        # lost by a crash — leaving a ledger whose root never resolves
+        blob = HP_LEDGER_MASTER.to_bytes(4, "big") + self.header_bytes()
+        db.store_packed(NodeObjectType.LEDGER, [h], blob, [0, len(blob)])
+        return h
+
+    @classmethod
+    def load(cls, db: Database, ledger_hash: bytes,
+             hash_batch: Optional[Callable] = None,
+             lazy: bool = False) -> "Ledger":
+        """Rebuild a ledger (header + both trees) from the NodeStore —
+        the checkpoint/resume path (reference: Application loadOldLedger,
+        Ledger::Ledger(blob) Ledger.cpp:120-175). Every node is fetched
+        and content-checked now (SHAMap.from_store), and the rebuilt
+        header must hash to `ledger_hash`. `lazy=True` (the out-of-core
+        load) is not part of this package and raises."""
+        if lazy:
+            raise NotImplementedError(
+                "lazy Ledger.load is not part of stellard_tpu_torch"
+            )
+        obj = db.fetch(ledger_hash)
+        if obj is None:
+            raise KeyError(f"missing ledger {ledger_hash.hex()}")
+        f = parse_header(strip_ledger_prefix(obj.data))
+
+        fetched: set[bytes] = set()
+
+        def fetch(h: bytes) -> Optional[bytes]:
+            o = db.fetch(h)
+            if o is not None:
+                fetched.add(h)
+            return o.data if o else None
+
+        kw: dict = {"hash_batch": hash_batch} if hash_batch else {}
+        led = cls(
+            seq=f["seq"],
+            parent_hash=f["parent_hash"],
+            tot_coins=f["tot_coins"],
+            fee_pool=f["fee_pool"],
+            inflation_seq=f["inflation_seq"],
+            close_time=f["close_time"],
+            parent_close_time=f["parent_close_time"],
+            close_resolution=f["close_resolution"],
+            close_flags=f["close_flags"],
+            tx_map=SHAMap.from_store(f["tx_hash"], fetch, TNType.TX_MD, **kw),
+            state_map=SHAMap.from_store(f["account_hash"], fetch,
+                                        TNType.ACCOUNT_STATE, **kw),
+        )
+        led.closed = True
+        if led.hash() != ledger_hash:
+            raise ValueError(
+                f"ledger hash mismatch after load: want {ledger_hash.hex()} "
+                f"got {led.hash().hex()}"
+            )
+        # only after the full tree verified do the fetched nodes count
+        # as known-good in this store (a corrupt node must stay
+        # rewritable)
+        db.flushed.update(fetched)
         return led

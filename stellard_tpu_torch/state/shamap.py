@@ -14,10 +14,13 @@ A persistent tree (every mutation returns a new root sharing unchanged
 subtrees) with deferred, level-synchronous hashing: mutations never
 hash; ``compute_hashes`` groups the unhashed nodes by depth and hands
 them to a batch hasher, or the whole tree to a hasher's ``hash_tree``
-(the device-resident seal, crypto.backend.CudaHasher). This is the
-in-memory part of the JAX package's state/shamap.py; out-of-core
-faulting, the node store and the wire formats are not part of this
-package.
+(the device-resident seal, crypto.backend.CudaHasher). Nodes persist
+to a NodeStore in the prefix format (``flush``; a blob is exactly the
+node's hashed bytes) and a tree is rebuilt from one eagerly
+(``from_store``, every node content-checked). This is the JAX package's
+state/shamap.py without its out-of-core plane: the lazy tree (``Stub``,
+``LazyInner``, ``NodeSource``) is not part of this package yet, and
+``from_store(lazy=True)`` raises.
 """
 
 from __future__ import annotations
@@ -31,12 +34,18 @@ from ..utils.hashes import (
     HP_TXN_ID,
     HP_TX_NODE,
     prefix_hash,
+    sha512_half,
 )
 
 __all__ = [
-    "TNType", "SHAMapItem", "SHAMap", "Leaf", "Inner", "encode_nodes",
-    "compute_hashes",
+    "TNType", "SHAMapItem", "SHAMap", "Leaf", "Inner", "MissingNodeError",
+    "encode_nodes", "compute_hashes", "inner_node_cache", "configure_inner_cache",
 ]
+
+
+class MissingNodeError(KeyError):
+    """A tree node could not be fetched from the store (the seam where
+    network acquisition hooks in)."""
 
 
 ZERO256 = b"\x00" * 32
@@ -57,6 +66,13 @@ _LEAF_PREFIX = {
     TNType.TX_MD: HP_TX_NODE,
     TNType.ACCOUNT_STATE: HP_LEAF_NODE,
 }
+
+# wire-format trailer bytes (reference addRaw: snfWIRE)
+_WIRE_TX_NM = 0
+_WIRE_STATE = 1
+_WIRE_INNER_FULL = 2
+_WIRE_INNER_COMPRESSED = 3
+_WIRE_TX_MD = 4
 
 
 class SHAMapItem:
@@ -434,12 +450,133 @@ def compute_hashes(root, hash_batch: Callable = _default_hasher) -> int:
     return n
 
 
+# --------------------------------------------------------------------------
+# node (de)serialization — NodeStore uses the prefix format, the wire
+# protocol the compressed format (reference addRaw/make from snfPREFIX /
+# snfWIRE)
+
+
+def serialize_node_prefix(node) -> bytes:
+    if isinstance(node, Inner):
+        out = HP_INNER_NODE.to_bytes(4, "big")
+        return out + b"".join(
+            (c._hash if c is not None else ZERO256) for c in node.children
+        )
+    prefix, payload = node.hash_payload()
+    return prefix.to_bytes(4, "big") + payload
+
+
+def serialize_node_wire(node) -> bytes:
+    if isinstance(node, Inner):
+        if node.branch_count() < 12:
+            out = b""
+            for i, c in enumerate(node.children):
+                if c is not None:
+                    out += c._hash + bytes([i])
+            return out + bytes([_WIRE_INNER_COMPRESSED])
+        return (
+            b"".join((c._hash if c is not None else ZERO256) for c in node.children)
+            + bytes([_WIRE_INNER_FULL])
+        )
+    item, t = node.item, node.type
+    if t == TNType.TX_NM:
+        return item.data + bytes([_WIRE_TX_NM])
+    trailer = _WIRE_STATE if t == TNType.ACCOUNT_STATE else _WIRE_TX_MD
+    return item.data + item.tag + bytes([trailer])
+
+
+# process-wide memo of deserialized-and-resolved inner nodes, keyed by
+# node hash (content-addressed, so sharing across stores and trees is
+# always sound): the HotNodeCache (state/hotcache.py). For the eager
+# from_store path a hit returns a whole resolved subtree in O(1); its
+# entries ride the cache's EAGER_ENTRY_CAP count bound.
+_INNER_CACHE = None
+
+
+def inner_node_cache():
+    global _INNER_CACHE
+    if _INNER_CACHE is None:
+        from .hotcache import HotNodeCache
+
+        _INNER_CACHE = HotNodeCache("shamap_inners")
+    return _INNER_CACHE
+
+
+def configure_inner_cache(cache_mb: int) -> None:
+    """Apply the `[tree] cache_mb` budget (node setup)."""
+    inner_node_cache().set_limit(max(1, int(cache_mb)) << 20)
+
+
+class InnerStub:
+    """Parse-time placeholder: an inner node known only by child hashes.
+    Resolved against a fetch source when the tree is materialized."""
+
+    __slots__ = ("child_hashes",)
+
+    def __init__(self, child_hashes: list[bytes]):
+        self.child_hashes = child_hashes
+
+
+def deserialize_node_prefix(blob: bytes):
+    """Parse a NodeStore/prefix-format node → Leaf | InnerStub
+    (reference: SHAMapTreeNode ctor, snfPREFIX arm)."""
+    if len(blob) < 4:
+        raise ValueError("short node blob")
+    prefix = int.from_bytes(blob[:4], "big")
+    body = blob[4:]
+    if prefix == HP_INNER_NODE:
+        if len(body) != 512:
+            raise ValueError(f"bad inner node length {len(body)}")
+        return InnerStub([body[i * 32 : (i + 1) * 32] for i in range(16)])
+    if prefix == HP_TXN_ID:
+        item = SHAMapItem(prefix_hash(HP_TXN_ID, body), body)
+        return Leaf(item, TNType.TX_NM)
+    if prefix == HP_TX_NODE:
+        item = SHAMapItem(body[-32:], body[:-32])
+        return Leaf(item, TNType.TX_MD)
+    if prefix == HP_LEAF_NODE:
+        item = SHAMapItem(body[-32:], body[:-32])
+        return Leaf(item, TNType.ACCOUNT_STATE)
+    raise ValueError(f"unknown node prefix {prefix:#x}")
+
+
+def deserialize_node_wire(blob: bytes):
+    """Parse a wire-format node (reference: SHAMapTreeNode ctor, snfWIRE)."""
+    if not blob:
+        raise ValueError("empty node blob")
+    trailer, body = blob[-1], blob[:-1]
+    if trailer == _WIRE_INNER_FULL:
+        if len(body) != 512:
+            raise ValueError("bad full inner length")
+        return InnerStub([body[i * 32 : (i + 1) * 32] for i in range(16)])
+    if trailer == _WIRE_INNER_COMPRESSED:
+        if len(body) % 33:
+            raise ValueError("bad compressed inner length")
+        hashes = [ZERO256] * 16
+        for i in range(0, len(body), 33):
+            branch = body[i + 32]
+            if branch >= 16:
+                raise ValueError(f"bad branch index {branch}")
+            hashes[branch] = body[i : i + 32]
+        return InnerStub(hashes)
+    if trailer == _WIRE_TX_NM:
+        return Leaf(SHAMapItem(prefix_hash(HP_TXN_ID, body), body), TNType.TX_NM)
+    if trailer == _WIRE_STATE:
+        return Leaf(SHAMapItem(body[-32:], body[:-32]), TNType.ACCOUNT_STATE)
+    if trailer == _WIRE_TX_MD:
+        return Leaf(SHAMapItem(body[-32:], body[:-32]), TNType.TX_MD)
+    raise ValueError(f"unknown wire trailer {trailer}")
+
+
+# --------------------------------------------------------------------------
+
+
 class SHAMap:
     """Mutable handle over a persistent radix tree.
 
-    Mirrors the in-memory part of the reference SHAMap surface
-    (src/ripple_app/shamap/SHAMap.h): add/update/del items, hash,
-    snapshot.
+    Mirrors the reference SHAMap surface (src/ripple_app/shamap/SHAMap.h):
+    add/update/del items, hash, snapshot, flush to a NodeStore, rebuild
+    from a NodeStore by root hash.
     """
 
     def __init__(self, leaf_type: TNType = TNType.ACCOUNT_STATE, root=None,
@@ -583,3 +720,144 @@ class SHAMap:
     def snapshot(self) -> "SHAMap":
         """O(1) immutable snapshot: share the persistent root."""
         return SHAMap(self.leaf_type, self.root, self.hash_batch)
+
+    # -- NodeStore integration -------------------------------------------
+
+    # encode-and-store chunk size: bounds the shared buffer so flushing
+    # a whole genesis tree never materializes the full serialization
+    FLUSH_CHUNK = 8192
+
+    def flush(self, store: Callable[[bytes, bytes], None],
+              known: Optional[set] = None,
+              store_many: Optional[Callable[[list], None]] = None,
+              store_packed: Optional[Callable] = None) -> int:
+        """Hash everything, then persist every node the target store does
+        not yet have, as (hash → prefix-format blob). Returns the number of
+        nodes written.
+
+        `known` is the per-store set of already-flushed hashes (e.g.
+        nodestore.Database.flushed); a hash in `known` seals its whole
+        subtree (flush adds bottom-up), so shared subtrees across ledger
+        versions are skipped and the write cost per close is proportional
+        to the delta, not total state. The set is per-store — flushing the
+        same tree into a second store writes everything again there
+        (the reference's flushDirty dirty-list behaves the same way).
+
+        The write set serializes through the flat-buffer node encoder
+        (the same encoding the hash plane consumes — a prefix-format
+        blob IS the hashed byte sequence). With `store_many` (a batch
+        sink, e.g. Database.store_many_fn) each chunk lands in the store
+        in one call; with `store_packed` (the flat-buffer sink,
+        Database.store_packed_fn) the encoded chunk is handed through
+        AS-IS — (hashes, buf, offsets) — which a log-structured backend
+        turns into one contiguous segment append.
+        """
+        self.get_hash()
+        if known is None:
+            known = set()
+        nodes: list = []
+
+        def visit(node):
+            if node is None or node._hash in known:
+                return
+            if isinstance(node, Inner):
+                for c in node.children:
+                    visit(c)
+            nodes.append(node)  # post-order: children land before parents
+
+        if not (isinstance(self.root, Inner) and self.root.is_empty()):
+            visit(self.root)
+        for start in range(0, len(nodes), self.FLUSH_CHUNK):
+            chunk = nodes[start : start + self.FLUSH_CHUNK]
+            buf, offsets = encode_nodes(chunk)
+            if store_packed is not None:
+                store_packed([node._hash for node in chunk], buf, offsets)
+            elif store_many is not None:
+                store_many([
+                    (node._hash, buf[offsets[i] : offsets[i + 1]])
+                    for i, node in enumerate(chunk)
+                ])
+            else:
+                for i, node in enumerate(chunk):
+                    store(node._hash, buf[offsets[i] : offsets[i + 1]])
+            # mark flushed only AFTER the store accepted the chunk: a
+            # failing store must leave the flush retryable, never a
+            # known-set claiming nodes the backend never saw
+            known.update(node._hash for node in chunk)
+        return len(nodes)
+
+    @classmethod
+    def from_store(
+        cls,
+        root_hash: bytes,
+        fetch: Callable[[bytes], Optional[bytes]],
+        leaf_type: TNType = TNType.ACCOUNT_STATE,
+        hash_batch: Callable = _default_hasher,
+        verify: bool = True,
+        use_cache: bool = True,
+        lazy: bool = False,
+    ) -> "SHAMap":
+        """Materialize a full tree from a content-addressed store
+        (reference: SHAMap fetchNodeExternal path). Raises
+        MissingNodeError (a KeyError) on a missing node and, with `verify`
+        (default), ValueError when a fetched blob does not hash to its key
+        (the reference verifies fetched nodes the same way, SHAMapTreeNode
+        ctor hashValid path).
+
+        With `use_cache` (default), resolved inner nodes memoize in the
+        process-wide `inner_node_cache()` keyed by node hash — a hit
+        returns a whole already-verified subtree, so materializing
+        successive ledgers of a chain re-parses only what the cache no
+        longer holds. Nodes are immutable + content-addressed, which is
+        what makes the sharing sound across stores and trees.
+
+        `lazy=True` (the out-of-core plane) is not part of this package
+        and raises."""
+        if lazy:
+            raise NotImplementedError(
+                "lazy SHAMap loading is not part of stellard_tpu_torch"
+            )
+        if root_hash == ZERO256:
+            return cls(leaf_type, EMPTY_INNER, hash_batch)
+        cache = inner_node_cache() if use_cache else None
+
+        def load(h: bytes):
+            if cache is not None:
+                hit = cache.get(h)
+                # only a whole resolved Inner may enter an eager tree (the
+                # cache is also the lazy plane's resident set, whose
+                # entries hold unresolved children)
+                if hit is not None and type(hit) is Inner:
+                    return hit
+            blob = fetch(h)
+            if blob is None:
+                raise MissingNodeError(f"missing node {h.hex()}")
+            node = deserialize_node_prefix(blob)
+            if verify:
+                # prefix-format blob == exactly the hashed bytes
+                actual = sha512_half(blob)
+                if actual != h:
+                    raise ValueError(
+                        f"node content hash mismatch: key {h.hex()[:16]} "
+                        f"content {actual.hex()[:16]}"
+                    )
+            if isinstance(node, InnerStub):
+                children = tuple(
+                    load(ch) if ch != ZERO256 else None for ch in node.child_hashes
+                )
+                node = Inner(children, hash=h)
+                if cache is not None:
+                    # eager: this entry pins its whole materialized
+                    # subtree, so it rides the EAGER_ENTRY_CAP count
+                    # bound, not the per-node byte budget
+                    cache.put(h, node, eager=True)
+            else:
+                node._hash = h
+            return node
+
+        root = load(root_hash)
+        if isinstance(root, Leaf):
+            children = [None] * 16
+            children[_nibble(root.item.tag, 0)] = root
+            root = Inner(tuple(children))
+        return cls(leaf_type, root, hash_batch)

@@ -15,8 +15,9 @@ cross-currency path payments and merges; then path searches pre-ranked on
 the path plane) goes on on the same chain, at a small size here.
 
 The full-size run (1,000,000 accounts, 4 closes x 4,096 payments, then
-the book phase's 4 closes and 64 path searches) is the `slow` test that
-recomputes chip_smoke.py's constants through the JAX package alone:
+the book phase's 4 closes and 64 path searches; the start ledger and the
+8 closed ledgers saved to a segstore as they close) is the `slow` test
+that recomputes chip_smoke.py's constants through the JAX package alone:
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_close.py -m slow -q -s
 """
@@ -71,15 +72,16 @@ def _jax_close(lm, entries, k: int) -> dict:
     open_ters = [(tx.txid(), lm.do_transaction(tx, mode)[0]) for tx in txs]
     ledger, results = lm.close_and_advance(cs.START_CLOSE_TIME + 30 * (k + 1), 30)
     return {
-        "seq": ledger.seq, "hash": ledger.hash().hex(),
+        "seq": ledger.seq, "hash": ledger.hash().hex(), "ledger": ledger,
         "digest": cs.results_digest(open_ters, results),
+        "close_digest": cs.close_results_digest(results),
         "verdicts": [tx.check_sign() for tx in txs],
         "open_ters": [int(t) for _, t in open_ters],
         "close_ters": {txid: int(t) for txid, t in results.items()},
     }
 
 
-def run_jax_closes(wl: dict, book=None) -> list[dict]:
+def run_jax_closes(wl: dict, book=None, on_ledger=None) -> list[dict]:
     """The JAX package's LedgerMaster (defaults: delta replay on, its
     default hasher, host verify in the engine) over the same blobs. With
     ``book`` = (book workload, prune floor), the book phase goes on on
@@ -87,22 +89,28 @@ def run_jax_closes(wl: dict, book=None) -> list[dict]:
     note_close, then its path searches as the JAX node's path_find door
     makes them (books_if_current, make_pre_rank with the host-routed
     evaluator) -> an extra last entry {"book": closes, "answers",
-    "paths_digest", "prune_batches"}."""
+    "paths_digest", "prune_batches"}. ``on_ledger`` is called with the
+    start ledger and then with each closed ledger, as it closes."""
     start = jax_start_ledger(wl["accounts"])
     lm = JaxLedgerMaster()
     lm.load_ledger(start)
-    out = [{"hash": start.hash().hex()}]
+    out = [{"hash": start.hash().hex(), "ledger": start}]
+    on_ledger = on_ledger or (lambda _ledger: None)
+    on_ledger(start)
     try:
         for k, entries in enumerate(wl["closes"]):
             out.append(_jax_close(lm, entries, k))
+            on_ledger(out[-1]["ledger"])
         if book is not None:
-            out.append(_jax_book(lm, *book, first_close=len(wl["closes"])))
+            out.append(_jax_book(lm, *book, first_close=len(wl["closes"]),
+                                 on_ledger=on_ledger))
     finally:
         lm.stop_seal_drainer()
     return out
 
 
-def _jax_book(lm, bwl: dict, prune_floor: int, first_close: int) -> dict:
+def _jax_book(lm, bwl: dict, prune_floor: int, first_close: int,
+              on_ledger=lambda _ledger: None) -> dict:
     from stellard_tpu.crypto.backend import make_path_evaluator as jax_evaluator
     from stellard_tpu.paths import find_paths as jax_find_paths
     from stellard_tpu.paths.plane import PathPlane as JaxPathPlane
@@ -112,6 +120,7 @@ def _jax_book(lm, bwl: dict, prune_floor: int, first_close: int) -> dict:
     closes = []
     for k, entries in enumerate(bwl["closes"]):
         closes.append(_jax_close(lm, entries, first_close + k))
+        on_ledger(closes[-1]["ledger"])
         plane.note_close(lm.closed_ledger())
     ledger = lm.closed_ledger()
     answers = [
@@ -252,17 +261,31 @@ def test_book_paths_equal_to_jax(small_book_runs):
 
 
 @pytest.mark.slow
-def test_chip_smoke_constants_through_the_jax_package():
-    """Recomputes chip_smoke.py's CLOSE_HASHES / CLOSE_DIGESTS and the
-    book phase's BOOK_HASHES / BOOK_DIGESTS / PATHS_DIGEST at full size
-    through the JAX package (its LedgerMaster, defaults; its PathPlane
-    with BOOK_PRUNE_FLOOR and the host-routed evaluator)."""
+def test_chip_smoke_constants_through_the_jax_package(tmp_path):
+    """Recomputes chip_smoke.py's CLOSE_HASHES / CLOSE_DIGESTS, the book
+    phase's BOOK_HASHES / BOOK_DIGESTS / PATHS_DIGEST and the replay
+    phase's CLOSE_RESULT_DIGESTS / BOOK_RESULT_DIGESTS / STORE_DIGEST /
+    SAVE_NODES at full size through the JAX package (its LedgerMaster,
+    defaults; its PathPlane with BOOK_PRUNE_FLOOR and the host-routed
+    evaluator; its segstore with its defaults, saving the start ledger
+    and each closed ledger as the chain closes)."""
+    from stellard_tpu.nodestore import make_database as jax_make_database
+
     wl = cs.close_workload(**cs.CLOSE_SIZES)
     bwl = cs.book_workload(wl, **cs.BOOK_SIZES)
-    jax = run_jax_closes(wl, book=(bwl, cs.BOOK_PRUNE_FLOOR))
+    db = jax_make_database(type="segstore", path=str(tmp_path / "store"))
+    saves = []
+    jax = run_jax_closes(wl, book=(bwl, cs.BOOK_PRUNE_FLOOR),
+                         on_ledger=lambda led: saves.append(cs.save_counted(led, db)))
     book = jax.pop()
+    records = list(cs.segstore_records(db.backend))
+    assert len(records) == db.backend.count() == sum(s["nodes"] for s in saves)
+    store = cs.store_digest(records), [s["nodes"] for s in saves]
+    db.close()
     got = [c["hash"] for c in jax[1:]], [c["digest"] for c in jax[1:]]
     got_book = [c["hash"] for c in book["book"]], [c["digest"] for c in book["book"]]
+    got_results = ([c["close_digest"] for c in jax[1:]],
+                   [c["close_digest"] for c in book["book"]])
     print("START_HASH =", jax[0]["hash"])
     print("CLOSE_HASHES =", got[0])
     print("CLOSE_DIGESTS =", got[1])
@@ -270,11 +293,17 @@ def test_chip_smoke_constants_through_the_jax_package():
     print("BOOK_DIGESTS =", got_book[1])
     print("PATHS_DIGEST =", book["paths_digest"])
     print("prune_batches =", book["prune_batches"])
+    print("CLOSE_RESULT_DIGESTS =", got_results[0])
+    print("BOOK_RESULT_DIGESTS =", got_results[1])
+    print("STORE_DIGEST =", store[0])
+    print("SAVE_NODES =", store[1])
     assert jax[0]["hash"] == cs.START_HASH
     assert got == (cs.CLOSE_HASHES, cs.CLOSE_DIGESTS)
     assert got_book == (cs.BOOK_HASHES, cs.BOOK_DIGESTS)
     assert book["paths_digest"] == cs.PATHS_DIGEST
     assert book["prune_batches"] > 0
+    assert got_results == (cs.CLOSE_RESULT_DIGESTS, cs.BOOK_RESULT_DIGESTS)
+    assert store == (cs.STORE_DIGEST, cs.SAVE_NODES)
 
 
 def test_genesis_chain_with_held_transactions_equal():

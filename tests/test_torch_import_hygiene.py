@@ -43,6 +43,12 @@ def test_every_module_imports_without_jax():
             "stellard_tpu_torch.paths.pathfinder", "stellard_tpu_torch.paths.orderbook",
             "stellard_tpu_torch.paths.quality", "stellard_tpu_torch.paths.plane",
             "stellard_tpu_torch.ops.pathq"} <= set(mods)
+    # and so is the persistence slice: the node store, its native loader,
+    # the eager node cache and the ledger tools
+    assert {"stellard_tpu_torch.nodestore", "stellard_tpu_torch.nodestore.core",
+            "stellard_tpu_torch.nodestore.backends", "stellard_tpu_torch.nodestore.segstore",
+            "stellard_tpu_torch.native", "stellard_tpu_torch.state.hotcache",
+            "stellard_tpu_torch.node.ledgertools"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"
@@ -79,3 +85,34 @@ def test_no_source_imports_jax_or_the_jax_package():
             if root in ("jax", "jaxlib", "stellard_tpu"):
                 offenders.append(f"{path.relative_to(REPO)}: {name}")
     assert offenders == []
+
+
+def test_native_loader_never_writes_under_native(tmp_path):
+    """The port builds native/src/nodestore.cc into its own build
+    directory and leaves native/ (sources, Makefile, the JAX package's
+    libraries) as it found it; loading it imports nothing of JAX."""
+    native = REPO / "native"
+    before = {p: (p.stat().st_size, p.stat().st_mtime_ns) for p in native.rglob("*")}
+    code = (
+        "import json, sys\n"
+        "from pathlib import Path\n"
+        f"sys.path.insert(0, {str(REPO)!r})\n"
+        "import stellard_tpu_torch.native as n\n"
+        f"n.BUILD_DIR = Path({str(tmp_path)!r})\n"
+        "lib = n.load_native()\n"
+        "from stellard_tpu_torch.nodestore import make_database\n"
+        f"db = make_database(type='segstore', path={str(tmp_path / 'ns')!r})\n"
+        "db.close()\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('stellard_tpu.')]\n"
+        "print(json.dumps([lib is not None, str(n.lib_path()), bad]))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, env=env, cwd=str(REPO))
+    assert r.returncode == 0, r.stderr[-2000:]
+    built, path, bad = json.loads(r.stdout.strip().splitlines()[-1])
+    assert bad == []
+    if built:
+        assert Path(path).parent == tmp_path and Path(path).exists()
+    after = {p: (p.stat().st_size, p.stat().st_mtime_ns) for p in native.rglob("*")}
+    assert after == before
