@@ -31,13 +31,24 @@ a close really has, and checks every result:
               Payments (~2% creating accounts, ~1% with a bad
               signature). Each close verifies its batch once on the
               verify plane (K1), applies every payment to the open
-              ledger and closes it (close_and_advance, both trees sealed
-              by CudaHasher: K2, K3). Every verdict and TER as expected,
-              no host signature check, K1 launched in every close, one
-              readback per sealed tree, and every ledger hash and
-              results digest equal to the JAX package's on the same
-              blobs (START_HASH, CLOSE_HASHES, CLOSE_DIGESTS; recomputed
-              by tests/test_torch_close.py's slow test:
+              ledger (each accept also speculated once in close mode)
+              and closes it as the JAX node does by default
+              (close_and_advance: the recorded deltas spliced, the
+              building tree pre-hashed between closes by the seal
+              drainer and adopted, both trees sealed by CudaHasher on
+              two threads beside the txdb rows: K2, K3), then persists
+              it through the close pipeline (ClosePipeline: the node
+              store, a file-backed txdb and a file-backed CLF, whose
+              first commit imports the whole resumed state). Every
+              verdict and TER as expected, no host signature check, K1
+              launched in every close, the drainer and both seal threads
+              launching K2/K3, no error absorbed by the close's helpers,
+              one readback per sealed tree, and every ledger hash and
+              results digest, every close's splice split and adoption
+              and its persisted txdb rows and CLF equal to the JAX
+              package's on the same blobs (START_HASH, CLOSE_HASHES,
+              CLOSE_DIGESTS, DELTAS, TXDB_DIGESTS, CLF_DIGESTS;
+              recomputed by tests/test_torch_close.py's slow test:
               JAX_PLATFORMS=cpu python -m pytest tests/test_torch_close.py -m slow -q -s).
               Then K1 against its plain version on a close's batch.
 6. book     — the order book on the same chain (BOOK_SIZES, BASELINE
@@ -49,20 +60,23 @@ a close really has, and checks every result:
               and 32 IOU/IOU markets, cancels, AccountSets signed with
               the regular key, cross-currency path payments, merges, ~1%
               bad signatures). Each close verified by K1, applied by the
-              port's transactors, sealed by K2/K3, and the path plane's
-              live book index advanced; then 64 path searches on the last
-              ledger, pre-ranked by K4 through PathPlane(evaluator=
-              make_path_evaluator(routing="device")) with the prune floor
-              BOOK_PRUNE_FLOOR. Every verdict as expected, every ledger
-              hash and results digest and the digest of the path answers
-              equal to the JAX package's (BOOK_HASHES, BOOK_DIGESTS,
-              PATHS_DIGEST, from the same slow test), no host signature
-              check, one readback per sealed tree, K1-K4 launched. Then
-              K4 against its plain version on every batch it ranked.
-              The start ledger and each of the 8 closed ledgers are
-              saved, as they close, to an on-disk segstore node store
-              (the JAX node's defaults), each save timed apart from its
-              close.
+              port's transactors, closed and persisted as in the close
+              phase, and the path plane's live book index advanced; then
+              the close pipeline is drained, and 64 path searches run
+              on the last ledger, pre-ranked by K4 through
+              PathPlane(evaluator=make_path_evaluator(routing="device"))
+              with the prune floor BOOK_PRUNE_FLOOR. Every verdict as
+              expected, every ledger hash and results digest, splice
+              split, adoption, persisted digest and the digest of the
+              path answers equal to the JAX package's (BOOK_HASHES,
+              BOOK_DIGESTS, PATHS_DIGEST, from the same slow test), no
+              host signature check, one readback per sealed tree, K1-K4
+              launched. Then K4 against its plain version on every batch
+              it ranked. The start ledger is saved to an on-disk segstore
+              node store (the JAX node's defaults) before the first
+              close, each of the 8 closed ledgers by the close
+              pipeline's node-store stage; the close_pipeline line gives
+              each ledger's stage times.
 7. times    — every kernel against its plain version again, exactly, at
               the shapes the main path gave it: K1 on both flood
               chunks, K2 on every leaf of the
@@ -89,28 +103,32 @@ a close really has, and checks every result:
               CudaHasher (K2, K3). Every real ledger's replayed hash and
               closed results equal to its close's and to the JAX
               package's (CLOSE_RESULT_DIGESTS, BOOK_RESULT_DIGESTS), no
-              host signature check, no node hashed on the host but the
-              ones its close did (leaves too long for K2's block
-              ladder), one readback per sealed tree; K1 rejects exactly
+              host signature check, no node hashed on the host but
+              leaves too long for K2's block ladder and empty inner
+              nodes, one readback per sealed tree; K1 rejects exactly
               the forged lane and the forged ledger alone fails. The
               span is cut from the 8 saved ledgers to 3 to fit the time
               limit (PERF.md §4). The store is removed at the end.
 
 Launch counts are zeroed just before phases 3-4 and read just after, and
 again around phase 5, around phase 6 and around phase 8's replay; the
-kernels line shows the sum, the launches of the main path alone. Any
+kernels line shows the sum, the launches of the main path alone, and
+for K2 and K3 the close and book phases' launches by who made them (the
+seal drainer, the two seal threads, the closing thread). Any
 failed check exits non-zero without the final line. Without a CUDA device, or without the package
 beside it, the script exits non-zero at once.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import hashlib
 import json
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -402,6 +420,21 @@ def seal_both(m, cuda_hasher, cpu_hasher) -> dict:
             "hashlib_seal_ms": t_cpu * 1e3}
 
 
+def launches_by_role(*phases) -> dict:
+    """K2's and K3's launches in the close and book phases (each a
+    treehash.launches_by_thread), by who launched them: the seal drainer,
+    the close's two seal threads, or the closing thread itself."""
+    out = {k: {"drainer": 0, "seal": 0, "close_thread": 0}
+           for k in ("sha512_masked", "tree_inner_level")}
+    for by_thread in phases:
+        for name, per in by_thread.items():
+            role = ("drainer" if name == "seal-drain" else
+                    "seal" if name.startswith("seal-hash-") else "close_thread")
+            for k, n in per.items():
+                out[k][role] += n
+    return out
+
+
 def widest_inner_level(root):
     """The inner nodes of the depth with the most of them, in a sealed
     tree."""
@@ -651,17 +684,158 @@ class GcClock:
             self._t0 = None
 
 
+class StageClock:
+    """A tracer for the close pipeline that keeps the ms of each
+    ``persist.*`` span by ledger sequence (the pipeline's own stage
+    clock); it records no spans of its own."""
+
+    enabled = False
+
+    def __init__(self):
+        self.ms: dict[int, dict[str, float]] = {}
+        self._lock = threading.Lock()
+
+    def complete(self, name: str, _cat: str, t0: float, t1: float, seq=None, **_attrs):
+        if name.startswith("persist.") and seq is not None:
+            with self._lock:
+                self.ms.setdefault(seq, {})[name[len("persist."):]] = (t1 - t0) * 1e3
+
+    def span(self, *_a, **_kw):
+        return contextlib.nullcontext()
+
+    def instant(self, *_a, **_kw) -> None:
+        pass
+
+    def sampled(self, _txid) -> bool:
+        return False
+
+
+def txdb_digest(txdb, seq: int) -> str:
+    """SHA-256 over one ledger's txdb rows (either package's
+    TxDatabase): its Ledgers header row, its Transactions rows and its
+    AccountTransactions rows, each table in key order."""
+    h = hashlib.sha256()
+    with txdb._lock:
+        for sql in (
+            "SELECT * FROM Ledgers WHERE LedgerSeq = ? ORDER BY LedgerHash",
+            "SELECT * FROM Transactions WHERE LedgerSeq = ? ORDER BY TransID",
+            "SELECT * FROM AccountTransactions WHERE LedgerSeq = ? "
+            "ORDER BY TransID, Account, TxnSeq",
+        ):
+            rows = txdb._conn.execute(sql, (seq,)).fetchall()
+            h.update(len(rows).to_bytes(4, "big"))
+            for row in rows:
+                h.update(repr(row).encode())
+    return h.hexdigest()
+
+
+def clf_digest(clf) -> str:
+    """SHA-256 over a CLF mirror (either package's CLFMirror): its
+    StoreState (the LCL hash and header) and its accounts, trustlines
+    and offers tables, each in key order."""
+    h = hashlib.sha256()
+    for sql in ("SELECT * FROM StoreState ORDER BY StateName",
+                "SELECT * FROM accounts ORDER BY account_id",
+                "SELECT * FROM trustlines ORDER BY index_hex",
+                "SELECT * FROM offers ORDER BY index_hex"):
+        rows = clf.db.query(sql)
+        h.update(len(rows).to_bytes(4, "big"))
+        for row in rows:
+            h.update(repr(row).encode())
+    return h.hexdigest()
+
+
+def close_delta(lm, before: dict) -> dict:
+    """What one close of either package's LedgerMaster did with its
+    speculation: the spliced / fallback / invalidated counts (from the
+    snapshot ``before`` it of ``lm.delta_stats``) and the incremental
+    seal's adoption outcome ("none" when the close had no speculation)."""
+    after = lm.delta_stats.snapshot()
+    out = {k: after[k] - before.get(k, 0) for k in ("spliced", "fallback", "invalidated")}
+    out["seal_adopt"] = (lm.last_close.get("seal_adopt")
+                         if after["closes"] > before.get("closes", 0) else "none")
+    return out
+
+
+class ChainPersist:
+    """The JAX node's persistence of its closes (its node/node.py wiring
+    of ``persist_prep`` and the close pipeline) around either package's
+    classes: ``lm.persist_prep`` builds the txdb rows beside the threaded
+    seal, and every closed ledger goes through a ``pipeline_cls`` whose
+    stages are ``save_stage`` (the node store), the txdb (header and rows
+    in one transaction) and the CLF commit against its parent. After
+    each ledger is persisted, its txdb rows and the whole CLF are
+    digested on the pipeline's worker (``digests``, by sequence)."""
+
+    def __init__(self, lm, pipeline_cls, txdb, clf, build_tx_rows, results_from_meta,
+                 save_stage, depth: int = 8):
+        self.lm, self.txdb, self.clf = lm, txdb, clf
+        self.digests: dict[int, dict] = {}
+        self._landed = threading.Condition()
+        self._submitted = self._failed = 0
+        self.clock = StageClock()
+        lm.persist_prep = build_tx_rows
+
+        def txdb_stage(ledger, results):
+            rows = getattr(ledger, "persist_rows", None)
+            if rows is None:
+                rows = build_tx_rows(ledger, results)
+            else:
+                ledger.persist_rows = None
+            txdb.save_ledger(ledger, rows)
+
+        def clf_stage(ledger):
+            clf.commit_ledger_close(ledger, lm.get_ledger_by_hash(ledger.parent_hash))
+
+        self.pipeline = pipeline_cls(
+            save_stage=save_stage, txdb_stage=txdb_stage, clf_stage=clf_stage,
+            recover_results=results_from_meta, depth=depth, tracer=self.clock)
+
+    def submit(self, ledger, results) -> None:
+        seq = ledger.seq
+        self._submitted += 1
+
+        def done(_results):
+            dg = {"txdb": txdb_digest(self.txdb, seq), "clf": clf_digest(self.clf)}
+            with self._landed:
+                self.digests[seq] = dg
+                self._landed.notify_all()
+
+        def failed():
+            with self._landed:
+                self._failed += 1
+                self._landed.notify_all()
+
+        self.pipeline.submit_close(ledger, results, done=done, on_failed=failed)
+
+    def flush(self) -> None:
+        """Wait until every ledger submitted so far is persisted and
+        digested (the pipeline's ``done`` runs after its own flush
+        returns) or has failed."""
+        require(self.pipeline.flush(timeout=3600), "the close pipeline did not drain")
+        with self._landed:
+            require(self._landed.wait_for(
+                lambda: len(self.digests) + self._failed >= self._submitted, timeout=3600),
+                "a persisted ledger was never digested")
+
+    def stop(self) -> None:
+        """Drain the pipeline (every queued ledger persisted first) and
+        stop its worker."""
+        self.flush()
+        require(self.pipeline.stop(timeout=3600), "the close pipeline did not stop")
+
+
 def run_closes(wl: dict, hash_batch, verify_many, on_close=None,
-               on_start=None) -> tuple[list[dict], dict]:
+               on_start=None, setup=None) -> tuple[list[dict], dict]:
     """The port's standalone node over the workload: the start ledger
-    through LedgerMaster.load_ledger (then ``on_start(start)``), then per
-    close one batched verify of its transactions (node/ledgertools.
-    _reverify_memoized, verdicts memoized and flagged SF_SIGGOOD),
-    do_transaction on each in OPEN_LEDGER|RETRY mode and
-    close_and_advance (then ``on_close(k, ledger)``). Returns per close
-    the ledger hash, the results digest, the verdicts, the TERs and
-    times, and the node (``lm``, ``router``) for the book phase to go on
-    with."""
+    through LedgerMaster.load_ledger (then ``on_start(start)`` and
+    ``setup(lm)``), then per close one batched verify of its
+    transactions (node/ledgertools._reverify_memoized, verdicts memoized
+    and flagged SF_SIGGOOD), do_transaction on each in OPEN_LEDGER|RETRY
+    mode and close_and_advance (then ``on_close(k, ledger, results)``).
+    Returns per close the ledger hash, the results digest, the verdicts,
+    the TERs, what the delta replay did and the times, and the node
+    (``lm``, ``router``) for the book phase to go on with."""
     from stellard_tpu_torch.engine.engine import TxParams
     from stellard_tpu_torch.interop import ledger_from_items
     from stellard_tpu_torch.node.hashrouter import HashRouter
@@ -679,14 +853,17 @@ def run_closes(wl: dict, hash_batch, verify_many, on_close=None,
             "hash": start.hash().hex()}]
     if on_start is not None:
         on_start(start)
+    if setup is not None:
+        setup(lm)
     mode = TxParams.OPEN_LEDGER | TxParams.RETRY
     gc_clock = GcClock()
     gc.callbacks.append(gc_clock)
     try:
         for k, entries in enumerate(wl["closes"]):
-            out.append(_one_close(lm, router, verify_many, entries, k, mode, gc_clock))
+            rec = _one_close(lm, router, verify_many, entries, k, mode, gc_clock)
+            out.append(rec)
             if on_close is not None:
-                on_close(k, lm.closed_ledger())
+                on_close(k, lm.closed_ledger(), rec["results"])
     finally:
         gc.callbacks.remove(gc_clock)
     return out, {"lm": lm, "router": router}
@@ -704,17 +881,20 @@ def _one_close(lm, router, verify_many, entries, k: int, mode, gc_clock) -> dict
     tb = time.perf_counter()
     open_ters = [(tx.txid(), lm.do_transaction(tx, mode)[0]) for tx in txs]
     tc = time.perf_counter()
+    before = lm.delta_stats.snapshot()
     ledger, results = lm.close_and_advance(START_CLOSE_TIME + 30 * (k + 1), 30)
     td = time.perf_counter()
     last = lm.last_close
     return {
-        "seq": ledger.seq, "hash": ledger.hash().hex(),
+        "seq": ledger.seq, "hash": ledger.hash().hex(), "results": results,
         "digest": results_digest(open_ters, results),
         "close_digest": close_results_digest(results),
+        "delta": close_delta(lm, before),
         "verdicts": verdicts, "open_ters": [int(t) for _, t in open_ters],
         "close_ters": {txid: int(t) for txid, t in results.items()},
         "wall_ms": (td - ta) * 1e3, "parse_verify_ms": (tb - ta) * 1e3,
         "apply_ms": (tc - tb) * 1e3, "close_ms": (td - tc) * 1e3,
+        "close_apply_ms": last["apply_ms"], "close_seal_ms": last["seal_ms"],
         "seal_tx_ms": last["seal_tx_ms"], "seal_tx_nodes": last["seal_tx_nodes"],
         "seal_state_ms": last["seal_state_ms"],
         "seal_state_nodes": last["seal_state_nodes"],
@@ -964,7 +1144,7 @@ def run_book(node: dict, bwl: dict, verify_many, plane, first_close: int,
             rec["index_ms"] = (time.perf_counter() - t1) * 1e3
             closes.append(rec)
             if on_close is not None:
-                on_close(k, lm.closed_ledger())
+                on_close(k, lm.closed_ledger(), rec["results"])
         ledger = lm.closed_ledger()
         candidates = []
         pre_rank = plane.make_pre_rank(ledger)
@@ -1138,6 +1318,7 @@ def run(dev) -> None:
     # 6. the book phase on the same chain, counted on its own -----------------
     book = book_phase(dev, name_power, close, saver)
     close_launches, close_k1_err = close["launches"], close["k1_max_abs_err"]
+    roles = launches_by_role(close["by_thread"], book["by_thread"])
     close_digests = close["close_digests"] + book["close_digests"]
     del close
 
@@ -1292,14 +1473,14 @@ def run(dev) -> None:
         dict(name="sha512_masked", route="cuda",
              source="stellard_tpu_torch/csrc/sha512.cu",
              replaces="stellard_tpu/ops/treehash_jax.py:49",
-             launches=main_launches("sha512_masked"),
+             launches=main_launches("sha512_masked"), launches_by_role=roles["sha512_masked"],
              max_abs_err=k2_err,
              ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=k2_b, bound_by=k2_by,
              library_ms=None),
         dict(name="tree_inner_level", route="cuda",
              source="stellard_tpu_torch/csrc/sha512.cu",
              replaces="stellard_tpu/parallel/mesh.py:149",
-             launches=main_launches("tree_inner_level"),
+             launches=main_launches("tree_inner_level"), launches_by_role=roles["tree_inner_level"],
              max_abs_err=k3_err,
              ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=k3_b, bound_by=k3_by,
              library_ms=None),
@@ -1317,14 +1498,18 @@ def run(dev) -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def close_phase(dev, name_power: str, saver=None) -> dict:
+def close_phase(dev, name_power: str, saver) -> dict:
     """The standalone node under a payment flood (CLOSE_SIZES): 4 closes
     of 4,096 signed Payments over 1,000,000 AccountRoots, each close one
     batched verify on the card (K1), the transactor engine's open apply
-    and close, and both trees sealed by CudaHasher (K2, K3). Every
-    verdict, TER, ledger hash and results digest is checked; the launch
-    counts are this phase's alone. A ``saver`` (ChainSaver) saves the
-    start ledger and each closed ledger, outside the closes' walls."""
+    and speculation, and the JAX node's default close: the recorded
+    deltas spliced, the building tree pre-hashed by the seal drainer
+    and adopted, both trees sealed by CudaHasher on two threads (K2,
+    K3) beside the txdb rows, then persisted through the close pipeline
+    (``saver``, a ChainSaver: node store, txdb, CLF). Every verdict, TER,
+    ledger hash, results digest, splice count, adoption and persisted
+    digest is checked; the launch counts are this phase's alone. The
+    start ledger is saved to the node store before the closes."""
     import numpy as np
 
     from stellard_tpu_torch.crypto.backend import CudaHasher
@@ -1342,24 +1527,28 @@ def close_phase(dev, name_power: str, saver=None) -> dict:
     plane = VerifyPlane(backend="cuda", routing="device", backend_opts={"device": dev})
     k1_per_close = []
 
-    def on_close(k, ledger):
+    def on_close(k, ledger, results):
         k1_per_close.append(ed25519_cuda.launches)
-        if saver is not None:
-            saver(k, ledger)
+        saver.persist.submit(ledger, results)
 
     ed25519_cuda.launches = 0
-    for k in treehash.launches:
-        treehash.launches[k] = 0
+    treehash.reset_launches()
     keys.host_verifies = 0
+    nodes0 = hasher.device_nodes
     try:
         t0 = time.perf_counter()
         out, node = run_closes(wl, hasher, plane.verify_many, on_close,
-                               on_start=None if saver is None else lambda led: saver(-1, led))
+                               on_start=saver.save, setup=saver.attach)
         closes_s = time.perf_counter() - t0
     finally:
         plane.stop()
     launches = {"ed25519_verify": ed25519_cuda.launches, **treehash.launches}
+    by_thread = {k: dict(v) for k, v in treehash.launches_by_thread.items()}
     host_verifies = keys.host_verifies
+    tree = node["lm"].tree_json()
+    t0 = time.perf_counter()
+    saver.persist.flush()
+    flush_ms = (time.perf_counter() - t0) * 1e3
 
     start, closes = out[0], out[1:]
     pj = plane.get_json()
@@ -1377,6 +1566,7 @@ def close_phase(dev, name_power: str, saver=None) -> dict:
                 f"differs from the JAX package's {CLOSE_HASHES[k]}")
         require(c["digest"] == CLOSE_DIGESTS[k], f"close {k}: results digest differs")
     require(start["hash"] == START_HASH, "start ledger hash differs from the JAX package's")
+    check_default_close(closes, 0, saver, "close phase")
     require(host_verifies == 0, f"{host_verifies} host signature verifications on the close path")
     require(pj["device_share"] == 1.0, f"close phase device share {pj['device_share']}")
     require(all(b - a >= 1 for a, b in zip([0] + k1_per_close, k1_per_close)),
@@ -1386,6 +1576,7 @@ def close_phase(dev, name_power: str, saver=None) -> dict:
             f"{hasher.tree_calls}")
     require(launches["sha512_masked"] > 0 and launches["tree_inner_level"] > 0,
             "K2 or K3 never launched in the close phase")
+    check_seal_threads(tree, {}, by_thread, hasher.device_nodes - nodes0, "close phase")
 
     # K1 against its plain version at the shape the close gave it (one
     # close's batch, outside the counted run)
@@ -1403,22 +1594,22 @@ def close_phase(dev, name_power: str, saver=None) -> dict:
         "senders": CLOSE_SIZES["n_senders"], "closes": len(closes), "payments": n_pay,
         "payments_per_s": n_pay / sum(c["wall_ms"] for c in closes) * 1e3,
         "inputs_s": inputs_s, "build_state_ms": start["build_state_ms"],
-        "load_ms": start["load_ms"], "phase_s": closes_s,
-        "per_close": [{key: c[key] for key in (
-            "seq", "wall_ms", "parse_verify_ms", "apply_ms", "close_ms", "seal_state_ms",
-            "seal_state_nodes", "seal_tx_ms", "seal_tx_nodes", "gc_ms",
-            "gc_full_collections")} for c in closes],
+        "load_ms": start["load_ms"], "phase_s": closes_s, "pipeline_flush_ms": flush_ms,
+        "per_close": [{key: c[key] for key in PER_CLOSE_KEYS} for c in closes],
         "kinds": {kd: sum(kind == kd for c in wl["closes"] for _b, kind, _g in c)
                   for kd in ("existing", "new_account", "bad_sig")},
         "hashes_equal_jax": True, "host_verifies": host_verifies,
         "device_share": pj["device_share"], "device_batches": pj["device_batches"],
         "tree_calls": hasher.tree_calls, "readbacks": tt.readbacks,
         "k1_launches_per_close": np.diff([0] + k1_per_close).tolist(),
-        "launches": launches,
+        "launches": launches, "launches_by_thread": by_thread,
     }
     emit("close", **summary)
-    return {"launches": launches, "k1_max_abs_err": k1_err, "wl": wl, "node": node,
-            "hasher": hasher, "close_digests": [c["close_digest"] for c in closes]}
+    emit("delta", of="close", per_close=[dict(c["delta"], seq=c["seq"]) for c in closes],
+         tree=tree)
+    return {"launches": launches, "by_thread": by_thread, "k1_max_abs_err": k1_err,
+            "wl": wl, "node": node, "hasher": hasher,
+            "close_digests": [c["close_digest"] for c in closes]}
 
 
 # the book phase's sizes (BASELINE configs #2 and #3 on the close phase's
@@ -1465,6 +1656,102 @@ STORE_DIGEST = "c64a11c53559b9db4008fe73165a5c32c62465fba9a3c7f088ef4bf863834252
 SAVE_NODES = [1359552, 30294, 30126, 30351, 30238, 32564, 19245, 35487, 37569]
 
 
+# the default close of the 8 closes (the close phase's 4, then the book
+# phase's 4), as the JAX package's closes them on the same blobs with its
+# node's persistence (the same slow test): per close the delta replay's
+# (spliced, fallback, invalidated, incremental-seal adoption), and the
+# digests of its txdb rows and of the whole CLF once it is persisted
+DELTAS = [
+    [4008, 39, 39, "adopted"],
+    [4007, 28, 28, "adopted"],
+    [4020, 26, 26, "adopted"],
+    [4010, 40, 40, "adopted"],
+    [4, 5120, 5120, "rejected"],
+    [28, 4068, 4068, "adopted"],
+    [60, 3995, 4196, "rejected"],
+    [132, 3919, 4126, "rejected"],
+]
+TXDB_DIGESTS = [
+    "b8b24df7544a4dde64a0cf134d2841f9ec522feb0cf9d2935918f919c51b187d",
+    "9496fb3723f4a2d0d99dba309cf22730eb62017f093cdf341756cfedcde62f21",
+    "b9473ca1da31ed3d446dd55b7a24d28c6d70fd6a6c24d145643c48e8f18c2cf4",
+    "9a8cdff97a610246e254c6a01eb79fa9f317600837e134f5ff305e553b704982",
+    "9b22a4cf11a9443f30796bca98c31de251efd5828d07e7529ce6738ccf5bf750",
+    "4e3d5c39a887c80b8516526aa8c65dc953aa0ecb77891668f92c137d86c4aaf1",
+    "a7997080fad6c3fd03c252e200389ba2102577792c835315f7816d8095c979c4",
+    "6d3d0e209e3384cd2e848517674a57b5125a9fee1a5a688900d8c0b231e5de04",
+]
+CLF_DIGESTS = [
+    "c569572d058d8402fbd174385418ea53aa48a531b018d3c54a8b5f3d51c8f896",
+    "f5fc1200fe9469d5cac61dc26d1ea04b3396b1d8470c125cf0064a1721ebd18e",
+    "e78fdd667a1a8b4ef50cd0bb02903710324e2783914ef999ddf2cf5f37d232b5",
+    "6ff16e31d558db86f0140d093751943731c6a1aecb4e8971b4746cb2a3eb286e",
+    "e446a6f43683b4e8f738107c0b3cf823e42ece87085f77b22f4aac625c83d5a5",
+    "d7b08274793b212c1f15a77ae4617c7a669ac08073a66805628406814d76f2f5",
+    "9bc9b82a9ebbd40e37b15bc376a42163be386707d1fcceaa24a38e58cc82b82d",
+    "aef9284b8cff4f0877d4de6a4213f91d1e21aaf9fe6c8f0e8165fd35b91739d9",
+]
+# what one close records of itself, in the close and book lines
+PER_CLOSE_KEYS = ("seq", "wall_ms", "parse_verify_ms", "apply_ms", "close_ms",
+                  "close_apply_ms", "close_seal_ms", "seal_state_ms", "seal_state_nodes",
+                  "seal_tx_ms", "seal_tx_nodes", "gc_ms", "gc_full_collections")
+# errors the default close's helpers (drainer, seal threads, persist rows,
+# fold, speculation, adoption) counted and absorbed: each must stay 0
+ABSORBED = ("drain_errors", "seal_thread_errors", "persist_prep_errors", "fold_errors",
+            "spec_errors", "adopt_errors")
+
+
+def check_default_close(closes: list, first: int, saver, what: str) -> None:
+    """Each close's splice split and adoption, and its persisted txdb
+    rows and CLF, equal to the JAX package's (closes[i] is close
+    first + i of the 8)."""
+    for i, c in enumerate(closes):
+        k = first + i
+        d = c["delta"]
+        got = [d["spliced"], d["fallback"], d["invalidated"], d["seal_adopt"]]
+        require(got == DELTAS[k], f"{what}, close {c['seq']}: delta replay {got} differs "
+                f"from the JAX package's {DELTAS[k]}")
+        dg = saver.persist.digests.get(c["seq"])
+        require(dg is not None, f"{what}, close {c['seq']}: not persisted")
+        require(dg["txdb"] == TXDB_DIGESTS[k], f"{what}, close {c['seq']}: txdb rows differ "
+                "from the JAX package's")
+        require(dg["clf"] == CLF_DIGESTS[k], f"{what}, close {c['seq']}: CLF differs from "
+                "the JAX package's")
+
+
+def check_seal_threads(tree: dict, tree0: dict, by_thread: dict, device_nodes: int,
+                       what: str) -> None:
+    """The drainer pre-hashed on the card and the seal ran on its two
+    threads on the card, and no helper absorbed an error, over a phase
+    (``tree``, ``tree0``: LedgerMaster.tree_json after and before it;
+    ``by_thread``: treehash.launches_by_thread of the phase)."""
+    grew = {k: tree[k] - tree0.get(k, 0) for k in ("drains", "drained_nodes") + ABSORBED}
+    require(grew["drains"] >= 1, f"{what}: the seal drainer never ran")
+    require(all(grew[k] == 0 for k in ABSORBED),
+            f"{what}: errors absorbed by the close's helpers {grew}")
+    drainer = sum(by_thread.get("seal-drain", {}).values())
+    seal = sum(n for name, per in by_thread.items() if name.startswith("seal-hash-")
+               for n in per.values())
+    require(drainer >= 1, f"{what}: the drainer launched no K2/K3 on the card")
+    require(seal >= 1, f"{what}: the seal threads launched no K2/K3 on the card")
+    require(device_nodes > 0, f"{what}: no node hashed on the card")
+
+
+def host_only_nodes(root) -> int:
+    """The nodes of a tree's unhashed set that K2/K3 do not take: leaves
+    whose message needs more SHA-512 blocks than K2's ladder's largest,
+    and inner nodes with no child."""
+    from stellard_tpu_torch.ops.treehash import LEAF_BLOCK_LADDER
+    from stellard_tpu_torch.state.shamap import Inner, _collect_unhashed, encode_nodes
+
+    nodes = [node for level in _collect_unhashed(root) for node in level]
+    leaves = [node for node in nodes if not isinstance(node, Inner)]
+    empty = sum(1 for node in nodes if isinstance(node, Inner) and not any(node.children))
+    _buf, off = encode_nodes(leaves)
+    blocks = [(b - a + 17 + 127) // 128 for a, b in zip(off, off[1:])]
+    return empty + sum(1 for nb in blocks if nb > LEAF_BLOCK_LADDER[-1])
+
+
 def _expect_open_ters(entries) -> list[int]:
     """In an open ledger every well-signed transaction of the book phase
     passes its checks; a corrupted signature answers temINVALID."""
@@ -1474,18 +1761,21 @@ def _expect_open_ters(entries) -> list[int]:
             for _b, kind, _g in entries]
 
 
-def book_phase(dev, name_power: str, close: dict, saver=None) -> dict:
+def book_phase(dev, name_power: str, close: dict, saver) -> dict:
     """The order book on the close phase's chain (BOOK_SIZES): four
     closes of book_workload — every signature verified on the card (K1),
-    every transaction applied by the port's transactors, both trees
-    sealed by CudaHasher (K2, K3), the path plane's live book index
-    advanced after each — then the path searches on the last ledger,
-    pre-ranked by K4 through PathPlane(evaluator=make_path_evaluator(
-    routing="device")). Every verdict, ledger hash, results digest and
-    the digest of the path answers is checked against the JAX package's;
-    the launch counts are this phase's alone. Then K4 against its plain
-    version on every batch the plane gave it. A ``saver`` saves each
-    closed ledger, outside the closes' walls."""
+    every transaction applied by the port's transactors and closed by
+    the default close (splices, the drainer's pre-hash, both trees
+    sealed by CudaHasher on two threads: K2, K3), persisted through the
+    close pipeline, the path plane's live book index advanced after each
+    — then the path searches on the last ledger, pre-ranked by K4
+    through PathPlane(evaluator=make_path_evaluator(routing="device")).
+    Every verdict, ledger hash, results digest, splice count, adoption,
+    persisted digest and the digest of the path answers is checked
+    against the JAX package's; the launch counts are this phase's alone.
+    The pipeline is drained after the last close, before the searches,
+    and stopped after them; then K4 is held against its plain version on
+    every batch the plane gave it."""
     import numpy as np
     import torch
 
@@ -1499,7 +1789,9 @@ def book_phase(dev, name_power: str, close: dict, saver=None) -> dict:
     bwl = book_workload(close["wl"], **BOOK_SIZES)
     inputs_s = time.perf_counter() - t0
     hasher = close["hasher"]
+    lm = close["node"]["lm"]
     calls0, readbacks0 = hasher.tree_calls, hasher.tree_transfers.readbacks
+    nodes0, tree0 = hasher.device_nodes, lm.tree_json()
     plane = VerifyPlane(backend="cuda", routing="device", backend_opts={"device": dev})
     batches = []
 
@@ -1516,16 +1808,23 @@ def book_phase(dev, name_power: str, close: dict, saver=None) -> dict:
 
     ed25519_cuda.launches = 0
     pathq.launches = 0
-    for k in treehash.launches:
-        treehash.launches[k] = 0
+    treehash.reset_launches()
     keys.host_verifies = 0
+
+    drain_ms = []
+
+    def on_close(k, ledger, results):
+        k1_per_close.append(ed25519_cuda.launches)
+        saver.persist.submit(ledger, results)
+        if k == len(bwl["closes"]) - 1:
+            # the last close: the pipeline drains before the path searches,
+            # whose Python would otherwise hold the GIL the worker waits on
+            t = time.perf_counter()
+            saver.persist.flush()
+            drain_ms.append((time.perf_counter() - t) * 1e3)
+
     try:
         t0 = time.perf_counter()
-        def on_close(k, ledger):
-            k1_per_close.append(ed25519_cuda.launches)
-            if saver is not None:
-                saver(len(CLOSE_HASHES) + k, ledger)
-
         res = run_book(close["node"], bwl, plane.verify_many, paths,
                        first_close=len(CLOSE_HASHES), on_close=on_close)
         phase_s = time.perf_counter() - t0
@@ -1533,7 +1832,13 @@ def book_phase(dev, name_power: str, close: dict, saver=None) -> dict:
         plane.stop()
     launches = {"ed25519_verify": ed25519_cuda.launches, **treehash.launches,
                 "path_quality": pathq.launches}
+    by_thread = {k: dict(v) for k, v in treehash.launches_by_thread.items()}
     host_verifies = keys.host_verifies
+    tree = lm.tree_json()
+    t0 = time.perf_counter()
+    saver.persist.stop()
+    lm.stop_seal_drainer()
+    stop_ms = (time.perf_counter() - t0) * 1e3
 
     pj, pp, ev = plane.get_json(), paths.get_json(), evaluator.get_json()
     for k, (c, entries) in enumerate(zip(res["closes"], bwl["closes"])):
@@ -1543,6 +1848,13 @@ def book_phase(dev, name_power: str, close: dict, saver=None) -> dict:
         require(c["hash"] == BOOK_HASHES[k], f"book close {k}: ledger hash {c['hash']} "
                 f"differs from the JAX package's {BOOK_HASHES[k]}")
         require(c["digest"] == BOOK_DIGESTS[k], f"book close {k}: results digest differs")
+    check_default_close(res["closes"], len(CLOSE_HASHES), saver, "book phase")
+    check_seal_threads(tree, tree0, by_thread, hasher.device_nodes - nodes0, "book phase")
+    pipe = saver.persist.pipeline.get_json()
+    require(pipe["persisted"] == len(CLOSE_HASHES) + len(BOOK_HASHES) and pipe["failed"] == 0,
+            f"close pipeline persisted {pipe['persisted']}, failed {pipe['failed']}")
+    require(saver.clf.last_closed_hash.hex() == BOOK_HASHES[-1],
+            "the CLF's last closed ledger is not the chain's last close")
     require(res["paths_digest"] == PATHS_DIGEST,
             f"path answers digest {res['paths_digest']} differs from the JAX package's")
     require(host_verifies == 0, f"{host_verifies} host signature verifications in the book phase")
@@ -1574,11 +1886,9 @@ def book_phase(dev, name_power: str, close: dict, saver=None) -> dict:
     summary = {
         "card": name_power, "sizes": BOOK_SIZES, "prune_floor": BOOK_PRUNE_FLOOR,
         "inputs_s": inputs_s, "phase_s": phase_s, "index_first_advance_ms": res["index_ms"],
-        "per_close": [{key: c[key] for key in (
-            "seq", "wall_ms", "parse_verify_ms", "apply_ms", "close_ms", "seal_state_ms",
-            "seal_state_nodes", "seal_tx_ms", "seal_tx_nodes", "gc_ms",
-            "gc_full_collections", "index_ms")} | {"transactions": len(e)}
-            for c, e in zip(res["closes"], bwl["closes"])],
+        "per_close": [{key: c[key] for key in PER_CLOSE_KEYS + ("index_ms",)}
+                      | {"transactions": len(e)}
+                      for c, e in zip(res["closes"], bwl["closes"])],
         "book_kinds": kinds, "requests": len(bwl["requests"]),
         "paths_ms": res["paths_ms"], "paths_gc_ms": res["gc_ms_paths"],
         "candidates": res["candidates"], "answers": [len(a) for a in res["answers"]],
@@ -1591,9 +1901,23 @@ def book_phase(dev, name_power: str, close: dict, saver=None) -> dict:
         "paths_plane": {k: pp[k] for k in ("prune_batches", "pruned_candidates",
                                            "prune_floor", "prune_keep")},
         "index": pp["index"], "evaluator": ev, "launches": launches,
+        "launches_by_thread": by_thread,
     }
     emit("book", **summary)
-    return {"launches": launches, "k4_max_abs_err": k4_err,
+    emit("delta", of="book", per_close=[dict(c["delta"], seq=c["seq"])
+                                           for c in res["closes"]],
+         tree={k: v - tree0[k] if k in lm.tree_stats else v for k, v in tree.items()})
+    clock = saver.persist.clock.ms
+    emit("close_pipeline", card=name_power, depth_limit=pipe["depth_limit"],
+         peak_depth=pipe["depth_hwm"], persisted=pipe["persisted"], failed=pipe["failed"],
+         backpressure_waits=pipe["backpressure_waits"], backpressure_ms=pipe["backpressure_ms"],
+         drain_after_closes_ms=drain_ms[0], stop_ms=stop_ms,
+         per_ledger=[dict(clock.get(seq, {}), seq=seq) for seq in sorted(clock)],
+         clf=saver.clf.get_json(), txdb=saver.txdb.counts())
+    # the pipeline's stages hold the chain's LedgerMaster, and with it
+    # every closed ledger: drop them before the replay loads its own
+    saver.persist = None
+    return {"launches": launches, "by_thread": by_thread, "k4_max_abs_err": k4_err,
             "close_digests": [c["close_digest"] for c in res["closes"]]}
 
 
@@ -1610,31 +1934,51 @@ FORGE_SEQ = START_SEQ + REPLAY_FIRST + 2
 
 
 class ChainSaver:
-    """Saves the start ledger and each closed ledger to an on-disk
-    segstore as the chain closes — the JAX node's defaults: durability
-    fsync, 5 ms group commit, 64 MB segments — each save timed apart
-    from its close (save_counted). Keeps the ledger FORGE_SEQ for the
-    replay phase's forgery."""
+    """The chain's storage under ``path``, as the JAX node keeps it: an
+    on-disk segstore node store (``nodestore/``; the JAX node's
+    defaults: durability fsync, 5 ms group commit, 64 MB segments), a
+    file-backed txdb (``txdb.db``) and a file-backed CLF (``clf.db``).
+    ``save`` writes one ledger to the node store (save_counted) — the
+    start ledger directly, each closed ledger as the close pipeline's
+    node-store stage; ``attach(lm)`` wires the chain's LedgerMaster to
+    the port's close pipeline over the three (``persist``, a
+    ChainPersist). Keeps the ledger FORGE_SEQ for the replay phase's
+    forgery."""
 
     def __init__(self, path: Path):
+        from stellard_tpu_torch.node.txdb import TxDatabase
         from stellard_tpu_torch.nodestore import make_database
+        from stellard_tpu_torch.state.clf import CLFMirror, LedgerSqlDatabase
 
         shutil.rmtree(path, ignore_errors=True)
+        path.mkdir(parents=True)
         self.path = path
-        self.db = make_database(type="segstore", path=str(path))
+        self.db_path = path / "nodestore"
+        self.db = make_database(type="segstore", path=str(self.db_path))
+        self.txdb = TxDatabase(str(path / "txdb.db"))
+        self.clf = CLFMirror(LedgerSqlDatabase(str(path / "clf.db")))
+        self.persist = None
         self.kept = None
         self.saves: list[dict] = []
 
-    def __call__(self, _k, ledger) -> None:
+    def save(self, ledger) -> None:
         records0 = self.db.backend.records
         rec = save_counted(ledger, self.db)
         rec["records"] = self.db.backend.records - records0
-        # the chain's hasher: nodes it has hashed on the host so far
-        # (leaves too long for K2's block ladder)
-        rec["host_nodes"] = getattr(ledger.state_map.hash_batch, "host_nodes", 0)
         self.saves.append(rec)
         if ledger.seq == FORGE_SEQ:
             self.kept = ledger
+
+    def attach(self, lm) -> None:
+        from stellard_tpu_torch.node.closepipeline import ClosePipeline
+        from stellard_tpu_torch.node.node import _results_from_meta, build_tx_rows
+
+        self.persist = ChainPersist(lm, ClosePipeline, self.txdb, self.clf, build_tx_rows,
+                                    _results_from_meta, save_stage=self.save)
+
+    def close_sql(self) -> None:
+        self.txdb.close()
+        self.clf.db.close()
 
 
 def forge_ledger(ledger):
@@ -1686,13 +2030,17 @@ def replay_phase(dev, name_power: str, saver: ChainSaver, close_digests: list) -
 
     class TreeCounts(CudaHasher):
         """CudaHasher noting, per sealed tree, the nodes it hashed on
-        the host."""
+        the host, and the nodes that only the host may hash: leaves too
+        long for K2's block ladder and empty inner nodes, counted from
+        the tree before it is hashed."""
 
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             self.host_per_tree: list[int] = []
+            self.host_only_per_tree: list[int] = []
 
         def hash_tree(self, root):
+            self.host_only_per_tree.append(host_only_nodes(root))
             before = self.host_nodes
             n = super().hash_tree(root)
             self.host_per_tree.append(self.host_nodes - before)
@@ -1730,7 +2078,7 @@ def replay_phase(dev, name_power: str, saver: ChainSaver, close_digests: list) -
         db.close()
 
         # a restart: the store reopens from disk, and the replay reads it
-        db = make_database(type="segstore", path=str(saver.path))
+        db = make_database(type="segstore", path=str(saver.db_path))
         reopened = db.get_json()["backend_stats"]
         require(reopened["opened_from_checkpoint"] and reopened["objects"] == store["objects"],
                 "the store did not reopen from its checkpoint")
@@ -1766,6 +2114,7 @@ def replay_phase(dev, name_power: str, saver: ChainSaver, close_digests: list) -
         rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
     finally:
         saver.db.close()
+        saver.close_sql()
         shutil.rmtree(saver.path, ignore_errors=True)
 
     per = stats["ledgers"]
@@ -1798,13 +2147,12 @@ def replay_phase(dev, name_power: str, saver: ChainSaver, close_digests: list) -
             f"readbacks {tt.readbacks}, tree calls {hasher.tree_calls}")
     require(launches["sha512_masked"] > 0 and launches["tree_inner_level"] > 0,
             "K2 or K3 never launched in the replay phase")
-    # the host hashes only leaves too long for K2: per real ledger, the
-    # nodes its close hashed on the host
+    # the host hashes only what K2/K3 cannot: in every sealed tree, its
+    # leaves too long for K2's block ladder and its empty inner nodes
     host_per = [sum(hasher.host_per_tree[2 * i: 2 * i + 2]) for i in range(len(span))]
-    closes_host = [saves[k + 1]["host_nodes"] - saves[k]["host_nodes"] for k in range(first, last)]
-    require(host_per[:forged_at] + host_per[forged_at + 1:] == closes_host,
-            f"host-hashed nodes per replayed ledger {host_per} differ from the closes' "
-            f"{closes_host}")
+    require(hasher.host_per_tree == hasher.host_only_per_tree,
+            f"host-hashed nodes per sealed tree {hasher.host_per_tree} differ from the "
+            f"nodes K2/K3 cannot hash {hasher.host_only_per_tree}")
 
     n_loads = 2 * len(span)
     summary = {

@@ -179,33 +179,38 @@ class TransferMeter:
     readback count proportional to tree depth instead of one per tree.
     ``uploads`` counts shipment SETS (one per launched step, however
     many arrays ride it); ``readbacks`` counts host-blocking
-    device->host transfers."""
+    device->host transfers. Updated under a lock: several threads (the
+    close's two seal threads, the seal drainer) share one hasher."""
 
-    __slots__ = ("uploads", "readbacks", "bytes_up", "bytes_down")
+    __slots__ = ("uploads", "readbacks", "bytes_up", "bytes_down", "_lock")
 
     def __init__(self):
         self.uploads = 0
         self.readbacks = 0
         self.bytes_up = 0
         self.bytes_down = 0
+        self._lock = threading.Lock()
 
     def up(self, nbytes: int) -> None:
-        self.uploads += 1
-        self.bytes_up += int(nbytes)
+        with self._lock:
+            self.uploads += 1
+            self.bytes_up += int(nbytes)
 
     def down(self, nbytes: int) -> None:
-        self.readbacks += 1
-        self.bytes_down += int(nbytes)
+        with self._lock:
+            self.readbacks += 1
+            self.bytes_down += int(nbytes)
 
     def get_json(self) -> dict:
-        return {
-            "uploads": self.uploads,
-            "readbacks": self.readbacks,
-            "bytes_up": self.bytes_up,
-            "bytes_down": self.bytes_down,
-            "transfers": self.uploads + self.readbacks,
-            "bytes_moved": self.bytes_up + self.bytes_down,
-        }
+        with self._lock:
+            return {
+                "uploads": self.uploads,
+                "readbacks": self.readbacks,
+                "bytes_up": self.bytes_up,
+                "bytes_down": self.bytes_down,
+                "transfers": self.uploads + self.readbacks,
+                "bytes_moved": self.bytes_up + self.bytes_down,
+            }
 
 
 class CudaVerifier(BatchVerifier):
@@ -282,22 +287,47 @@ class CudaHasher(BatchHasher):
       every digest resident in one device buffer — leaf levels through
       K2, inner levels through K3 reading their children by row — and
       ONE readback per tree (``tree_transfers.readbacks == tree_calls``).
+
+    One hasher serves several threads at once: the close hashes its two
+    trees on two helper threads while the seal drainer pre-hashes the
+    next ledger's building tree. Every launch goes to the device's
+    current (default) stream, so each tree's buffer, launches and
+    readback stay in order; the counters and meters are updated under
+    a lock, and each ``hash_tree`` call times its own phases.
     """
 
     name = "cuda"
+    # whole-tree (fused) hashing on: the seal drainer takes hash_tree
+    fused_enabled = True
 
     def __init__(self, mesh=None, device="cuda"):
         self.width = parse_width(mesh)
         self.device = resolve_device(device)
+        self._lock = threading.Lock()
         self.tree_calls = 0
-        # host wall ms of the last hash_tree's phases: plan (walk, encode,
-        # bucket), stage (pad, upload, launch), readback (waits for the
-        # device chain), write_back (digests onto the nodes)
+        self.host_nodes = 0
+        self.device_nodes = 0
+        # host wall ms of the last finished hash_tree's phases: plan
+        # (walk, encode, bucket), stage (pad, upload, launch), readback
+        # (waits for the device chain), write_back (digests onto the nodes)
         self.last_tree_ms: dict[str, float] = {}
         self.transfers = TransferMeter()
         # the residency pin is crisp only for the whole-tree path: one
         # blocking readback per tree, never one per level
         self.tree_transfers = TransferMeter()
+
+    def _count_nodes(self, host: int, device: int) -> None:
+        with self._lock:
+            self.host_nodes += host
+            self.device_nodes += device
+
+    def transfer_json(self) -> dict:
+        """Both meters summed (the flat batches' and the whole-tree
+        path's): a close's deltas of this block are its residency proof."""
+        agg = self.transfers.get_json()
+        for k, v in self.tree_transfers.get_json().items():
+            agg[k] += v
+        return agg
 
     def prefix_hash_batch(self, prefixes, payloads):
         return self._hash_msgs(
@@ -320,8 +350,7 @@ class CudaHasher(BatchHasher):
         oversized, buckets = ladder_buckets([len(m) for m in msgs])
         for i in oversized:  # host path (rare)
             out[i] = sha512_half(msgs[i])
-        self.host_nodes += len(oversized)
-        self.device_nodes += len(msgs) - len(oversized)
+        self._count_nodes(len(oversized), len(msgs) - len(oversized))
         results = []  # launched first, read back after
         for ladder, idxs in buckets:
             blocks, nblocks = pad_leaf_batch([msgs[i] for i in idxs], ladder)
@@ -408,12 +437,13 @@ class CudaHasher(BatchHasher):
             below = here.sealed()
 
         if not plan:
-            self.host_nodes += hashed_host
+            self._count_nodes(hashed_host, 0)
             return hashed_host
 
         # counted HERE, not at entry: tree_calls pairs 1:1 with the single
         # readback below, so host-only calls do not count
-        self.tree_calls += 1
+        with self._lock:
+            self.tree_calls += 1
         t_stage = time.perf_counter()
         buf = torch.zeros((len(order), 8), dtype=torch.uint32, device=self.device)
         for step in plan:
@@ -439,15 +469,17 @@ class CudaHasher(BatchHasher):
         raw = _digests(host)
         for node, k in zip(order, range(0, len(raw), 32)):
             node._hash = raw[k : k + 32]
-        self.host_nodes += hashed_host
-        self.device_nodes += len(order)
         t_end = time.perf_counter()
-        self.last_tree_ms = {
+        phases = {
             "plan": (t_stage - t_plan) * 1e3,
             "stage": (t_readback - t_stage) * 1e3,
             "readback": (t_write - t_readback) * 1e3,
             "write_back": (t_end - t_write) * 1e3,
         }
+        with self._lock:
+            self.host_nodes += hashed_host
+            self.device_nodes += len(order)
+            self.last_tree_ms = phases
         return hashed_host + len(order)
 
 

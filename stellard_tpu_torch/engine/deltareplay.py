@@ -1,0 +1,586 @@
+"""Speculative delta-replay for the ledger close.
+
+Every accepted transaction used to run twice: a checks-only pass against
+the open ledger at submit, then the full transactor again inside the
+close window (LedgerConsensus::applyTransactions), and that close
+apply pass is the dominant serial cost of a close. The
+Block-STM answer (Gelashvili et al., 2022; Solana's Sealevel is the same
+idea): execute speculatively once, record read/write sets, and at commit
+time VALIDATE the reads instead of re-executing.
+
+Shape here:
+
+- submit time (``SpecState.speculate``, called by LedgerMaster after the
+  open-ledger accept): run the tx once in CLOSE mode against a
+  state/specview.SpecView — the parent state plus all earlier
+  speculative writes, which is exactly the state the serial close would
+  present when the canonical order matches the submission order. Record
+  reads (key -> writer id), succ walks, the final write set, the built
+  metadata, and both the raw transactor TER and the post-claim TER.
+
+- close time (``CloseReplay.try_splice``, consulted by
+  LedgerMaster._apply_transactions before each full apply): a record
+  whose parent matches, whose entry reads all resolve to the same
+  writers in the close's own writer map, and whose succ reads reproduce
+  against the closing state map is SPLICED — recorded SLEs written
+  straight into the ledger, metadata re-indexed and inserted, fee
+  burned — with no transactor run. Any mismatch falls back to the full
+  serial re-apply for that tx, which then poisons its written keys so
+  dependent records also fall back. The serial path stays byte-identical
+  and always available ([close] delta_replay=0).
+
+Pass semantics mirror applyTransactions exactly: on non-final (RETRY)
+passes a tec record defers (reports the raw tec, no state change, gets
+requeued) because the serial path only claims fees on the final pass —
+splicing the claim early would renumber TransactionIndex for every later
+tx and break byte identity.
+
+Transaction types that read or write ledger-header state the read set
+cannot see (SetFee, EnableAmendment, Inflation) are never speculated,
+and their close-time application marks the whole replay header-dirty so
+every later record falls back too.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Optional
+
+from ..protocol.formats import TxType
+from ..protocol.sfields import sfTransactionIndex
+from ..protocol.sttx import SerializedTransaction
+from ..state.entryset import Action
+from ..state.ledger import Ledger
+from ..state.shamap import SHAMapItem, TNType
+from ..state.specview import PARENT, SpecView
+from .engine import TransactionEngine, TxParams, _is_tec
+
+__all__ = ["SpecState", "CloseReplay", "HEADER_TYPES", "execute_record"]
+
+log = logging.getLogger("stellard.deltareplay")
+
+# header-coupled types: excluded from speculation, and close-time
+# application of one dirties the replay (fee/reserve schedule and
+# inflation header state are invisible to the entry read set)
+HEADER_TYPES = frozenset(
+    {TxType.ttFEE, TxType.ttAMENDMENT, TxType.ttINFLATION}
+)
+
+
+class SpecRecord:
+    __slots__ = (
+        "raw_ter", "ter", "did_apply", "reads", "succs", "write_items",
+        "meta", "fee", "meta_blob", "meta_index_off", "net_deletes",
+        "origin", "index",
+    )
+
+    def __init__(self, raw_ter, ter, did_apply, reads, succs, write_items,
+                 meta, fee):
+        self.raw_ter = raw_ter  # transactor outcome, pre fee-claim
+        self.ter = ter  # final outcome (post claim reprocess)
+        self.did_apply = did_apply
+        self.reads = reads  # key -> writer id (txid or PARENT)
+        self.succs = succs  # [(cursor, next key or None)]
+        # [(key, SHAMapItem or None=delete)], compacted one entry per
+        # key (last write wins), serialized at SPECULATION time — the
+        # splice and the pre-seal building tree share these exact item
+        # objects, so the close window re-serializes nothing
+        self.write_items = write_items
+        self.meta = meta  # threaded meta STObject (tes/claim), else None
+        self.fee = fee  # drops burned when did_apply
+        # speculation-time meta serialization: the ONLY close-dependent
+        # meta bytes are the sfTransactionIndex u32, so the blob is
+        # serialized once at submit with index 0 and the close patches
+        # the 4 bytes at `meta_index_off` in place of a full re-serialize
+        # (None when the two-serialization diff could not pin the span —
+        # the splice then re-serializes, the always-correct path)
+        self.meta_blob: Optional[bytes] = None
+        self.meta_index_off = -1
+        # keys whose compacted op is a DELETE but which this tx also
+        # CREATED earlier in its own apply order: against a state that
+        # never held the key, the pair nets to nothing (the serial
+        # path's set_item/del_item). A delete key NOT in this set with
+        # no prior state is a genuine missing-key delete and must keep
+        # del_item's KeyError.
+        self.net_deletes: frozenset = frozenset()
+        # where the speculation ran: "submit" (open-ledger accept) or
+        # "promote" (queue-aware deferred speculation after a TxQ
+        # promotion) — splice marks carry it so the admission plane's
+        # promote_spliced counters stay honest
+        self.origin = "submit"
+        # speculation index within the open window: the canonical fold
+        # order for the pre-seal building tree and the Block-STM commit
+        # order of the parallel executor (engine/specexec.py). None
+        # until assigned by SpecState.speculate / the executor.
+        self.index: Optional[int] = None
+
+
+def execute_record(view, tx: SerializedTransaction,
+                   origin: str = "submit") -> SpecRecord:
+    """Run the close-mode engine over ``view`` (which must be inside a
+    ``begin_tx`` bracket) and build the SpecRecord: compacted write set
+    serialized NOW (the splice and the pre-seal building tree share
+    these exact item objects), net-delete classification, and the
+    metadata index-span pin.
+
+    The ONE record builder: the serial submit-path speculation, the
+    parallel executor's in-process workers, and its process workers all
+    run this exact code, which is what makes their records byte-equal.
+    Exceptions propagate — the caller decides whether a failure poisons
+    the whole overlay (serial) or just retries the task (parallel)."""
+    txid = tx.txid()
+    engine = TransactionEngine(view)
+    ter, did_apply = engine.apply_transaction(tx, TxParams.NONE)
+    reads, succs, writes = view.end_tx()
+    meta = view.parsed_metas.pop(txid, None)
+    # compact + serialize the write set NOW (the submit window),
+    # pinning each SLE as its item's parsed mirror — the close
+    # splices these exact objects, moving the per-write
+    # serialization cost out of the close window entirely
+    compact: dict[bytes, Optional[object]] = {}
+    ever_set: set[bytes] = set()
+    for k, sle in writes:
+        compact[k] = sle
+        if sle is not None:
+            ever_set.add(k)
+    write_items = []
+    net_deletes = set()
+    for k, sle in compact.items():
+        if sle is None:
+            write_items.append((k, None))
+            if k in ever_set:
+                net_deletes.add(k)
+        else:
+            item = SHAMapItem(k, sle.serialize())
+            item.parsed = sle
+            write_items.append((k, item))
+    rec = SpecRecord(
+        raw_ter=engine.last_raw_ter if engine.last_raw_ter
+        is not None else ter,
+        ter=ter,
+        did_apply=did_apply,
+        reads=reads,
+        succs=succs,
+        write_items=write_items,
+        meta=meta,
+        fee=tx.fee.mantissa if did_apply else 0,
+    )
+    if meta is not None:
+        # pin the index span: serialize with index 0 then 1 and
+        # require the diff to be EXACTLY the u32's low byte —
+        # anything else keeps the re-serialize slow path
+        meta[sfTransactionIndex] = 0
+        b0 = meta.serialize()
+        meta[sfTransactionIndex] = 1
+        b1 = meta.serialize()
+        if len(b0) == len(b1):
+            diffs = [i for i, (a, b) in enumerate(zip(b0, b1))
+                     if a != b]
+            if (len(diffs) == 1 and diffs[0] >= 3
+                    and b0[diffs[0] - 3 : diffs[0] + 1]
+                    == b"\x00\x00\x00\x00"
+                    and b1[diffs[0]] == 1):
+                rec.meta_blob = b0
+                rec.meta_index_off = diffs[0] - 3
+    rec.net_deletes = frozenset(net_deletes)
+    rec.origin = origin
+    return rec
+
+
+class SpecState:
+    """Per-open-ledger speculation: the shared overlay view plus one
+    record per open-accepted txid. Consumed by at most one close."""
+
+    def __init__(self, ledger: Ledger):
+        self.parent_hash = ledger.parent_hash
+        self.view = SpecView(ledger)
+        self.records: dict[bytes, SpecRecord] = {}
+        self.disabled = False  # poisoned overlay -> all-fallback close
+        # incremental-seal building tree ([tree] incremental=1): the
+        # parent state plus every speculated write folded in as it
+        # records, hashed in background batches between closes so the
+        # close's seal only hashes the residual. None = feature off or
+        # fold failure (the close then runs the full seal — never forked)
+        self.building = None
+        self.absorbed: dict[bytes, object] = {}  # key -> item|None folded
+        # speculation-index authority for this open window: the serial
+        # path and the parallel executor's dispatch both allocate from
+        # it (under the chain lock), so fold/commit order is one total
+        # order however the records were produced
+        self.next_index = 0
+        self._folded_max = -1
+        # absorbed failures, read by the close (LedgerMaster counts
+        # them, so a disabled overlay or building tree never goes unseen)
+        self.spec_errors = 0
+        self.fold_errors = 0
+
+    def alloc_index(self) -> int:
+        """Next speculation index (caller holds the chain lock)."""
+        i = self.next_index
+        self.next_index += 1
+        return i
+
+    def attach_building(self, state_root, hash_batch) -> None:
+        """Arm the pre-seal building tree over the parent state root."""
+        from ..state.shamap import SHAMap, TNType
+
+        kw = {"hash_batch": hash_batch} if hash_batch is not None else {}
+        self.building = SHAMap(TNType.ACCOUNT_STATE, state_root, **kw)
+        self.absorbed = {}
+
+    def fold_building(self, rec: "SpecRecord") -> int:
+        """Merge one record's write items into the building tree; -> ops
+        folded (0 when the tree is unarmed or the record wrote nothing).
+        Any fold failure disarms the building tree for this open window
+        — the close simply runs its normal full seal.
+
+        Ordering contract: folds must arrive in strictly increasing
+        speculation-index order — the building tree is "parent state
+        plus speculated writes IN ORDER", and an out-of-order fold
+        (a parallel-scheduler bug) would silently bake a stale value
+        into the pre-seal tree. That bug class must fail LOUDLY here,
+        before the bulk merge, not surface as a close-time hash
+        divergence."""
+        if self.building is None or not rec.did_apply or not rec.write_items:
+            return 0
+        if rec.index is not None and rec.index <= self._folded_max:
+            raise AssertionError(
+                f"fold_building out of order: index {rec.index} after "
+                f"{self._folded_max} — scheduler commit-order bug"
+            )
+        try:
+            self.building.bulk_update(
+                [it for _k, it in rec.write_items if it is not None],
+                [k for k, it in rec.write_items if it is None],
+                missing_ok=True,  # a tx creating+deleting one key
+                # compacts to a bare delete; the building tree nets it
+            )
+        except Exception:  # noqa: BLE001 — never let pre-hashing break
+            # the open window; the full seal remains the fallback
+            log.exception("building-tree fold failed; disabling "
+                          "incremental seal for this open ledger")
+            self.fold_errors += 1
+            self.building = None
+            self.absorbed = {}
+            return 0
+        if rec.index is not None:
+            self._folded_max = rec.index
+        for k, it in rec.write_items:
+            self.absorbed[k] = it
+        return len(rec.write_items)
+
+    def speculate(self, tx: SerializedTransaction, origin: str = "submit",
+                  index: Optional[int] = None) -> Optional["SpecRecord"]:
+        """Close-mode dry run of an open-accepted tx; records the outcome
+        and folds its writes into the overlay for successors. `origin`
+        is "submit" for the open-accept path and "promote" for the
+        TxQ's deferred queue-aware speculation. `index` pins the
+        speculation index (the parallel executor's serial-fallback path
+        commits out-of-band and already holds the task's index); serial
+        callers let it allocate. Returns the record that executed (also
+        when it was not retained) so the executor's commit thread can
+        ship its write set to process workers — serial callers ignore
+        it."""
+        if self.disabled or tx.tx_type in HEADER_TYPES:
+            return None
+        txid = tx.txid()
+        self.view.begin_tx(txid)
+        try:
+            rec = execute_record(self.view, tx, origin)
+            if rec.did_apply and rec.meta is None:
+                return rec  # commit tail didn't complete; keep no record
+            rec.index = self.alloc_index() if index is None else index
+            self.records[txid] = rec
+            return rec
+        except Exception:  # noqa: BLE001 — a half-applied overlay can't
+            # be trusted for ANY later record; the close falls back whole
+            log.exception(
+                "speculation failed for %s; disabling delta replay for "
+                "this ledger", txid.hex()[:16],
+            )
+            self.spec_errors += 1
+            self.disabled = True
+            return None
+
+
+class CloseReplay:
+    """One close's splice-or-fallback context over a SpecState."""
+
+    def __init__(self, spec: Optional[SpecState], ledger: Ledger,
+                 tracer=None):
+        from ..node.tracer import get_tracer
+
+        self.spec = spec
+        self.ledger = ledger
+        self.tracer = tracer if tracer is not None else get_tracer()
+        # why the NEXT fallback runs (set by try_splice on each miss,
+        # consumed by note_fallback's trace mark)
+        self._fallback_reason = "not_attempted"
+        self.parent_ok = (
+            spec is not None
+            and not spec.disabled
+            and spec.parent_hash == ledger.parent_hash
+        )
+        # key -> provenance: txid for spliced writers, a unique non-txid
+        # marker for fallback writers (their values may differ from the
+        # speculative run, so they must never validate a recorded read)
+        self.writers: dict[bytes, object] = {}
+        self.header_dirty = False
+        self._dirty_seq = 0
+        # per-TX final classification (a retried tx may be attempted on
+        # several passes — the last attempt's outcome wins, so
+        # spliced+fallback always sums to the distinct tx count)
+        self._class: dict[bytes, str] = {}
+        self.invalidated = 0  # validation failures, counted PER ATTEMPT
+        # (a retried record re-validates each pass; the churn is the
+        # diagnostic, so attempts are the honest unit here)
+        # batched splice writes: spliced deltas accumulate here and land
+        # through ONE sorted bulk merge (SHAMap.bulk_update) instead of a
+        # per-key nibble walk per write — flushed before anything reads
+        # the trees (a serial fallback apply, a succ validation, or the
+        # end of the apply pass), so reads are always current
+        self._pending_state: dict[bytes, Optional[SHAMapItem]] = {}
+        self._pending_tx: list[SHAMapItem] = []
+        self.bulk_merges = 0
+        self.bulk_merged_keys = 0
+        # incremental-seal adoption outcome (maybe_adopt_prehashed)
+        self.seal_adopt = "off"
+        self.seal_residual = 0
+
+    def try_splice(self, engine: TransactionEngine,
+                   tx: SerializedTransaction, final: bool):
+        """-> (ter, did_apply) when the recorded outcome stands in for
+        this pass, else None (caller runs the full serial apply)."""
+        if not self.parent_ok or self.header_dirty:
+            self._fallback_reason = (
+                "header_dirty" if self.header_dirty else "parent_mismatch"
+            )
+            return None
+        txid = tx.txid()
+        rec = self.spec.records.get(txid)
+        if rec is None:
+            self._fallback_reason = "no_record"
+            return None
+        writers = self.writers
+        for k, wid in rec.reads.items():
+            if writers.get(k, PARENT) != wid:
+                self.invalidated += 1
+                self._fallback_reason = "read_invalidated"
+                return None
+        if rec.succs and self._pending_state:
+            # succ cursors walk the REAL tree: pending spliced writes
+            # must land before the range reads validate against it
+            self._flush_state()
+        st = self.ledger.state_map
+        for cursor, tag in rec.succs:
+            item = st.succ(cursor)
+            if (item.tag if item is not None else None) != tag:
+                self.invalidated += 1
+                self._fallback_reason = "succ_invalidated"
+                return None
+
+        if not rec.did_apply:
+            # no state effect either way; on non-final passes the serial
+            # path reports the RAW tec (the claim only runs under NONE)
+            self._class[txid] = "spliced"
+            ter = rec.raw_ter if not final and _is_tec(rec.raw_ter) else rec.ter
+            self._mark(txid, "spliced", int(ter))
+            return ter, False
+        if not final and _is_tec(rec.raw_ter):
+            # defer the recorded fee claim to final-pass semantics, like
+            # the serial path; the caller's tec branch requeues it
+            self._class[txid] = "spliced"
+            self._mark(txid, "spliced", int(rec.raw_ter))
+            return rec.raw_ter, False
+
+        ledger = self.ledger
+        meta = rec.meta
+        idx = engine.tx_seq
+        meta[sfTransactionIndex] = idx
+        engine.tx_seq += 1
+        # meta bytes: patch the pinned index span of the speculation-time
+        # serialization; re-serialize only when the span wasn't pinned
+        if rec.meta_blob is not None:
+            p = rec.meta_index_off
+            mb = rec.meta_blob
+            meta_bytes = mb[:p] + idx.to_bytes(4, "big") + mb[p + 4:]
+        else:
+            meta_bytes = meta.serialize()
+        # tx-map insert rides the pending batch (Ledger.tx_item_data is
+        # the one owner of the TX_MD item layout)
+        self._pending_tx.append(
+            SHAMapItem(txid, Ledger.tx_item_data(tx.serialize(), meta_bytes))
+        )
+        ledger.parsed_metas[txid] = meta
+        ledger.tot_coins -= rec.fee
+        ledger.fee_pool += rec.fee
+        pending = self._pending_state
+        for k, item in rec.write_items:
+            if (item is None
+                    and (pending.get(k) is not None
+                         or k in rec.net_deletes)
+                    and self.ledger.state_map.get(k) is None):
+                # the key was created by this batch (an earlier splice)
+                # or by this very tx, and the tree never saw it:
+                # create-then-delete nets to NOTHING (the serial path's
+                # set_item/del_item pair), not a bare delete
+                pending.pop(k, None)
+            else:
+                pending[k] = item  # speculation-time item: no re-serialize
+            writers[k] = txid
+        self._class[txid] = "spliced"
+        self._mark(txid, "spliced", int(rec.ter), origin=rec.origin)
+        return rec.ter, True
+
+    # -- batched tree merge ------------------------------------------------
+
+    def _flush_state(self) -> None:
+        pending = self._pending_state
+        if not pending:
+            return
+        import time as _t
+
+        t0 = _t.perf_counter()
+        self.ledger.state_map.bulk_update(
+            [it for it in pending.values() if it is not None],
+            [k for k, it in pending.items() if it is None],
+        )
+        self.bulk_merges += 1
+        self.bulk_merged_keys += len(pending)
+        self.tracer.complete(
+            "tree.bulk_merge", "close", t0, _t.perf_counter(),
+            seq=self.ledger.seq, map="state", n=len(pending),
+        )
+        pending.clear()
+
+    def _flush_tx(self) -> None:
+        if not self._pending_tx:
+            return
+        import time as _t
+
+        t0 = _t.perf_counter()
+        self.ledger.tx_map.bulk_update(
+            self._pending_tx, leaf_type=TNType.TX_MD
+        )
+        self.bulk_merges += 1
+        self.bulk_merged_keys += len(self._pending_tx)
+        self.tracer.complete(
+            "tree.bulk_merge", "close", t0, _t.perf_counter(),
+            seq=self.ledger.seq, map="tx", n=len(self._pending_tx),
+        )
+        self._pending_tx.clear()
+
+    def flush_pending(self) -> None:
+        """Land every queued spliced write in one sorted bulk merge per
+        map. Called before any serial fallback apply (which reads the
+        trees) and at the end of the apply passes."""
+        self._flush_state()
+        self._flush_tx()
+
+    def maybe_adopt_prehashed(self) -> None:
+        """Swap the close's state root for the pre-hashed building tree
+        when they agree (incremental seal, [tree] incremental=1).
+
+        The building tree is parent-state + all speculated writes,
+        hashed in background batches during the open window. The close's
+        final state map is parent-state + the close's ACTUAL write set —
+        both canonical radix trees, so equality of the per-key final
+        values implies byte-identical roots. This scans every key either
+        side touched, corrects the (usually empty) residual through one
+        bulk merge, and adopts the building root: the seal then hashes
+        only the residual paths. Heavy divergence (mass fallbacks)
+        rejects the swap — re-merging everything would cost more than
+        the full seal it saves. Pure optimization: any failure keeps the
+        normally-built tree and the full seal."""
+        spec = self.spec
+        if spec is None or not self.parent_ok or spec.building is None:
+            self.seal_adopt = "unarmed"
+            return
+        try:
+            building = spec.building
+            final = self.ledger.state_map
+            keys = set(spec.absorbed)
+            keys.update(self.writers)
+            sets, deletes = [], []
+            for k in keys:
+                cur = building.get(k)
+                fin = final.get(k)
+                if cur is fin:  # the splice/fold shared item object
+                    continue
+                if fin is None:
+                    if cur is not None:
+                        deletes.append(k)
+                elif cur is None or cur.data != fin.data:
+                    sets.append(fin)
+            residual = len(sets) + len(deletes)
+            if residual > max(64, len(keys) // 4):
+                self.seal_adopt = "rejected"
+                self.seal_residual = residual
+                return
+            if residual:
+                building.bulk_update(sets, deletes)
+            final.root = building.root
+            self.seal_adopt = "adopted"
+            self.seal_residual = residual
+        except Exception:  # noqa: BLE001 — optimization only: the
+            # normally-built tree + full seal is always correct
+            log.exception("incremental-seal adoption failed; "
+                          "falling back to the full seal")
+            self.seal_adopt = "error"
+
+    def _mark(self, txid: bytes, mode: str, ter: Optional[int] = None,
+              reason: Optional[str] = None,
+              origin: Optional[str] = None) -> None:
+        """Per-tx splice/fallback trace mark (sampled): the close-stage
+        node of the transaction's causal span tree, with the fallback
+        reason when the record could not be spliced."""
+        tr = self.tracer
+        if not tr.enabled or not tr.sampled(txid):
+            return
+        attrs = {"mode": mode, "ledger_seq": self.ledger.seq}
+        if ter is not None:
+            attrs["ter"] = ter
+        if reason is not None:
+            attrs["reason"] = reason
+        if origin is not None and origin != "submit":
+            attrs["origin"] = origin
+        tr.instant("close.tx", "close", txid=txid, **attrs)
+
+    def note_fallback(self, tx: SerializedTransaction,
+                      engine: TransactionEngine, did_apply: bool) -> None:
+        """A full serial apply ran: poison its written keys so records
+        that read them can never splice against diverged values."""
+        txid = tx.txid()
+        self._class[txid] = "fallback"
+        self._mark(txid, "fallback", reason=self._fallback_reason)
+        self._fallback_reason = "not_attempted"
+        if not did_apply:
+            return
+        if tx.tx_type in HEADER_TYPES:
+            self.header_dirty = True
+        les = engine.les
+        if les is None:
+            return
+        self._dirty_seq += 1
+        marker = ("fallback", self._dirty_seq)
+        for idx, _sle, action in les.entries():
+            if action != Action.CACHED:
+                self.writers[idx] = marker
+
+    def classes(self) -> dict[bytes, str]:
+        """Per-tx final splice/fallback classification — consumed by the
+        admission plane's queue-aware-speculation counters."""
+        return dict(self._class)
+
+    def counts(self) -> dict:
+        cls = self._class.values()
+        return {
+            "spliced": sum(1 for c in cls if c == "spliced"),
+            "fallback": sum(1 for c in cls if c == "fallback"),
+            "invalidated": self.invalidated,
+            "parent_ok": self.parent_ok,
+            "bulk_merges": self.bulk_merges,
+            "bulk_merged_keys": self.bulk_merged_keys,
+            "seal_adopt": self.seal_adopt,
+            "seal_residual": self.seal_residual,
+        }

@@ -13,9 +13,16 @@ from __future__ import annotations
 
 from contextlib import nullcontext
 
-__all__ = ["Tracer", "get_tracer"]
+__all__ = ["Tracer", "get_tracer", "STAGE_BOUNDS"]
 
 _NULL_SPAN = nullcontext()
+
+# finer-than-default bounds for span stages: close/persist stages live
+# in the 1-500 ms band where the default decade buckets are too coarse
+STAGE_BOUNDS = (
+    0.1, 0.25, 0.5, 1.0, 2.0, 3.0, 5.0, 8.0, 12.0, 20.0, 30.0, 50.0,
+    80.0, 120.0, 200.0, 300.0, 500.0, 800.0, 1200.0, 2000.0, 5000.0,
+)
 
 
 class Tracer:

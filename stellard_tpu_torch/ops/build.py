@@ -7,7 +7,7 @@ by a digest of its source, so an edited source is rebuilt and an
 unchanged one is loaded as built. Nothing is built at import: the first
 wrapper call on a CUDA tensor builds its library, under a lock, because
 the verify plane's flusher thread and the hasher can both get there
-first. A failed build or load raises.
+first. A failed build, load or launch raises ``KernelError``.
 """
 
 from __future__ import annotations
@@ -29,6 +29,10 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+class KernelError(RuntimeError):
+    """A kernel that did not build, load or launch."""
+
+
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 # source name -> ptxas report (registers, spills) of the build that ran
@@ -43,7 +47,7 @@ def nvcc_path() -> str:
     ):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    raise KernelError("nvcc not found: the CUDA kernels cannot be built")
 
 
 def _lib_path(name: str) -> Path:
@@ -71,7 +75,7 @@ def _finish(name: str, started) -> None:
     proc, tmp, out = started
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        raise KernelError(f"nvcc failed for {name}.cu:\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     PTXAS_LOG[name] = log
 
@@ -101,4 +105,21 @@ def load(name: str) -> ctypes.CDLL:
 
 def check(err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+        raise KernelError(f"{what}: CUDA error {err} at launch")
+
+
+def is_device_error(exc: BaseException) -> bool:
+    """Whether ``exc`` came from the card: a kernel that did not build,
+    load or launch, or an error torch raised for the CUDA device. The
+    close path's helper threads count every error they absorb, but one
+    of these they hand back to the close (LedgerMaster), so that a
+    failing card is never hidden behind the host's recomputation."""
+    if isinstance(exc, KernelError):
+        return True
+    import torch
+
+    kinds = tuple(t for t in (getattr(torch, "AcceleratorError", None),
+                              getattr(torch.cuda, "CudaError", None),
+                              getattr(torch.cuda, "OutOfMemoryError", None))
+                  if isinstance(t, type))
+    return isinstance(exc, kinds) or (isinstance(exc, RuntimeError) and "CUDA" in str(exc))

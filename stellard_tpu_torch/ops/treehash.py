@@ -17,6 +17,7 @@ compiles per shape.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -38,6 +39,8 @@ __all__ = [
     "ladder_buckets",
     "build_inner_template",
     "launches",
+    "launches_by_thread",
+    "reset_launches",
 ]
 
 LIB = "sha512"
@@ -49,8 +52,27 @@ INNER_WORDS = INNER_BLOCKS * 32  # u32 words per inner payload
 # enter the tree as known children)
 LEAF_BLOCK_LADDER = (2, 4, 8, 16)
 
-# launches of each CUDA kernel in this process (never counts plain runs)
+# launches of each CUDA kernel in this process (never counts plain runs),
+# and the same launches by the name of the thread that made them: the
+# close's seal threads and the seal drainer launch K2/K3 concurrently
 launches = {"sha512_masked": 0, "tree_inner_level": 0}
+launches_by_thread: dict[str, dict[str, int]] = {}
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(kernel: str) -> None:
+    name = threading.current_thread().name
+    with _COUNT_LOCK:
+        launches[kernel] += 1
+        per = launches_by_thread.setdefault(name, dict.fromkeys(launches, 0))
+        per[kernel] += 1
+
+
+def reset_launches() -> None:
+    with _COUNT_LOCK:
+        for k in launches:
+            launches[k] = 0
+        launches_by_thread.clear()
 
 
 def _check(name, t, dtype, ndim):
@@ -97,7 +119,7 @@ def _masked_launch(blocks, nblocks, out, out_stride, out_words):
         err = fn(blocks.data_ptr(), nblocks.data_ptr(), blocks.shape[0],
                  blocks.shape[1], out, out_stride, out_words, stream)
     build.check(err, "sha512_masked")
-    launches["sha512_masked"] += 1
+    _count("sha512_masked")
 
 
 def _check_masked(blocks, nblocks):
@@ -201,7 +223,7 @@ def tree_inner_level(buf: torch.Tensor, template: torch.Tensor,
         err = fn(buf.data_ptr(), template.data_ptr(), child_rows.data_ptr(),
                  n, offset, stream)
     build.check(err, "tree_inner_level")
-    launches["tree_inner_level"] += 1
+    _count("tree_inner_level")
 
 
 # --------------------------------------------------------------------------

@@ -721,6 +721,50 @@ class SHAMap:
         """O(1) immutable snapshot: share the persistent root."""
         return SHAMap(self.leaf_type, self.root, self.hash_batch)
 
+    def compare(self, other: "SHAMap", limit: int = 2**31) -> dict[bytes, tuple]:
+        """Key → (this_item|None, other_item|None) for keys that differ
+        (reference: SHAMapDelta.cpp SHAMap::compare). Shared subtrees are
+        skipped by object identity / node hash, so the cost is proportional
+        to the delta, not the tree."""
+        delta: dict[bytes, tuple] = {}
+
+        def same(a, b) -> bool:
+            if a is b:
+                return True
+            if a is None or b is None:
+                return False
+            return a._hash is not None and a._hash == b._hash
+
+        def items_of(node) -> Optional[dict]:
+            """A leaf's or an empty slot's items; None for an inner."""
+            if node is None:
+                return {}
+            if isinstance(node, Leaf):
+                return {node.item.tag: node.item}
+            return None
+
+        def walk(a, b):
+            if len(delta) > limit or same(a, b):
+                return
+            a_items, b_items = items_of(a), items_of(b)
+            if a_items is not None or b_items is not None:
+                if a_items is None:
+                    a_items = {leaf.item.tag: leaf.item for leaf in _walk_leaves(a)}
+                if b_items is None:
+                    b_items = {leaf.item.tag: leaf.item for leaf in _walk_leaves(b)}
+                for tag in set(a_items) | set(b_items):
+                    ia, ib = a_items.get(tag), b_items.get(tag)
+                    if ia != ib:
+                        delta[tag] = (ia, ib)
+                return
+            for ca, cb in zip(a.children, b.children):
+                walk(ca, cb)
+
+        walk(self.root, other.root)
+        if len(delta) > limit:
+            raise ValueError("delta exceeds limit")
+        return delta
+
     # -- NodeStore integration -------------------------------------------
 
     # encode-and-store chunk size: bounds the shared buffer so flushing

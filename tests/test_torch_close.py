@@ -70,9 +70,11 @@ def _jax_close(lm, entries, k: int) -> dict:
     mode = JaxTxParams.OPEN_LEDGER | JaxTxParams.RETRY
     txs = [JaxSTTx.from_bytes(blob) for blob, _kind, _good in entries]
     open_ters = [(tx.txid(), lm.do_transaction(tx, mode)[0]) for tx in txs]
+    before = lm.delta_stats.snapshot()
     ledger, results = lm.close_and_advance(cs.START_CLOSE_TIME + 30 * (k + 1), 30)
     return {
         "seq": ledger.seq, "hash": ledger.hash().hex(), "ledger": ledger,
+        "results": results, "delta": cs.close_delta(lm, before),
         "digest": cs.results_digest(open_ters, results),
         "close_digest": cs.close_results_digest(results),
         "verdicts": [tx.check_sign() for tx in txs],
@@ -81,7 +83,8 @@ def _jax_close(lm, entries, k: int) -> dict:
     }
 
 
-def run_jax_closes(wl: dict, book=None, on_ledger=None) -> list[dict]:
+def run_jax_closes(wl: dict, book=None, on_ledger=None, setup=None,
+                   on_close=None) -> list[dict]:
     """The JAX package's LedgerMaster (defaults: delta replay on, its
     default hasher, host verify in the engine) over the same blobs. With
     ``book`` = (book workload, prune floor), the book phase goes on on
@@ -90,27 +93,32 @@ def run_jax_closes(wl: dict, book=None, on_ledger=None) -> list[dict]:
     makes them (books_if_current, make_pre_rank with the host-routed
     evaluator) -> an extra last entry {"book": closes, "answers",
     "paths_digest", "prune_batches"}. ``on_ledger`` is called with the
-    start ledger and then with each closed ledger, as it closes."""
+    start ledger, then ``setup`` with the LedgerMaster, then
+    ``on_close`` with each closed ledger and its results, as it closes
+    (by default ``on_ledger`` with the ledger)."""
     start = jax_start_ledger(wl["accounts"])
     lm = JaxLedgerMaster()
     lm.load_ledger(start)
     out = [{"hash": start.hash().hex(), "ledger": start}]
     on_ledger = on_ledger or (lambda _ledger: None)
     on_ledger(start)
+    if setup is not None:
+        setup(lm)
+    on_close = on_close or (lambda ledger, _results: on_ledger(ledger))
     try:
         for k, entries in enumerate(wl["closes"]):
             out.append(_jax_close(lm, entries, k))
-            on_ledger(out[-1]["ledger"])
+            on_close(out[-1]["ledger"], out[-1]["results"])
         if book is not None:
             out.append(_jax_book(lm, *book, first_close=len(wl["closes"]),
-                                 on_ledger=on_ledger))
+                                 on_close=on_close))
     finally:
         lm.stop_seal_drainer()
     return out
 
 
 def _jax_book(lm, bwl: dict, prune_floor: int, first_close: int,
-              on_ledger=lambda _ledger: None) -> dict:
+              on_close=lambda _ledger, _results: None) -> dict:
     from stellard_tpu.crypto.backend import make_path_evaluator as jax_evaluator
     from stellard_tpu.paths import find_paths as jax_find_paths
     from stellard_tpu.paths.plane import PathPlane as JaxPathPlane
@@ -120,7 +128,7 @@ def _jax_book(lm, bwl: dict, prune_floor: int, first_close: int,
     closes = []
     for k, entries in enumerate(bwl["closes"]):
         closes.append(_jax_close(lm, entries, first_close + k))
-        on_ledger(closes[-1]["ledger"])
+        on_close(closes[-1]["ledger"], closes[-1]["results"])
         plane.note_close(lm.closed_ledger())
     ledger = lm.closed_ledger()
     answers = [
@@ -146,7 +154,8 @@ def small_runs():
                         backend_opts={"device": "cpu"})
     tkeys.host_verifies = 0
     try:
-        port, _node = cs.run_closes(wl, CudaHasher(device="cpu"), plane.verify_many)
+        port, node = cs.run_closes(wl, CudaHasher(device="cpu"), plane.verify_many)
+        node["lm"].stop_seal_drainer()
     finally:
         plane.stop()
     host_verifies = tkeys.host_verifies
@@ -217,6 +226,7 @@ def small_book_runs():
     try:
         _closes, node = cs.run_closes(wl, None, plane.verify_many)
         port = cs.run_book(node, bwl, plane.verify_many, paths, first_close=SMALL["n_closes"])
+        node["lm"].stop_seal_drainer()
     finally:
         plane.stop()
     jax = run_jax_closes(wl, book=(bwl, SMALL_PRUNE_FLOOR))[-1]
@@ -260,32 +270,69 @@ def test_book_paths_equal_to_jax(small_book_runs):
     assert pp["index"]["full_rebuilds"] == 1 and pp["index"]["incremental_advances"] >= 2
 
 
+def jax_chain_persist(tmp_path, save_stage):
+    """-> (setup, on_close, persisted): the JAX node's close persistence
+    (chip_smoke.ChainPersist around the JAX package's ClosePipeline,
+    build_tx_rows and file-backed TxDatabase and CLF under tmp_path) for
+    run_jax_closes; ``persisted()`` drains the pipeline and returns the
+    ChainPersist."""
+    from stellard_tpu.node.closepipeline import ClosePipeline as JaxClosePipeline
+    from stellard_tpu.node.node import _results_from_meta, build_tx_rows
+    from stellard_tpu.node.txdb import TxDatabase as JaxTxDatabase
+    from stellard_tpu.state.clf import CLFMirror as JaxCLF, LedgerSqlDatabase as JaxSql
+
+    box = {}
+
+    def setup(lm):
+        box["p"] = cs.ChainPersist(
+            lm, JaxClosePipeline, JaxTxDatabase(str(tmp_path / "txdb.db")),
+            JaxCLF(JaxSql(str(tmp_path / "clf.db"))), build_tx_rows, _results_from_meta,
+            save_stage=save_stage)
+
+    def persisted():
+        box["p"].stop()
+        return box["p"]
+
+    return setup, lambda ledger, results: box["p"].submit(ledger, results), persisted
+
+
 @pytest.mark.slow
 def test_chip_smoke_constants_through_the_jax_package(tmp_path):
     """Recomputes chip_smoke.py's CLOSE_HASHES / CLOSE_DIGESTS, the book
-    phase's BOOK_HASHES / BOOK_DIGESTS / PATHS_DIGEST and the replay
+    phase's BOOK_HASHES / BOOK_DIGESTS / PATHS_DIGEST, the replay
     phase's CLOSE_RESULT_DIGESTS / BOOK_RESULT_DIGESTS / STORE_DIGEST /
-    SAVE_NODES at full size through the JAX package (its LedgerMaster,
-    defaults; its PathPlane with BOOK_PRUNE_FLOOR and the host-routed
-    evaluator; its segstore with its defaults, saving the start ledger
-    and each closed ledger as the chain closes)."""
+    SAVE_NODES and the default close's DELTAS / TXDB_DIGESTS /
+    CLF_DIGESTS at full size through the JAX package (its LedgerMaster,
+    defaults, with its node's persist_prep; its PathPlane with
+    BOOK_PRUNE_FLOOR and the host-routed evaluator; its segstore with
+    its defaults, saving the start ledger and then each closed ledger as
+    the close pipeline's node-store stage, beside a file-backed txdb and
+    CLF)."""
     from stellard_tpu.nodestore import make_database as jax_make_database
 
     wl = cs.close_workload(**cs.CLOSE_SIZES)
     bwl = cs.book_workload(wl, **cs.BOOK_SIZES)
     db = jax_make_database(type="segstore", path=str(tmp_path / "store"))
     saves = []
-    jax = run_jax_closes(wl, book=(bwl, cs.BOOK_PRUNE_FLOOR),
-                         on_ledger=lambda led: saves.append(cs.save_counted(led, db)))
+    save = lambda led: saves.append(cs.save_counted(led, db))  # noqa: E731
+    setup, on_close, persisted = jax_chain_persist(tmp_path, save)
+    jax = run_jax_closes(wl, book=(bwl, cs.BOOK_PRUNE_FLOOR), on_ledger=save,
+                         setup=setup, on_close=on_close)
+    persist = persisted()
     book = jax.pop()
     records = list(cs.segstore_records(db.backend))
     assert len(records) == db.backend.count() == sum(s["nodes"] for s in saves)
     store = cs.store_digest(records), [s["nodes"] for s in saves]
     db.close()
+    closes = jax[1:] + book["book"]
     got = [c["hash"] for c in jax[1:]], [c["digest"] for c in jax[1:]]
     got_book = [c["hash"] for c in book["book"]], [c["digest"] for c in book["book"]]
     got_results = ([c["close_digest"] for c in jax[1:]],
                    [c["close_digest"] for c in book["book"]])
+    deltas = [[c["delta"][k] for k in ("spliced", "fallback", "invalidated", "seal_adopt")]
+              for c in closes]
+    persisted_digests = ([persist.digests[c["seq"]]["txdb"] for c in closes],
+                         [persist.digests[c["seq"]]["clf"] for c in closes])
     print("START_HASH =", jax[0]["hash"])
     print("CLOSE_HASHES =", got[0])
     print("CLOSE_DIGESTS =", got[1])
@@ -297,6 +344,12 @@ def test_chip_smoke_constants_through_the_jax_package(tmp_path):
     print("BOOK_RESULT_DIGESTS =", got_results[1])
     print("STORE_DIGEST =", store[0])
     print("SAVE_NODES =", store[1])
+    print("DELTAS =", deltas)
+    print("TXDB_DIGESTS =", persisted_digests[0])
+    print("CLF_DIGESTS =", persisted_digests[1])
+    pipe = persist.pipeline.get_json()
+    print("pipeline =", {k: pipe[k] for k in ("persisted", "failed", "depth_hwm")},
+          "clf =", persist.clf.get_json())
     assert jax[0]["hash"] == cs.START_HASH
     assert got == (cs.CLOSE_HASHES, cs.CLOSE_DIGESTS)
     assert got_book == (cs.BOOK_HASHES, cs.BOOK_DIGESTS)
@@ -304,6 +357,9 @@ def test_chip_smoke_constants_through_the_jax_package(tmp_path):
     assert book["prune_batches"] > 0
     assert got_results == (cs.CLOSE_RESULT_DIGESTS, cs.BOOK_RESULT_DIGESTS)
     assert store == (cs.STORE_DIGEST, cs.SAVE_NODES)
+    assert pipe["persisted"] == len(closes) and pipe["failed"] == 0
+    assert deltas == cs.DELTAS
+    assert persisted_digests == (cs.TXDB_DIGESTS, cs.CLF_DIGESTS)
 
 
 def test_genesis_chain_with_held_transactions_equal():

@@ -49,6 +49,9 @@ def test_every_module_imports_without_jax():
             "stellard_tpu_torch.nodestore.backends", "stellard_tpu_torch.nodestore.segstore",
             "stellard_tpu_torch.native", "stellard_tpu_torch.state.hotcache",
             "stellard_tpu_torch.node.ledgertools"} <= set(mods)
+    # and so is the default close's slice: delta replay, the close
+    # pipeline, the txdb and the CLF
+    assert set(CLOSE_SLICE) <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"
@@ -64,6 +67,17 @@ def test_every_module_imports_without_jax():
                        text=True, timeout=300, env=env, cwd=str(REPO))
     assert r.returncode == 0, r.stderr[-2000:]
     assert json.loads(r.stdout.strip().splitlines()[-1]) == []
+
+
+# the modules of the default close's slice, and the only modules outside
+# the package they may import: the standard library's threading, timing
+# and typing helpers, and sqlite3 as their one storage engine
+CLOSE_SLICE = ("stellard_tpu_torch.node.metrics", "stellard_tpu_torch.node.txdb",
+               "stellard_tpu_torch.state.clf", "stellard_tpu_torch.node.node",
+               "stellard_tpu_torch.node.closepipeline", "stellard_tpu_torch.state.specview",
+               "stellard_tpu_torch.engine.deltareplay", "stellard_tpu_torch.node.ledgermaster")
+CLOSE_SLICE_IMPORTS = {"__future__", "bisect", "contextlib", "dataclasses", "logging",
+                       "sqlite3", "threading", "time", "typing"}
 
 
 def _imported_names(tree: ast.AST):
@@ -116,3 +130,18 @@ def test_native_loader_never_writes_under_native(tmp_path):
         assert Path(path).parent == tmp_path and Path(path).exists()
     after = {p: (p.stat().st_size, p.stat().st_mtime_ns) for p in native.rglob("*")}
     assert after == before
+
+
+def test_the_close_slice_adds_sqlite3_and_no_other_storage():
+    """The default close's modules import nothing outside the package
+    but the standard library's helpers and sqlite3 (the txdb's and the
+    CLF's engine): no other database, and nothing of JAX."""
+    roots = {}
+    for mod in CLOSE_SLICE:
+        path = REPO / (mod.replace(".", "/") + ".py")
+        names = set(_imported_names(ast.parse(path.read_text(), filename=str(path))))
+        roots[mod] = {n.split(".")[0] for n in names if not n.startswith("stellard_tpu_torch")}
+    extra = {mod: r - CLOSE_SLICE_IMPORTS for mod, r in roots.items()}
+    assert all(not e for e in extra.values()), extra
+    assert {mod for mod, r in roots.items() if "sqlite3" in r} == {
+        "stellard_tpu_torch.node.txdb", "stellard_tpu_torch.state.clf"}

@@ -179,7 +179,7 @@ def test_port_saves_the_same_records(jax_chain, tmp_path, arm):
 
 
 def test_port_chain_saves_the_jax_store(jax_chain, tmp_path):
-    """The port's own LedgerMaster over the same blobs (its serial
+    """The port's own LedgerMaster over the same blobs (its default
     close), each ledger saved as it closes: the same records and nodes
     per save as the JAX package's chain."""
     from stellard_tpu_torch.crypto.backend import CpuVerifier, make_path_evaluator
@@ -190,13 +190,14 @@ def test_port_chain_saves_the_jax_store(jax_chain, tmp_path):
     jax_saves = save_chain(ledgers, jdb)
     pdb = port_ns.make_database(type="segstore", path=str(tmp_path / "port"))
     saves = []
-    save = lambda _k, led: saves.append(cs.save_counted(led, pdb))  # noqa: E731
+    save = lambda _k, led, _results=None: saves.append(cs.save_counted(led, pdb))  # noqa: E731
     verify = CpuVerifier().verify_batch
     _out, node = cs.run_closes(wl, None, verify, on_close=save,
                                on_start=lambda led: save(-1, led))
     cs.run_book(node, dict(bwl, requests=[]), verify,
                 PathPlane(evaluator=make_path_evaluator(routing="host")),
                 first_close=len(wl["closes"]), on_close=save)
+    node["lm"].stop_seal_drainer()
     key = lambda s: [(r["seq"], r["hash"], r["nodes"], r["bytes"]) for r in s]  # noqa: E731
     assert key(saves) == key(jax_saves)
     assert cs.store_digest(records(pdb)) == cs.store_digest(records(jdb))
