@@ -25,32 +25,47 @@ a close really has, and checks every result:
               transaction SHAMap sealed by CudaHasher.hash_tree, then a
               3,000-write / 300-delete delta re-sealed: every root equal
               to the hashlib root, one readback per tree.
-5. close    — a standalone node under a payment flood (CLOSE_SIZES):
-              1,000,000 AccountRoots resumed through
-              LedgerMaster.load_ledger, then 4 closes of 4,096 signed
-              Payments (~2% creating accounts, ~1% with a bad
-              signature). Each close verifies its batch once on the
-              verify plane (K1), applies every payment to the open
-              ledger (each accept also speculated once in close mode)
-              and closes it as the JAX node does by default
-              (close_and_advance: the recorded deltas spliced, the
-              building tree pre-hashed between closes by the seal
-              drainer and adopted, both trees sealed by CudaHasher on
-              two threads beside the txdb rows: K2, K3), then persists
-              it through the close pipeline (ClosePipeline: the node
-              store, a file-backed txdb and a file-backed CLF, whose
-              first commit imports the whole resumed state). Every
-              verdict and TER as expected, no host signature check, K1
-              launched in every close, the drainer and both seal threads
-              launching K2/K3, no error absorbed by the close's helpers,
-              one readback per sealed tree, and every ledger hash and
-              results digest, every close's splice split and adoption
-              and its persisted txdb rows and CLF equal to the JAX
-              package's on the same blobs (START_HASH, CLOSE_HASHES,
-              CLOSE_DIGESTS, DELTAS, TXDB_DIGESTS, CLF_DIGESTS;
-              recomputed by tests/test_torch_close.py's slow test:
+5. close    — the port's standalone Node under a payment flood
+              (CLOSE_SIZES), built from a config beside the chain's store
+              (NODE_CONFIG with PORT_NODE_DEVICE: both crypto planes on
+              the card, K1 for a single signature, admission caps that
+              never bind), its K1 prewarm joined by serve(): 1,000,000
+              AccountRoots resumed through its LedgerMaster.load_ledger,
+              then 4 closes of 4,096 signed Payments (~2% creating
+              accounts, ~1% with a bad signature), each payment a
+              `tx_blob` sent to the HTTP `submit` door one at a time over
+              one keep-alive connection (its signature verified by K1 at
+              batch 1, admitted by the TxQ, applied to the open ledger
+              and speculated once in close mode), each close a
+              `ledger_accept` at a pinned close time (the JAX node's
+              default close: the recorded deltas spliced, the building
+              tree pre-hashed between closes by the seal drainer and
+              adopted, both trees sealed on two threads beside the txdb
+              rows, through the node's WatchdogHasher: K2, K3), then
+              persisted by the node's close pipeline (its segstore node
+              store, file-backed txdb and CLF, whose first commit imports
+              the whole resumed state). A WebSocket client on the
+              `ledger` stream must see every close's hash; the last close
+              runs between the `profile` RPC's start and stop, and its
+              trace gives the card's busy share of it. Then the read
+              RPCs (`ledger_closed`, `account_info`, `tx`, `account_tx`)
+              and `get_counts`. Every answer's TER as expected, no host
+              signature check, K1 launched once a submit at batch 1,
+              device share 1.0, nothing wedged, the drainer and both seal
+              threads launching K2/K3 (counted by the role of the thread
+              that called the watchdog), no error absorbed by the close's
+              helpers, one readback per sealed tree, and every ledger
+              hash and results digest, every close's splice split and
+              adoption, its persisted txdb rows and CLF, and the read
+              answers equal to the JAX package's node driven the same
+              way on the same blobs (START_HASH, CLOSE_HASHES,
+              CLOSE_DIGESTS, DELTAS, TXDB_DIGESTS, CLF_DIGESTS,
+              READ_DIGESTS; recomputed by tests/test_torch_close.py's
+              slow test:
               JAX_PLATFORMS=cpu python -m pytest tests/test_torch_close.py -m slow -q -s).
-              Then K1 against its plain version on a close's batch.
+              Then K1 against its plain version on a close's batch and
+              at batch sizes 1-33 (good, bad S, non-canonical S,
+              undecodable key), and timed at batch 1.
 6. book     — the order book on the same chain (BOOK_SIZES, BASELINE
               configs #2 and #3): 16 gateways issuing 32 IOUs (four set a
               TransferRate), 2,048 traders with two trust lines each,
@@ -59,13 +74,16 @@ a close really has, and checks every result:
               asks and bids on overlapping price ladders over 32 IOU/STR
               and 32 IOU/IOU markets, cancels, AccountSets signed with
               the regular key, cross-currency path payments, merges, ~1%
-              bad signatures). Each close verified by K1, applied by the
-              port's transactors, closed and persisted as in the close
-              phase, and the path plane's live book index advanced; then
-              the close pipeline is drained, and 64 path searches run
-              on the last ledger, pre-ranked by K4 through
-              PathPlane(evaluator=make_path_evaluator(routing="device"))
-              with the prune floor BOOK_PRUNE_FLOOR. Every verdict as
+              bad signatures). Each close verified by K1 on the node's
+              verify plane, applied by the port's transactors, closed
+              and persisted as in the close phase, and the node's path
+              plane's live book index advanced; then the close pipeline
+              is drained, and 64 path searches run on the last ledger,
+              pre-ranked by K4 through the node's path plane (its
+              evaluator routing=device, the prune floor
+              BOOK_PRUNE_FLOOR), 4 of them again through its
+              `ripple_path_find` door, each answer equal to the direct
+              one. Every verdict as
               expected, every ledger hash and results digest, splice
               split, adoption, persisted digest and the digest of the
               path answers equal to the JAX package's (BOOK_HASHES,
@@ -131,6 +149,7 @@ import sys
 import threading
 import time
 from pathlib import Path
+from typing import Optional
 
 HERE = Path(__file__).resolve().parent
 
@@ -765,15 +784,12 @@ class ChainPersist:
     stages are ``save_stage`` (the node store), the txdb (header and rows
     in one transaction) and the CLF commit against its parent. After
     each ledger is persisted, its txdb rows and the whole CLF are
-    digested on the pipeline's worker (``digests``, by sequence)."""
+    digested on the pipeline's worker (``digests``, by sequence), and its
+    stage ms kept (``clock.ms``, by sequence)."""
 
     def __init__(self, lm, pipeline_cls, txdb, clf, build_tx_rows, results_from_meta,
                  save_stage, depth: int = 8):
-        self.lm, self.txdb, self.clf = lm, txdb, clf
-        self.digests: dict[int, dict] = {}
-        self._landed = threading.Condition()
-        self._submitted = self._failed = 0
-        self.clock = StageClock()
+        self._begin(lm, txdb, clf)
         lm.persist_prep = build_tx_rows
 
         def txdb_stage(ledger, results):
@@ -790,33 +806,73 @@ class ChainPersist:
         self.pipeline = pipeline_cls(
             save_stage=save_stage, txdb_stage=txdb_stage, clf_stage=clf_stage,
             recover_results=results_from_meta, depth=depth, tracer=self.clock)
+        self._persisted0 = 0
+        self._persist_close = lambda ledger, results: self.pipeline.submit_close(
+            ledger, results, done=lambda res: self.note(ledger, res))
+
+    @classmethod
+    def of_node(cls, node, on_persisted=None) -> "ChainPersist":
+        """The same digests around a node's own persistence, through its
+        public surface: each closed ledger reaches ``Node.on_persisted``
+        once its node-store, txdb and CLF writes have committed (on the
+        close pipeline's worker, before the next ledger's writes start);
+        then ``on_persisted(ledger, stage_ms)`` runs (the stage ms from
+        ``ClosePipeline.last_stage_ms``) and the digests are taken. A
+        ledger closed on the node's LedgerMaster directly is handed to
+        ``Node.persist_close`` by ``submit``."""
+        self = cls.__new__(cls)
+        self._begin(node.ledger_master, node.txdb, node.clf)
+        self.pipeline = node.close_pipeline
+        self._persisted0 = self.pipeline.persisted
+        self._persist_close = node.persist_close
+        self._on_persisted = on_persisted
+        node.on_persisted.append(self.note)
+        return self
+
+    def _begin(self, lm, txdb, clf) -> None:
+        self.lm, self.txdb, self.clf = lm, txdb, clf
+        self.digests: dict[int, dict] = {}
+        self.errors: list[str] = []
+        self._landed = threading.Condition()
+        self._on_persisted = None
+        self.clock = StageClock()
+
+    def note(self, ledger, _results) -> None:
+        """One persisted ledger: its stage ms, ``on_persisted``, its
+        digests. An error here is kept (``flush`` fails on it)."""
+        seq = ledger.seq
+        try:
+            stage_ms = getattr(self.pipeline, "last_stage_ms", None)
+            if stage_ms is not None:  # a node's pipeline; else the StageClock has them
+                with self.clock._lock:
+                    self.clock.ms[seq] = dict(stage_ms)
+            if self._on_persisted is not None:
+                self._on_persisted(ledger, self.clock.ms.get(seq, {}))
+            dg = {"txdb": txdb_digest(self.txdb, seq), "clf": clf_digest(self.clf)}
+        except Exception as exc:  # noqa: BLE001 — reported by flush
+            with self._landed:
+                self.errors.append(f"ledger {seq}: {exc!r}")
+                self._landed.notify_all()
+            return
+        with self._landed:
+            self.digests[seq] = dg
+            self._landed.notify_all()
 
     def submit(self, ledger, results) -> None:
-        seq = ledger.seq
-        self._submitted += 1
-
-        def done(_results):
-            dg = {"txdb": txdb_digest(self.txdb, seq), "clf": clf_digest(self.clf)}
-            with self._landed:
-                self.digests[seq] = dg
-                self._landed.notify_all()
-
-        def failed():
-            with self._landed:
-                self._failed += 1
-                self._landed.notify_all()
-
-        self.pipeline.submit_close(ledger, results, done=done, on_failed=failed)
+        self._persist_close(ledger, results)
 
     def flush(self) -> None:
-        """Wait until every ledger submitted so far is persisted and
-        digested (the pipeline's ``done`` runs after its own flush
-        returns) or has failed."""
+        """Wait until every ledger persisted so far is digested (the
+        pipeline's ``done`` runs after its own flush returns). A ledger
+        that failed to persist is not waited for: its digests are
+        missing, and the checks that read them fail."""
         require(self.pipeline.flush(timeout=3600), "the close pipeline did not drain")
         with self._landed:
             require(self._landed.wait_for(
-                lambda: len(self.digests) + self._failed >= self._submitted, timeout=3600),
+                lambda: len(self.digests) + len(self.errors)
+                >= self.pipeline.persisted - self._persisted0, timeout=3600),
                 "a persisted ledger was never digested")
+        require(not self.errors, f"digesting persisted ledgers failed: {self.errors}")
 
     def stop(self) -> None:
         """Drain the pipeline (every queued ledger persisted first) and
@@ -827,7 +883,8 @@ class ChainPersist:
 
 def run_closes(wl: dict, hash_batch, verify_many, on_close=None,
                on_start=None, setup=None) -> tuple[list[dict], dict]:
-    """The port's standalone node over the workload: the start ledger
+    """The close phase without the node's doors, its LedgerMaster driven
+    by hand (the CPU tests hold the door's closes to it): the start ledger
     through LedgerMaster.load_ledger (then ``on_start(start)`` and
     ``setup(lm)``), then per close one batched verify of its
     transactions (node/ledgertools._reverify_memoized, verdicts memoized
@@ -900,6 +957,331 @@ def _one_close(lm, router, verify_many, entries, k: int, mode, gc_clock) -> dict
         "seal_state_nodes": last["seal_state_nodes"],
         "gc_ms": gc_clock.ms - gc_ms, "gc_full_collections": gc_clock.full - gc_full,
     }
+
+
+# --------------------------------------------------------------------------
+# the standalone node and its doors: the close phase's payment flood enters
+# through HTTP `submit` and is closed by `ledger_accept`
+
+# the node's config, beside its store (either package's Config.from_ini
+# reads it): the segstore node store, the file-backed txdb (and the CLF
+# beside it), admission caps that never bind (bench.py's _drive_node:
+# shedding and queueing depend on timing, and the closes must be the
+# workload's), the path plane's prune floor, and ephemeral doors
+NODE_CONFIG = """
+[standalone]
+1
+
+[node_db]
+type=segstore
+path={store}/nodestore
+
+[database_path]
+{store}/txdb.db
+
+[txq]
+min_cap=1000000
+max_cap=1000000
+
+[rpc_port]
+0
+
+[websocket_port]
+0
+{extra}
+"""
+# this package's node on the card, its routing defaults written out:
+# every door's single signature to K1 (the JAX default sends batches
+# under 64 to the host), every tree to K2/K3, and the path plane
+# pre-ranking on K4 with the book phase's floor (the JAX defaults,
+# min_device_batch 256 and cost routing, would send every batch of 34-50
+# candidates to the host)
+PORT_NODE_DEVICE = """
+[signature_backend]
+type=cuda
+device={dev}
+routing=device
+min_device_batch=1
+
+[hash_backend]
+type=cuda
+device={dev}
+routing=device
+min_device_nodes=0
+
+[paths]
+routing=device
+min_device_batch=1
+prune_floor={floor}
+"""
+
+
+def node_config_text(store: Path, extra: str) -> str:
+    return NODE_CONFIG.format(store=store, extra=extra)
+
+
+class HttpRpc:
+    """One keep-alive HTTP connection to a node's JSON-RPC door."""
+
+    def __init__(self, port: int):
+        import http.client
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=3600)
+
+    def call(self, method: str, **params) -> dict:
+        body = json.dumps({"method": method, "params": [params]})
+        self.conn.request("POST", "/", body, {"Content-Type": "application/json"})
+        return json.loads(self.conn.getresponse().read())["result"]
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+class WsClient:
+    """A minimal RFC 6455 client of a node's WebSocket door, whose
+    reader thread keeps every stream message it receives."""
+
+    def __init__(self, port: int):
+        import base64
+        import os
+        import socket
+
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout=3600)
+        key = base64.b64encode(os.urandom(16)).decode()
+        self.sock.sendall((
+            "GET / HTTP/1.1\r\nHost: localhost\r\nUpgrade: websocket\r\n"
+            f"Connection: Upgrade\r\nSec-WebSocket-Key: {key}\r\n"
+            "Sec-WebSocket-Version: 13\r\n\r\n").encode())
+        buf = b""
+        while b"\r\n\r\n" not in buf:
+            buf += self.sock.recv(4096)
+        require(b"101" in buf.split(b"\r\n")[0], "the WebSocket door refused the upgrade")
+        self.messages: list[dict] = []
+        self._responses: list[dict] = []
+        self._cv = threading.Condition()
+        self._reader = threading.Thread(target=self._read_loop, name="ws-client",
+                                        daemon=True)
+        self._reader.start()
+
+    def _read_exact(self, n: int) -> bytes:
+        out = b""
+        while len(out) < n:
+            chunk = self.sock.recv(n - len(out))
+            if not chunk:
+                raise ConnectionError("closed")
+            out += chunk
+        return out
+
+    def _read_loop(self) -> None:
+        import struct
+
+        try:
+            while True:
+                b1, b2 = self._read_exact(2)
+                n = b2 & 0x7F
+                if n == 126:
+                    (n,) = struct.unpack(">H", self._read_exact(2))
+                elif n == 127:
+                    (n,) = struct.unpack(">Q", self._read_exact(8))
+                payload = self._read_exact(n)
+                if b1 & 0x0F != 0x1:
+                    continue  # only text frames carry JSON
+                msg = json.loads(payload)
+                with self._cv:
+                    (self._responses if msg.get("type") == "response"
+                     else self.messages).append(msg)
+                    self._cv.notify_all()
+        except (ConnectionError, OSError):
+            pass
+
+    def call(self, command: str, **params) -> dict:
+        import os
+        import struct
+
+        payload = json.dumps(dict(params, command=command, id=1)).encode()
+        mask = os.urandom(4)
+        n = len(payload)
+        head = bytes([0x81]) + (bytes([0x80 | n]) if n < 126
+                                else bytes([0x80 | 126]) + struct.pack(">H", n))
+        self.sock.sendall(head + mask + bytes(b ^ mask[i & 3] for i, b in enumerate(payload)))
+        with self._cv:
+            require(self._cv.wait_for(lambda: self._responses, timeout=600),
+                    f"no WebSocket answer to {command}")
+            return self._responses.pop(0)
+
+    def wait_for(self, pred, timeout: float) -> bool:
+        with self._cv:
+            return self._cv.wait_for(lambda: pred(self.messages), timeout=timeout)
+
+    def close(self) -> None:
+        import socket
+
+        with contextlib.suppress(OSError):
+            self.sock.shutdown(socket.SHUT_RDWR)
+        self.sock.close()
+        self._reader.join(timeout=10)
+
+
+class Timed:
+    """Wrap ``obj.name`` (an instance's method) to add its wall ms to
+    ``ms``; ``restore()`` puts the method back."""
+
+    def __init__(self, obj, name: str):
+        self.obj, self.name, self.ms = obj, name, 0.0
+        orig = getattr(obj, name)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return orig(*a, **kw)
+            finally:
+                self.ms += (time.perf_counter() - t0) * 1e3
+
+        setattr(obj, name, timed)
+
+    def restore(self) -> None:
+        delattr(self.obj, self.name)
+
+
+def busy_share(trace_path: str, wall_ms: float) -> dict:
+    """The share of a profiled window's host wall ms in which the card ran
+    a kernel, from the torch.profiler Chrome trace of that window: the
+    union of its kernel events' intervals (kernels that overlap count
+    once), over ``wall_ms``."""
+    with open(trace_path) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                   for e in events if e.get("cat") == "kernel" and "ts" in e)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return {"kernel_events": len(spans), "busy_ms": busy / 1e3, "wall_ms": wall_ms,
+            "busy_share": busy / 1e3 / wall_ms}
+
+
+def drive_node_closes(node, wl: dict, profile_close: Optional[int] = None) -> dict:
+    """The close phase through a serving node's doors (either package's
+    Node, its chain already resumed): for each close k, the clock pinned
+    to START_CLOSE_TIME + 30 (k + 1) (bench.py's pin), every blob of the
+    close submitted as a `tx_blob` to the HTTP `submit` door one at a
+    time, in the workload's order, over one keep-alive connection, then
+    `ledger_accept`. A WebSocket client subscribed to the `ledger` stream
+    keeps what it is sent. With ``profile_close``, that close runs
+    between the `profile` RPC's start and stop. Returns per close the
+    ledger hash, the results digest, the answers' TERs, what the delta
+    replay did and the times: the submits' wall, and within it the
+    verify plane's and the open apply's (LedgerMaster.do_transaction,
+    through the TxQ) ms, then the ledger_accept's."""
+    from stellard_tpu_torch.protocol.sttx import SerializedTransaction
+
+    lm = node.ledger_master
+    closed: list = []
+    node.ops.on_ledger_closed.append(lambda led, res: closed.append((led, res)))
+    http = HttpRpc(node.http_server.port)
+    ws = WsClient(node.ws_server.port)
+    sub = ws.call("subscribe", streams=["ledger"])
+    require(sub.get("status") == "success", f"ledger stream subscription failed: {sub}")
+    apply, verify = Timed(lm, "do_transaction"), Timed(node.verify_plane, "verify_many")
+    gc_clock = GcClock()
+    gc.callbacks.append(gc_clock)
+    out, profile = [], None
+    try:
+        for k, entries in enumerate(wl["closes"]):
+            when = START_CLOSE_TIME + 30 * (k + 1)
+            node.ops.network_time = lambda when=when: when
+            blobs = [blob.hex().upper() for blob, _kind, _good in entries]
+            txids = [SerializedTransaction.from_bytes(blob).txid() for blob, _k, _g in entries]
+            gc_ms, gc_full = gc_clock.ms, gc_clock.full
+            apply.ms = verify.ms = 0.0
+            before = lm.delta_stats.snapshot()
+            if k == profile_close:
+                profile = http.call("profile", action="start")
+                require("error" not in profile and profile.get("dir"), f"profile start: {profile}")
+            ta = time.perf_counter()
+            answers = [http.call("submit", tx_blob=b) for b in blobs]
+            tb = time.perf_counter()
+            accept = http.call("ledger_accept")
+            tc = time.perf_counter()
+            if k == profile_close:
+                stop = http.call("profile", action="stop")
+                require("error" not in stop and stop.get("trace"), f"profile stop: {stop}")
+                profile = {"trace": stop["trace"]}
+            require(accept.get("ledger_current_index") == START_SEQ + k + 2,
+                    f"ledger_accept: {accept}")
+            ledger, results = closed[-1]
+            open_ters = [(txid, int(a["engine_result_code"])) for txid, a in zip(txids, answers)]
+            last = lm.last_close
+            out.append({
+                "seq": ledger.seq, "hash": ledger.hash().hex(), "ledger": ledger,
+                "results": results, "digest": results_digest(open_ters, results),
+                "close_digest": close_results_digest(results),
+                "delta": close_delta(lm, before),
+                "engine_results": [a["engine_result"] for a in answers],
+                "open_ters": [t for _, t in open_ters],
+                "close_ters": {txid: int(t) for txid, t in results.items()},
+                "wall_ms": (tc - ta) * 1e3, "submit_ms": (tb - ta) * 1e3,
+                "door_ms_per_tx": (tb - ta) * 1e3 / len(entries),
+                "verify_ms": verify.ms, "apply_ms": apply.ms, "close_ms": (tc - tb) * 1e3,
+                # (the JAX package's LedgerMaster keeps no per-tree seal times)
+                **{key: last.get(key) for key in (
+                    "seal_tx_ms", "seal_tx_nodes", "seal_state_ms", "seal_state_nodes")},
+                "close_apply_ms": last["apply_ms"], "close_seal_ms": last["seal_ms"],
+                "gc_ms": gc_clock.ms - gc_ms, "gc_full_collections": gc_clock.full - gc_full,
+            })
+        require(ws.wait_for(lambda m: sum(x.get("type") == "ledgerClosed" for x in m)
+                            >= len(out), timeout=60),
+                "the ledger stream did not deliver every close")
+    finally:
+        gc.callbacks.remove(gc_clock)
+        apply.restore()
+        verify.restore()
+        http.close()
+        ws.close()
+    stream = [m["ledger_hash"].lower() for m in ws.messages if m.get("type") == "ledgerClosed"]
+    return {"closes": out, "stream": stream, "profile": profile}
+
+
+def read_back(node, wl: dict) -> dict:
+    """The read RPCs after the close phase, through the HTTP door:
+    `ledger_closed`, `account_info` of 8 seeded accounts, `tx` of 8
+    seeded transactions and `account_tx` of one sender -> each answer's
+    digest (read_digest) and the closed ledger's hash."""
+    import numpy as np
+
+    from stellard_tpu_torch.protocol.keys import encode_account_id
+    from stellard_tpu_torch.protocol.sttx import SerializedTransaction
+
+    rng = np.random.default_rng(READ_SEED)
+    n_senders = len(wl["sender_seeds"])
+    accounts = [wl["accounts"][int(i)] for i in rng.integers(n_senders, size=4)] + [
+        wl["accounts"][int(i)] for i in rng.integers(n_senders, len(wl["accounts"]), size=4)]
+    flat = [blob for c in wl["closes"] for blob, _k, good in c if good]
+    txids = [SerializedTransaction.from_bytes(flat[int(i)]).txid()
+             for i in rng.integers(len(flat), size=8)]
+    http = HttpRpc(node.http_server.port)
+    try:
+        closed = http.call("ledger_closed")
+        answers = {
+            "account_info": [http.call("account_info", account=encode_account_id(a),
+                                       ledger_index="closed") for a in accounts],
+            "tx": [http.call("tx", transaction=t.hex().upper()) for t in txids],
+            "account_tx": http.call("account_tx", account=encode_account_id(accounts[0]),
+                                    ledger_index_min=-1, ledger_index_max=-1),
+        }
+    finally:
+        http.close()
+    return {"ledger_closed": closed.get("ledger_hash", "").lower(),
+            "digests": {k: read_digest(v) for k, v in answers.items()}, "answers": answers}
+
+
+def read_digest(answer) -> str:
+    """SHA-256 of an RPC answer's JSON (keys sorted)."""
+    return hashlib.sha256(json.dumps(answer, sort_keys=True).encode()).hexdigest()
 
 
 # --------------------------------------------------------------------------
@@ -1313,11 +1695,12 @@ def run(dev) -> None:
 
     # 5. the close phase, counted on its own; the chain saved as it closes ---
     saver = ChainSaver(STORE_DIR)
-    close = close_phase(dev, name_power, saver)
+    close = close_phase(dev, name_power, saver, int32_rate)
 
     # 6. the book phase on the same chain, counted on its own -----------------
     book = book_phase(dev, name_power, close, saver)
     close_launches, close_k1_err = close["launches"], close["k1_max_abs_err"]
+    k1_batch1 = close["k1_batch1"]
     roles = launches_by_role(close["by_thread"], book["by_thread"])
     close_digests = close["close_digests"] + book["close_digests"]
     del close
@@ -1470,6 +1853,16 @@ def run(dev) -> None:
              max_abs_err=k1_err,
              ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_b, bound_by=k1_by,
              library_ms=None),
+        # the same kernel at the RPC door's shape: one signature a submit
+        # (its launches are the close phase's batch-1 launches, a part
+        # of the row above's)
+        dict(name="ed25519_verify (batch 1)", route="cuda",
+             source="stellard_tpu_torch/csrc/ed25519_verify.cu",
+             replaces="stellard_tpu/ops/ed25519_pallas.py:107",
+             launches=k1_batch1["launches"], max_abs_err=close_k1_err,
+             ms=k1_batch1["ms"], plain_ms=k1_batch1["plain_ms"],
+             bound_ms=k1_batch1["bound_ms"], bound_by=k1_batch1["bound_by"],
+             library_ms=None),
         dict(name="sha512_masked", route="cuda",
              source="stellard_tpu_torch/csrc/sha512.cu",
              replaces="stellard_tpu/ops/treehash_jax.py:49",
@@ -1498,88 +1891,126 @@ def run(dev) -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def close_phase(dev, name_power: str, saver) -> dict:
-    """The standalone node under a payment flood (CLOSE_SIZES): 4 closes
-    of 4,096 signed Payments over 1,000,000 AccountRoots, each close one
-    batched verify on the card (K1), the transactor engine's open apply
-    and speculation, and the JAX node's default close: the recorded
-    deltas spliced, the building tree pre-hashed by the seal drainer
-    and adopted, both trees sealed by CudaHasher on two threads (K2,
-    K3) beside the txdb rows, then persisted through the close pipeline
-    (``saver``, a ChainSaver: node store, txdb, CLF). Every verdict, TER,
-    ledger hash, results digest, splice count, adoption and persisted
-    digest is checked; the launch counts are this phase's alone. The
-    start ledger is saved to the node store before the closes."""
+def close_phase(dev, name_power: str, saver, int32_rate: float) -> dict:
+    """The standalone node under a payment flood (CLOSE_SIZES), through
+    its doors. The port's Node is built from a config beside the chain's
+    store (node_config_text, PORT_NODE_DEVICE: every crypto plane on the
+    card, admission caps that never bind), which starts its verify
+    plane's K1 prewarm; the 1,000,000 AccountRoots are resumed through
+    its LedgerMaster.load_ledger and saved to its store; serve() waits
+    for the prewarm and opens the HTTP and WebSocket doors. Then 4 closes
+    of 4,096 signed Payments, each payment a `submit` through HTTP (its
+    signature verified by K1 at batch 1, admitted by the TxQ, applied to
+    the open ledger and speculated), each close a `ledger_accept` (the
+    JAX node's default close: the recorded deltas spliced, the building
+    tree pre-hashed by the seal drainer and adopted, both trees sealed on
+    two threads through the node's WatchdogHasher: K2, K3), persisted
+    through the node's close pipeline (node store, txdb, CLF; ``saver``
+    counts and digests). The last close runs between `profile` start
+    and stop: the card's busy share of it. Every verdict, TER, ledger
+    hash, results digest, splice count, adoption, persisted digest, the
+    `ledger` stream's hashes and the read RPCs' answers are checked; the
+    launch counts are this phase's alone. Then K1 against its plain
+    version on a close's batch and at batch sizes 1-33."""
     import numpy as np
 
-    from stellard_tpu_torch.crypto.backend import CudaHasher
-    from stellard_tpu_torch.node.verifyplane import VerifyPlane
+    from stellard_tpu_torch.interop import ledger_from_items
+    from stellard_tpu_torch.node.config import Config
+    from stellard_tpu_torch.node.node import Node
     from stellard_tpu_torch.ops import ed25519_cuda, treehash
     from stellard_tpu_torch.ops.ed25519 import prepare_batch, to_tensors, verify_kernel_ref
     from stellard_tpu_torch.protocol import keys
     from stellard_tpu_torch.protocol.sttx import SerializedTransaction
     from stellard_tpu_torch.protocol.ter import TER
+    from stellard_tpu_torch.utils import devicewatch
 
     t0 = time.perf_counter()
     wl = close_workload(**CLOSE_SIZES)
     inputs_s = time.perf_counter() - t0
-    hasher = CudaHasher(device=dev)
-    plane = VerifyPlane(backend="cuda", routing="device", backend_opts={"device": dev})
-    k1_per_close = []
-
-    def on_close(k, ledger, results):
-        k1_per_close.append(ed25519_cuda.launches)
-        saver.persist.submit(ledger, results)
 
     ed25519_cuda.launches = 0
+    ed25519_cuda.launches_by_batch.clear()
     treehash.reset_launches()
     keys.host_verifies = 0
-    nodes0 = hasher.device_nodes
-    try:
-        t0 = time.perf_counter()
-        out, node = run_closes(wl, hasher, plane.verify_many, on_close,
-                               on_start=saver.save, setup=saver.attach)
-        closes_s = time.perf_counter() - t0
-    finally:
-        plane.stop()
+    devicewatch.reset_call_stats()
+    t_node = time.perf_counter()
+    cfg = Config.from_ini(node_config_text(
+        saver.path, PORT_NODE_DEVICE.format(dev=dev, floor=BOOK_PRUNE_FLOOR)))
+    node = Node(cfg)  # starts the K1 prewarm
+    hasher = node.hasher.inner  # the CudaHasher behind the watchdog
+    t1 = time.perf_counter()
+    start = ledger_from_items(start_header(), account_root_items(wl["accounts"]),
+                              hash_batch=node.hasher)
+    t2 = time.perf_counter()
+    node.ledger_master.load_ledger(start)  # seals the whole state tree
+    t3 = time.perf_counter()
+    saver.attach_node(node)
+    saver.save(start)
+    node.serve()  # waits for the prewarm
+    t4 = time.perf_counter()
+    prewarm_k1 = dict(ed25519_cuda.launches_by_batch)
+    res = drive_node_closes(node, wl, profile_close=len(wl["closes"]) - 1)
+    closes_s = time.perf_counter() - t4
     launches = {"ed25519_verify": ed25519_cuda.launches, **treehash.launches}
+    by_batch = dict(ed25519_cuda.launches_by_batch)
     by_thread = {k: dict(v) for k, v in treehash.launches_by_thread.items()}
     host_verifies = keys.host_verifies
-    tree = node["lm"].tree_json()
+    watchdog = dict(devicewatch.call_stats)
+    tree = node.ledger_master.tree_json()
     t0 = time.perf_counter()
     saver.persist.flush()
     flush_ms = (time.perf_counter() - t0) * 1e3
+    reads = read_back(node, wl)
+    http = HttpRpc(node.http_server.port)
+    counts = http.call("get_counts")
+    http.close()
 
-    start, closes = out[0], out[1:]
-    pj = plane.get_json()
+    closes = res["closes"]
     n_pay = sum(len(c) for c in wl["closes"])
     for k, (c, entries) in enumerate(zip(closes, wl["closes"])):
         kinds = [kind for _b, kind, _g in entries]
-        require(c["verdicts"] == [g for _b, _k, g in entries], f"close {k}: verdicts wrong")
         want = [int(TER.temINVALID) if kd == "bad_sig" else int(TER.tesSUCCESS)
                 for kd in kinds]
-        require(c["open_ters"] == want, f"close {k}: open-ledger TERs wrong")
+        require(c["open_ters"] == want, f"close {k}: submit answers' TERs wrong")
+        require([r != "temINVALID" for r in c["engine_results"]]
+                == [g for _b, _k, g in entries], f"close {k}: verdicts wrong")
         require(len(c["close_ters"]) == len(kinds) - kinds.count("bad_sig")
                 and set(c["close_ters"].values()) == {int(TER.tesSUCCESS)},
                 f"close {k}: closed TERs wrong")
         require(c["hash"] == CLOSE_HASHES[k], f"close {k}: ledger hash {c['hash']} "
                 f"differs from the JAX package's {CLOSE_HASHES[k]}")
         require(c["digest"] == CLOSE_DIGESTS[k], f"close {k}: results digest differs")
-    require(start["hash"] == START_HASH, "start ledger hash differs from the JAX package's")
+    require(start.hash().hex() == START_HASH, "start ledger hash differs from the JAX package's")
+    require(res["stream"] == CLOSE_HASHES,
+            f"the ledger stream's hashes {res['stream']} are not the closes'")
     check_default_close(closes, 0, saver, "close phase")
+    require(reads["ledger_closed"] == CLOSE_HASHES[-1], "ledger_closed is not the last close")
+    require(reads["digests"] == READ_DIGESTS,
+            f"read RPC answers {reads['digests']} differ from the JAX node's {READ_DIGESTS}")
     require(host_verifies == 0, f"{host_verifies} host signature verifications on the close path")
-    require(pj["device_share"] == 1.0, f"close phase device share {pj['device_share']}")
-    require(all(b - a >= 1 for a, b in zip([0] + k1_per_close, k1_per_close)),
-            f"K1 was not launched in every close: {k1_per_close}")
+    vp, hj = counts["verify_plane"], counts["crypto"]["hash"]
+    require(vp["device_share"] == 1.0 and vp["cpu_sigs"] == 0,
+            f"close phase device share {vp['device_share']}")
+    require(not vp["device_wedged"] and not hj["wedged"], "a device plane wedged")
+    require(all(counts["tree"][k] == 0 for k in ABSORBED),
+            f"errors absorbed by the close's helpers {counts['tree']}")
+    require(node.verify_plane.prewarm_error is None, "the K1 prewarm failed")
+    n_batch1 = by_batch.get(1, 0) - prewarm_k1.get(1, 0)
+    require(n_batch1 == n_pay, f"{n_batch1} K1 launches at batch 1 for {n_pay} submits")
     tt = hasher.tree_transfers
     require(tt.readbacks == hasher.tree_calls, f"readbacks {tt.readbacks} != tree calls "
             f"{hasher.tree_calls}")
     require(launches["sha512_masked"] > 0 and launches["tree_inner_level"] > 0,
             "K2 or K3 never launched in the close phase")
-    check_seal_threads(tree, {}, by_thread, hasher.device_nodes - nodes0, "close phase")
+    check_seal_threads(tree, {}, by_thread, hasher.device_nodes, "close phase")
+    prof_wall = closes[-1]["wall_ms"]
+    busy = busy_share(res["profile"]["trace"], prof_wall)
+    other_wall = float(np.mean([c["wall_ms"] for c in closes[:-1]]))
 
-    # K1 against its plain version at the shape the close gave it (one
-    # close's batch, outside the counted run)
+    # K1 against its plain version at the shapes the close gave it: one
+    # close's batch (the harness's shape, and the prewarm's 4,096), and
+    # every door's single signature -- batches of 1-33 over a good
+    # signature, a bad S, a non-canonical S and an undecodable key
     txs = [SerializedTransaction.from_bytes(b) for b, _k, _g in wl["closes"][0]]
     tens = to_tensors(prepare_batch([tx.signing_pub_key for tx in txs],
                                     [tx.signing_hash() for tx in txs],
@@ -1587,29 +2018,107 @@ def close_phase(dev, name_power: str, saver) -> dict:
     got, plain = ed25519_cuda.verify(**tens), verify_kernel_ref(**tens)
     k1_err = max_abs_err(got, plain)
     require(k1_err == 0, "K1 differs from its plain version on a close's batch")
-    require(got.cpu().numpy().tolist() == closes[0]["verdicts"], "K1 verdicts on a close's batch")
+    require(got.cpu().numpy().tolist() == [g for _b, _k, g in wl["closes"][0]],
+            "K1 verdicts on a close's batch")
+    k1_small = k1_small_batches(dev)
+    k1_err = max(k1_err, k1_small["max_abs_err"])
+    one = to_tensors(prepare_batch([txs[0].signing_pub_key], [txs[0].signing_hash()],
+                                   [txs[0].signature]), dev)
+    b1_ms, _ = cuda_ms(lambda: ed25519_cuda.verify(**one), reps=50)
+    b1_plain_ms, _ = cuda_ms(lambda: verify_kernel_ref(**one), reps=3)
+    b1_bound, b1_by = bound_ms(k1_ops(prepare_batch(
+        [txs[0].signing_pub_key], [txs[0].signing_hash()], [txs[0].signature])),
+        130, int32_rate)
 
+    per_close = [{key: c[key] for key in DOOR_CLOSE_KEYS} for c in closes]
     summary = {
         "card": name_power, "accounts": CLOSE_SIZES["n_accounts"],
         "senders": CLOSE_SIZES["n_senders"], "closes": len(closes), "payments": n_pay,
         "payments_per_s": n_pay / sum(c["wall_ms"] for c in closes) * 1e3,
-        "inputs_s": inputs_s, "build_state_ms": start["build_state_ms"],
-        "load_ms": start["load_ms"], "phase_s": closes_s, "pipeline_flush_ms": flush_ms,
-        "per_close": [{key: c[key] for key in PER_CLOSE_KEYS} for c in closes],
+        "inputs_s": inputs_s, "node_ms": (t1 - t_node) * 1e3, "build_state_ms": (t2 - t1) * 1e3,
+        "load_ms": (t3 - t2) * 1e3, "serve_ms": (t4 - t3) * 1e3, "phase_s": closes_s,
+        "pipeline_flush_ms": flush_ms, "per_close": per_close,
         "kinds": {kd: sum(kind == kd for c in wl["closes"] for _b, kind, _g in c)
                   for kd in ("existing", "new_account", "bad_sig")},
-        "hashes_equal_jax": True, "host_verifies": host_verifies,
-        "device_share": pj["device_share"], "device_batches": pj["device_batches"],
+        "hashes_equal_jax": True, "stream_hashes_equal": True, "reads_equal_jax": True,
+        "host_verifies": host_verifies, "device_share": vp["device_share"],
+        "device_batches": vp["device_batches"], "verify_device_quantiles":
+        vp["latency_histogram_ms"]["device_quantiles"],
         "tree_calls": hasher.tree_calls, "readbacks": tt.readbacks,
-        "k1_launches_per_close": np.diff([0] + k1_per_close).tolist(),
+        "k1_launches_by_batch": {str(k): v for k, v in sorted(by_batch.items())},
+        "k1_prewarm_launches": sum(prewarm_k1.values()), "k1_batch1_submits": n_batch1,
+        "watchdog_calls": watchdog["calls"], "watchdog_start_ms": watchdog["start_ms"],
         "launches": launches, "launches_by_thread": by_thread,
+        "txq": counts["txq"],
     }
     emit("close", **summary)
+    emit("door", card=name_power, per_close=[
+        {"seq": c["seq"], "submit_ms": c["submit_ms"], "door_ms_per_tx": c["door_ms_per_tx"],
+         "verify_ms": c["verify_ms"], "open_apply_ms": c["apply_ms"],
+         "door_only_ms_per_tx": (c["submit_ms"] - c["verify_ms"] - c["apply_ms"])
+         / len(e), "ledger_accept_ms": c["close_ms"]}
+        for c, e in zip(closes, wl["closes"])],
+        k1_batch1_ms=b1_ms, k1_batch1_plain_ms=b1_plain_ms, k1_batch1_bound_ms=b1_bound,
+        k1_small_batches=k1_small["sizes"])
+    emit("busy", card=name_power, seq=closes[-1]["seq"], **busy,
+         profiled_close_wall_ms=prof_wall, other_closes_mean_wall_ms=other_wall,
+         profiler_overhead=prof_wall / other_wall - 1.0)
     emit("delta", of="close", per_close=[dict(c["delta"], seq=c["seq"]) for c in closes],
          tree=tree)
     return {"launches": launches, "by_thread": by_thread, "k1_max_abs_err": k1_err,
             "wl": wl, "node": node, "hasher": hasher,
-            "close_digests": [c["close_digest"] for c in closes]}
+            "close_digests": [c["close_digest"] for c in closes],
+            "k1_batch1": dict(ms=b1_ms, plain_ms=b1_plain_ms, bound_ms=b1_bound,
+                              bound_by=b1_by, launches=n_batch1)}
+
+
+def k1_small_batches(dev) -> dict:
+    """K1 against its plain version and the RFC 8032 oracle at the batch
+    sizes the door gives it and around a warp's edge (1, 2, 3, 4, 31, 32,
+    33), each batch cycling through a good signature, one with a bad S,
+    one with a non-canonical S (S + l) and one under an undecodable key."""
+    import numpy as np
+
+    from stellard_tpu_torch.ops import ed25519_cuda, ed25519_ref
+    from stellard_tpu_torch.ops.ed25519 import prepare_batch, to_tensors, verify_kernel_ref
+
+    pubs, msgs, sigs = sign_pairs(33, seed=71)
+    bad_key = undecodable_key(seed=72)
+    lanes = []
+    for i, (p, m, sg) in enumerate(zip(pubs, msgs, sigs)):
+        kind = i % 4
+        if kind == 1:
+            sg = sg[:32] + bytes([sg[32] ^ 1]) + sg[33:]
+        elif kind == 2:
+            sg = sg[:32] + (int.from_bytes(sg[32:], "little") + ed25519_ref.L).to_bytes(
+                32, "little")
+        elif kind == 3:
+            p = bad_key
+        lanes.append((p, m, sg))
+    err, sizes = 0, {}
+    for n in (1, 2, 3, 4, 31, 32, 33):
+        ps, ms, ss = (list(t) for t in zip(*lanes[:n]))
+        tens = to_tensors(prepare_batch(ps, ms, ss), dev)
+        got, plain = ed25519_cuda.verify(**tens), verify_kernel_ref(**tens)
+        e = max_abs_err(got, plain)
+        oracle = [ed25519_ref.verify(p, m, sg) for p, m, sg in lanes[:n]]
+        require(e == 0 and got.cpu().numpy().tolist() == oracle,
+                f"K1 differs from its plain version or the oracle at batch {n}")
+        err = max(err, e)
+        sizes[str(n)] = int(np.sum(oracle))
+    require(sizes["4"] == 1, "the small-batch lanes are not one good signature in four")
+    return {"max_abs_err": err, "sizes": sizes}
+
+
+# the read RPCs after the close phase (read_back): the seed that picks
+# their accounts and transactions, and the digest of each kind of answer
+# as the JAX package's node gives it on the same blobs (the same slow test)
+READ_SEED = 23
+READ_DIGESTS = {
+    "account_info": "34febc30d3ad796ae7a80f7f3b797fb2774e6f045b0bed24ad205a653344db62",
+    "tx": "d4c61aff023ed2b21876ef9955af1a251de75c8660cc146b5e95915e913aad03",
+    "account_tx": "02149f1e49889ee558312c066d93b48870c71cc487eb8c6bc4ce65c7cf10c873",
+}
 
 
 # the book phase's sizes (BASELINE configs #2 and #3 on the close phase's
@@ -1695,6 +2204,12 @@ CLF_DIGESTS = [
 PER_CLOSE_KEYS = ("seq", "wall_ms", "parse_verify_ms", "apply_ms", "close_ms",
                   "close_apply_ms", "close_seal_ms", "seal_state_ms", "seal_state_nodes",
                   "seal_tx_ms", "seal_tx_nodes", "gc_ms", "gc_full_collections")
+# what one close through the node's doors records of itself (the close
+# line): the submits' wall, the verify plane's and the open apply's ms
+# within it, then the ledger_accept's
+DOOR_CLOSE_KEYS = ("seq", "wall_ms", "submit_ms", "verify_ms", "apply_ms", "close_ms",
+                   "close_apply_ms", "close_seal_ms", "seal_state_ms", "seal_state_nodes",
+                   "seal_tx_ms", "seal_tx_nodes", "gc_ms", "gc_full_collections")
 # errors the default close's helpers (drainer, seal threads, persist rows,
 # fold, speculation, adoption) counted and absorbed: each must stay 0
 ABSORBED = ("drain_errors", "seal_thread_errors", "persist_prep_errors", "fold_errors",
@@ -1761,6 +2276,43 @@ def _expect_open_ters(entries) -> list[int]:
             for _b, kind, _g in entries]
 
 
+# the book phase's searches that also go through the node's
+# ripple_path_find door, spread evenly over BOOK_SIZES' requests
+DOOR_PATH_FINDS = 4
+
+
+def door_path_finds(node, ledger, requests, answers) -> dict:
+    """DOOR_PATH_FINDS of the path searches through the node's HTTP
+    `ripple_path_find` door, on ``ledger`` (by hash), each answer's
+    alternatives held to the direct search's (``answers``) in the door's
+    JSON form."""
+    from stellard_tpu_torch.protocol.keys import encode_account_id
+    from stellard_tpu_torch.protocol.stobject import STPathSet
+
+    stride = max(1, len(requests) // DOOR_PATH_FINDS)
+    picks = list(range(0, len(requests), stride))[:DOOR_PATH_FINDS]
+    http = HttpRpc(node.http_server.port)
+    equal = 0
+    try:
+        for i in picks:
+            src, dst, amount, send_max = requests[i]
+            params = {"ledger_hash": ledger.hash().hex().upper(),
+                      "source_account": encode_account_id(src),
+                      "destination_account": encode_account_id(dst),
+                      "destination_amount": amount.to_json()}
+            if send_max is not None:
+                params["send_max"] = send_max.to_json()
+            got = http.call("ripple_path_find", **params)
+            want = [{"paths_computed": STPathSet(a["paths"]).to_json(),
+                     "source_amount": a["source_amount"].to_json()} for a in answers[i]]
+            require(got.get("alternatives") == want,
+                    f"ripple_path_find of request {i} differs from the direct search: {got}")
+            equal += 1
+    finally:
+        http.close()
+    return {"requests": picks, "equal": equal}
+
+
 def book_phase(dev, name_power: str, close: dict, saver) -> dict:
     """The order book on the close phase's chain (BOOK_SIZES): four
     closes of book_workload — every signature verified on the card (K1),
@@ -1779,31 +2331,26 @@ def book_phase(dev, name_power: str, close: dict, saver) -> dict:
     import numpy as np
     import torch
 
-    from stellard_tpu_torch.crypto.backend import PathQualityEvaluator
-    from stellard_tpu_torch.node.verifyplane import VerifyPlane
     from stellard_tpu_torch.ops import ed25519_cuda, pathq, treehash
-    from stellard_tpu_torch.paths.plane import PathPlane
     from stellard_tpu_torch.protocol import keys
 
     t0 = time.perf_counter()
     bwl = book_workload(close["wl"], **BOOK_SIZES)
     inputs_s = time.perf_counter() - t0
     hasher = close["hasher"]
-    lm = close["node"]["lm"]
+    node = close["node"]
+    lm = node.ledger_master
     calls0, readbacks0 = hasher.tree_calls, hasher.tree_transfers.readbacks
     nodes0, tree0 = hasher.device_nodes, lm.tree_json()
-    plane = VerifyPlane(backend="cuda", routing="device", backend_opts={"device": dev})
+    # the node's own planes: its verify plane (K1) and its path plane,
+    # whose evaluator (K4, routing=device) keeps each batch it is given
+    plane, paths = node.verify_plane, node.path_plane
+    evaluator = paths.evaluator
+    require(evaluator.routing == "device" and paths.prune_floor == BOOK_PRUNE_FLOOR,
+            "the node's path plane is not the book phase's")
     batches = []
-
-    class Recording(PathQualityEvaluator):
-        """The device evaluator, keeping each batch it was given."""
-
-        def evaluate(self, rates):
-            batches.append(np.array(rates, dtype=np.uint32))
-            return super().evaluate(rates)
-
-    evaluator = Recording(routing="device", device=dev)
-    paths = PathPlane(evaluator=evaluator, prune_floor=BOOK_PRUNE_FLOOR)
+    evaluator.batch_observers.append(lambda rates: batches.append(np.array(rates)))
+    ev0, pp0 = evaluator.get_json(), paths.get_json()
     k1_per_close = []
 
     ed25519_cuda.launches = 0
@@ -1823,13 +2370,14 @@ def book_phase(dev, name_power: str, close: dict, saver) -> dict:
             saver.persist.flush()
             drain_ms.append((time.perf_counter() - t) * 1e3)
 
-    try:
-        t0 = time.perf_counter()
-        res = run_book(close["node"], bwl, plane.verify_many, paths,
-                       first_close=len(CLOSE_HASHES), on_close=on_close)
-        phase_s = time.perf_counter() - t0
-    finally:
-        plane.stop()
+    t0 = time.perf_counter()
+    res = run_book({"lm": lm, "router": node.hash_router}, bwl, plane.verify_many, paths,
+                   first_close=len(CLOSE_HASHES), on_close=on_close)
+    phase_s = time.perf_counter() - t0
+    # 4 of the searches again, through the node's `ripple_path_find` door
+    t0 = time.perf_counter()
+    door = door_path_finds(node, lm.closed_ledger(), bwl["requests"], res["answers"])
+    door_paths_ms = (time.perf_counter() - t0) * 1e3
     launches = {"ed25519_verify": ed25519_cuda.launches, **treehash.launches,
                 "path_quality": pathq.launches}
     by_thread = {k: dict(v) for k, v in treehash.launches_by_thread.items()}
@@ -1841,6 +2389,11 @@ def book_phase(dev, name_power: str, close: dict, saver) -> dict:
     stop_ms = (time.perf_counter() - t0) * 1e3
 
     pj, pp, ev = plane.get_json(), paths.get_json(), evaluator.get_json()
+    # the plane's and evaluator's counters of this phase alone (the
+    # node's plane also ranked during the close phase's closes)
+    pp["prune_batches"] -= pp0["prune_batches"]
+    for key in ("device_batches", "host_batches"):
+        ev[key] -= ev0[key]
     for k, (c, entries) in enumerate(zip(res["closes"], bwl["closes"])):
         require(c["verdicts"] == [g for _b, _k, g in entries], f"book close {k}: verdicts")
         require(c["open_ters"] == _expect_open_ters(entries),
@@ -1868,6 +2421,8 @@ def book_phase(dev, name_power: str, close: dict, saver) -> dict:
     require(pp["prune_batches"] > 0, "no path search was pre-ranked")
     require(launches["path_quality"] == ev["device_batches"] == pp["prune_batches"]
             and ev["host_batches"] == 0, "K4 did not rank every pruned search")
+    require(door["equal"] == len(door["requests"]) == DOOR_PATH_FINDS,
+            "a ripple_path_find answer differs from the direct search's")
 
     # K4 against its plain version on every batch the plane gave it
     k4_err = 0
@@ -1891,6 +2446,7 @@ def book_phase(dev, name_power: str, close: dict, saver) -> dict:
                       for c, e in zip(res["closes"], bwl["closes"])],
         "book_kinds": kinds, "requests": len(bwl["requests"]),
         "paths_ms": res["paths_ms"], "paths_gc_ms": res["gc_ms_paths"],
+        "door_path_finds": door["requests"], "door_paths_ms": door_paths_ms,
         "candidates": res["candidates"], "answers": [len(a) for a in res["answers"]],
         "k4_batch_rows": [len(b) for b in batches],
         "hashes_equal_jax": True, "paths_digest_equal_jax": True,
@@ -1914,9 +2470,12 @@ def book_phase(dev, name_power: str, close: dict, saver) -> dict:
          drain_after_closes_ms=drain_ms[0], stop_ms=stop_ms,
          per_ledger=[dict(clock.get(seq, {}), seq=seq) for seq in sorted(clock)],
          clf=saver.clf.get_json(), txdb=saver.txdb.counts())
-    # the pipeline's stages hold the chain's LedgerMaster, and with it
-    # every closed ledger: drop them before the replay loads its own
+    # the node stops (its doors, planes and stores; the CLF's database
+    # closes beside it) and drops the chain: the replay loads its own
+    node.stop()
+    saver.close_sql()
     saver.persist = None
+    close["node"] = None
     return {"launches": launches, "by_thread": by_thread, "k4_max_abs_err": k4_err,
             "close_digests": [c["close_digest"] for c in res["closes"]]}
 
@@ -1934,50 +2493,71 @@ FORGE_SEQ = START_SEQ + REPLAY_FIRST + 2
 
 
 class ChainSaver:
-    """The chain's storage under ``path``, as the JAX node keeps it: an
-    on-disk segstore node store (``nodestore/``; the JAX node's
-    defaults: durability fsync, 5 ms group commit, 64 MB segments), a
-    file-backed txdb (``txdb.db``) and a file-backed CLF (``clf.db``).
-    ``save`` writes one ledger to the node store (save_counted) — the
-    start ledger directly, each closed ledger as the close pipeline's
-    node-store stage; ``attach(lm)`` wires the chain's LedgerMaster to
-    the port's close pipeline over the three (``persist``, a
-    ChainPersist). Keeps the ledger FORGE_SEQ for the replay phase's
-    forgery."""
+    """The chain's storage under ``path``: the node's own (its config,
+    node_config_text, puts them there), an on-disk segstore node store
+    (``nodestore/``; the JAX node's defaults: durability fsync, 5 ms
+    group commit, 64 MB segments), a file-backed txdb (``txdb.db``) and
+    the CLF beside it (``txdb.db.clf``). ``save`` writes one ledger to
+    the node store (save_counted) — the start ledger directly, each
+    closed ledger as the node's close pipeline's node-store stage;
+    ``attach_node`` takes the node's stores and wraps its persistence
+    (``persist``, a ChainPersist). Keeps the ledger FORGE_SEQ for the
+    replay phase's forgery."""
 
     def __init__(self, path: Path):
-        from stellard_tpu_torch.node.txdb import TxDatabase
-        from stellard_tpu_torch.nodestore import make_database
-        from stellard_tpu_torch.state.clf import CLFMirror, LedgerSqlDatabase
-
         shutil.rmtree(path, ignore_errors=True)
         path.mkdir(parents=True)
         self.path = path
         self.db_path = path / "nodestore"
-        self.db = make_database(type="segstore", path=str(self.db_path))
-        self.txdb = TxDatabase(str(path / "txdb.db"))
-        self.clf = CLFMirror(LedgerSqlDatabase(str(path / "clf.db")))
+        self.db = self.txdb = self.clf = None
         self.persist = None
         self.kept = None
         self.saves: list[dict] = []
 
+    def attach_node(self, node) -> None:
+        """Take a node's stores (its config puts them under ``path``:
+        node_config_text) and follow its persistence
+        (ChainPersist.of_node): each closed ledger's node-store save is
+        counted, and its txdb rows and the CLF digested, once persisted."""
+        require(Path(node.config.node_db_path) == self.db_path,
+                "the node's store is not the chain's")
+        self.db, self.txdb, self.clf = node.nodestore, node.txdb, node.clf
+        self._mark = self._marks()
+        self.persist = ChainPersist.of_node(node, on_persisted=self.note_saved)
+
+    def _marks(self) -> tuple[int, int, int]:
+        """The store's nodes written, bytes appended and records so far."""
+        return (len(self.db.flushed), getattr(self.db.backend, "bytes_appended", 0),
+                self.db.backend.records)
+
     def save(self, ledger) -> None:
+        """Save ``ledger`` (the start ledger) into the chain's store and
+        count what it wrote (save_counted)."""
         records0 = self.db.backend.records
         rec = save_counted(ledger, self.db)
         rec["records"] = self.db.backend.records - records0
+        self._keep(ledger, rec)
+
+    def note_saved(self, ledger, stage_ms: dict) -> None:
+        """Count what the node's close pipeline wrote to the store for
+        ``ledger``, as save_counted counts a save: it runs once that
+        ledger is persisted and before the next one's writes start, so
+        the store's counters moved by this ledger's save alone."""
+        nodes, nbytes, records = self._marks()
+        rec = {"seq": ledger.seq, "hash": ledger.hash().hex(),
+               "nodes": nodes - self._mark[0] + 1, "bytes": nbytes - self._mark[1],
+               "ms": stage_ms.get("nodestore"), "records": records - self._mark[2]}
+        self._keep(ledger, rec)
+
+    def _keep(self, ledger, rec: dict) -> None:
         self.saves.append(rec)
+        self._mark = self._marks()
         if ledger.seq == FORGE_SEQ:
             self.kept = ledger
 
-    def attach(self, lm) -> None:
-        from stellard_tpu_torch.node.closepipeline import ClosePipeline
-        from stellard_tpu_torch.node.node import _results_from_meta, build_tx_rows
-
-        self.persist = ChainPersist(lm, ClosePipeline, self.txdb, self.clf, build_tx_rows,
-                                    _results_from_meta, save_stage=self.save)
-
     def close_sql(self) -> None:
-        self.txdb.close()
+        """Close the CLF's database (the node closes its txdb and store
+        when it stops)."""
         self.clf.db.close()
 
 
@@ -2050,7 +2630,8 @@ def replay_phase(dev, name_power: str, saver: ChainSaver, close_digests: list) -
     saves = saver.saves
     first, last = REPLAY_FIRST, REPLAY_FIRST + REPLAY_LEDGERS
     try:
-        db = saver.db
+        # the node stopped and closed its store: catch-up opens it again
+        db = make_database(type="segstore", path=str(saver.db_path))
         require([s["hash"] for s in saves[1:]] == chain,
                 "the saved ledgers are not the closed chain")
         require([s["nodes"] for s in saves] == [s["records"] for s in saves],
@@ -2113,8 +2694,7 @@ def replay_phase(dev, name_power: str, saver: ChainSaver, close_digests: list) -
         host_verifies = keys.host_verifies
         rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
     finally:
-        saver.db.close()
-        saver.close_sql()
+        db.close()
         shutil.rmtree(saver.path, ignore_errors=True)
 
     per = stats["ledgers"]

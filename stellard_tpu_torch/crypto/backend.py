@@ -11,12 +11,21 @@ verification batches and the ledger seal run on.
   (``ops.ed25519_cuda``), K2/K3 masked and inner-level SHA-512
   (``ops.treehash``) — with the digests of a whole tree seal resident
   on the card.
+
+A node builds its hasher with ``make_watched_hasher``: a ``cuda`` hasher
+runs under the wedge watchdog (``WatchdogHasher``), with every batch on
+the card by default, or, as an explicit choice, routed by the
+measured-cost model (``_HashCostModel``) between the card and the host
+above the floor ``min_device_nodes``. A device call that overruns its
+deadline raises, and so does every later call: nothing moves to the
+host after a wedge. ``PathQualityEvaluator`` routes on the same model.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Callable, Iterable, Optional, Sequence
 
@@ -321,6 +330,16 @@ class CudaHasher(BatchHasher):
             self.host_nodes += host
             self.device_nodes += device
 
+    def describe(self) -> dict:
+        return {
+            "device": str(self.device),
+            "device_name": (torch.cuda.get_device_name(self.device)
+                            if self.device.type == "cuda" else "cpu"),
+            "width": self.width,
+            "kernels": (["sha512_masked", "tree_inner_level"]
+                        if self.device.type == "cuda" else "plain"),
+        }
+
     def transfer_json(self) -> dict:
         """Both meters summed (the flat batches' and the whole-tree
         path's): a close's deltas of this block are its residency proof."""
@@ -367,9 +386,17 @@ class CudaHasher(BatchHasher):
 
     # -- whole-tree pipeline ----------------------------------------------
 
-    def hash_tree(self, root) -> int:
+    def hash_tree(self, root, cancelled=None, cancel_lock=None) -> int:
         """Fill every missing node hash of a SHAMap with device-resident
         level-synchronous hashing. Returns the number of nodes hashed.
+
+        ``cancelled``/``cancel_lock`` (a threading.Event and Lock,
+        supplied together by ``WatchdogHasher``): the write-back checks
+        ``cancelled`` and stamps the digests as ONE critical section
+        under ``cancel_lock``, and the watchdog sets ``cancelled`` under
+        the same lock before its host fallback starts. So a call the
+        watchdog abandoned either stamped the whole tree before the
+        fallback began, or stamps nothing.
 
         The host work is per level, not per child: a child of a depth-d
         node sits at depth d + 1, so an inner level's child-row table is
@@ -467,8 +494,11 @@ class CudaHasher(BatchHasher):
         t_write = time.perf_counter()
         self.tree_transfers.down(host.nbytes)
         raw = _digests(host)
-        for node, k in zip(order, range(0, len(raw), 32)):
-            node._hash = raw[k : k + 32]
+        with cancel_lock if cancel_lock is not None else nullcontext():
+            if cancelled is not None and cancelled.is_set():
+                return 0  # abandoned by the watchdog: tree untouched
+            for node, k in zip(order, range(0, len(raw), 32)):
+                node._hash = raw[k : k + 32]
         t_end = time.perf_counter()
         phases = {
             "plan": (t_stage - t_plan) * 1e3,
@@ -524,7 +554,432 @@ register_hasher("cuda", CudaHasher, options=("mesh", "device"))
 
 
 # --------------------------------------------------------------------------
+# the node's hasher: cost routing and the wedge watchdog
+
+
+class _RoutedFlat:
+    """Flat-batch facade over a WatchdogHasher for compute_hashes: the
+    routed/watchdogged prefix+packed paths WITHOUT the hash_tree attr
+    (which would recurse back into the watchdog's tree dispatch)."""
+
+    __slots__ = ("_wd",)
+
+    def __init__(self, wd: "WatchdogHasher"):
+        self._wd = wd
+
+    def __call__(self, prefixes, payloads):
+        return self._wd.prefix_hash_batch(prefixes, payloads)
+
+    def prefix_hash_batch(self, prefixes, payloads):
+        return self._wd.prefix_hash_batch(prefixes, payloads)
+
+    def hash_packed(self, buf, offsets):
+        return self._wd.hash_packed(buf, offsets)
+
+
+def make_watched_hasher(backend: str,
+                        min_device_nodes: int = 0,
+                        mesh=None,
+                        routing: str = "device",
+                        first_timeout: Optional[float] = None,
+                        device="cuda",
+                        ) -> BatchHasher:
+    """The ONE wiring for a possibly-device hasher: the cuda backend is
+    wrapped in the wedge watchdog (a hung device call must fail the
+    close, not freeze it) with a cpu host arm for cost routing; the cpu
+    backend passes through untouched.
+
+    ``mesh`` is the [hash_backend] width axis (one card: ``parse_width``
+    raises above 1). ``routing`` "device" (default) sends every batch
+    at or over ``min_device_nodes`` to the card, "cost" routes by
+    measured cost; ``first_timeout`` is the wedge deadline; ``device``
+    the torch device of the cuda hasher ("cpu" runs the kernels' plain
+    versions)."""
+    if backend != "cuda":
+        return make_hasher(backend)
+    hasher = make_hasher("cuda", mesh=mesh, device=device)
+    return WatchdogHasher(
+        hasher, make_hasher("cpu"), min_device_nodes=min_device_nodes,
+        routing=routing, first_timeout=first_timeout,
+    )
+
+
+class _HashCostModel:
+    """Measured-cost routing for the hash plane (the VerifyPlane
+    stance), over host + device ARMS: per-pow2-bucket EWMAs per arm,
+    first (build-laden) sample discarded per (arm, bucket), one host
+    measurement enables the comparison, and a losing arm re-explores
+    per (arm, bucket) after `reexplore_every` eligible losses (a
+    counter, not a global modulo — a bucket whose calls never align
+    with a global stride must not be starved), bounded to within 4x of
+    the winning cost. Thread-safe: the hasher is shared across node
+    threads."""
+
+    EWMA = 0.3
+    REEXPLORE_BOUND = 4.0
+
+    def __init__(self, reexplore_every: int, min_device_nodes: int = 0,
+                 arms: Sequence[str] = ("device",)):
+        self._lock = threading.Lock()
+        self._reexplore = reexplore_every
+        # floor knob: batches below this size NEVER route to (or explore)
+        # the device — the incremental seal's residual batches are a few
+        # nodes, far below any plausible device win, and without the
+        # floor every tiny residual would re-trigger per-bucket
+        # exploration (a device round-trip per close)
+        self.min_device_nodes = max(0, int(min_device_nodes))
+        self.arms = tuple(arms)
+        # arm -> bucket -> [n_samples, ewma]
+        self._dev: dict[str, dict[int, list]] = {a: {} for a in self.arms}
+        self._host_unit_ms: Optional[float] = None
+        self._losses: dict[tuple[str, int], int] = {}
+
+    @staticmethod
+    def _bucket(n: int) -> int:
+        return 1 << max(0, n - 1).bit_length()
+
+    def _ewma(self, cur: Optional[float], ms: float) -> float:
+        return ms if cur is None else (1 - self.EWMA) * cur + self.EWMA * ms
+
+    def get_json(self) -> dict:
+        """Routing-model snapshot (the get_counts crypto block).
+        `buckets` is the primary device arm's view; `arms` every arm."""
+        with self._lock:
+            arms = {
+                arm: {
+                    str(b): {"samples": s[0], "ewma_ms": s[1]}
+                    for b, s in sorted(slots.items())
+                }
+                for arm, slots in self._dev.items()
+            }
+            return {
+                "min_device_nodes": self.min_device_nodes,
+                "host_unit_ms": self._host_unit_ms,
+                "arms": arms,
+                "buckets": arms[self.arms[-1]],
+                "losses": {
+                    f"{a}:{b}": v
+                    for (a, b), v in sorted(self._losses.items())
+                },
+            }
+
+    def choose(self, n: int, arms: Optional[Sequence[str]] = None) -> str:
+        """Pick the arm for an n-node batch: ``"host"`` or a device arm
+        name. Unmeasured device arms are explored first (in declared
+        order); the host is measured once before any comparison; after
+        that the cheapest measured arm wins, with bounded per-(arm,
+        bucket) re-exploration of close losers."""
+        avail = [a for a in (arms if arms is not None else self.arms)
+                 if a in self._dev]
+        with self._lock:
+            if n < self.min_device_nodes or not avail:
+                return "host"  # below any plausible win size
+            b = self._bucket(n)
+            costs: dict[str, float] = {}
+            for a in avail:
+                slot = self._dev[a].setdefault(b, [0, None])
+                if slot[1] is None:
+                    return a  # unmeasured (or build sample): explore
+                costs[a] = slot[1]
+            if self._host_unit_ms is None:
+                return "host"  # measure the host side once
+            exp_host = self._host_unit_ms * n
+            best_arm = min(costs, key=lambda a: costs[a])
+            if costs[best_arm] <= exp_host:
+                self._losses.pop((best_arm, b), None)
+                winner, best = best_arm, costs[best_arm]
+            else:
+                winner, best = "host", exp_host
+            # losing device arms within striking distance of the winner
+            # accrue losses and periodically re-explore; hopeless arms
+            # (beyond the 4x band) never do
+            for a in avail:
+                if a == winner:
+                    continue
+                if costs[a] > self.REEXPLORE_BOUND * best:
+                    continue
+                k = (a, b)
+                self._losses[k] = self._losses.get(k, 0) + 1
+                if self._losses[k] >= self._reexplore:
+                    self._losses[k] = 0
+                    return a
+            return winner
+
+    def use_device(self, n: int) -> bool:
+        return self.choose(n) != "host"
+
+    def observe(self, arm: str, n: int, ms: float) -> None:
+        if arm == "host":
+            with self._lock:
+                self._host_unit_ms = self._ewma(self._host_unit_ms, ms / n)
+            return
+        with self._lock:
+            slot = self._dev[arm].setdefault(self._bucket(n), [0, None])
+            slot[0] += 1
+            if slot[0] <= 1:
+                return  # discard the build-laden first sample
+            slot[1] = self._ewma(slot[1], ms)
+
+    def observe_device(self, n: int, ms: float) -> None:
+        self.observe(self.arms[-1], n, ms)
+
+    def observe_host(self, n: int, ms: float) -> None:
+        self.observe("host", n, ms)
+
+
+class WatchdogHasher(BatchHasher):
+    """Run a device hasher's calls under a wedge deadline
+    (utils.devicewatch): a device call that never returns would freeze
+    every ledger close. An overrun raises ``DeviceWedged`` to the caller
+    (the close fails) and marks the hasher, and the process-wide device
+    verdict, wedged: every later call raises too, whatever its routing,
+    and ``get_json`` reports it. An error the device call raises — a
+    failed kernel build or launch, a CUDA error — propagates unchanged.
+    ``fallback`` is the host arm of cost routing, never a substitute
+    for a failed card.
+
+    Every hashing call gets the generous first-call deadline: the
+    hasher launches K2 and K3 on shapes the wrapper cannot enumerate,
+    so no call is provably build-free.
+
+    The inner hasher's meters are read through ``inner`` (and summed in
+    ``transfer_json``); ``device_nodes``/``host_nodes`` sum the inner
+    and the fallback.
+    """
+
+    # [tree] fused kill-switch surface: node.py stamps cfg.tree_fused
+    # here, and shamap.compute_hashes / ledgermaster._drain_loop consult
+    # it before taking the whole-tree device pipeline (fused=0 keeps
+    # the staged per-level hash_packed path — the identity leg)
+    fused_enabled = True
+
+    def __init__(self, inner: BatchHasher, fallback: BatchHasher,
+                 first_timeout: Optional[float] = None,
+                 warm_timeout: Optional[float] = None,
+                 min_device_nodes: int = 0,
+                 routing: str = "device"):
+        from ..utils.devicewatch import resolve_timeouts
+
+        self.inner = inner
+        self.fallback = fallback
+        self.name = inner.name
+        self._t_first, _ = resolve_timeouts(first_timeout, warm_timeout)
+        self.device_wedged = False
+        # routing="device" sends every batch the floor admits to the
+        # card; "cost" is measured-cost routing (same stance as
+        # VerifyPlane's model: the device must EARN traffic; a losing
+        # device floors at the host path instead of dragging a leg, and
+        # is re-explored bounded)
+        if routing not in ("cost", "device"):
+            raise ValueError(
+                f"hash routing must be cost|device, got {routing!r}"
+            )
+        self.routing = routing
+        self._route_by_cost = routing != "device"
+        # device floor: flat batches below this size never route to the
+        # device, and under cost routing tree hashing with a
+        # caller-supplied dirty-count hint below it goes straight to the
+        # host level-batcher
+        floor = int(min_device_nodes)
+        if floor < 0:
+            raise ValueError(f"min_device_nodes must be >= 0, got {floor}")
+        self.min_device_nodes = floor
+        self._flat = _HashCostModel(
+            reexplore_every=256, min_device_nodes=floor, arms=("device",),
+        )
+        # tree model buckets per-node RATE in the size-independent
+        # bucket 1 — the floor applies via the hash_tree hint, not here
+        self._tree = _HashCostModel(reexplore_every=64)
+
+    @property
+    def device_nodes(self):  # type: ignore[override]
+        return self.inner.device_nodes
+
+    @device_nodes.setter
+    def device_nodes(self, value):  # counter reset
+        self.inner.device_nodes = value
+
+    @property
+    def host_nodes(self):  # type: ignore[override]
+        return self.inner.host_nodes + self.fallback.host_nodes
+
+    @host_nodes.setter
+    def host_nodes(self, value):  # counter reset
+        # round-trips: getter sums inner + fallback, so the value goes
+        # to inner and the fallback's share zeroes
+        self.inner.host_nodes = value
+        self.fallback.host_nodes = 0
+
+    def _wedge(self, exc: Exception) -> None:
+        from ..utils.devicewatch import log as dlog
+
+        self.device_wedged = True
+        dlog.error("hash plane: %s — every later hashing call raises", exc)
+
+    def _check_alive(self) -> None:
+        from ..utils.devicewatch import HEALTH, DeviceWedged
+
+        if self.device_wedged or HEALTH.dead:
+            self.device_wedged = True
+            raise DeviceWedged(
+                "the device is wedged; nothing is hashed on the host "
+                "instead (restart the node)"
+            )
+
+    def prefix_hash_batch(self, prefixes, payloads):
+        return self._routed(
+            len(prefixes),
+            lambda: self.inner.prefix_hash_batch(prefixes, payloads),
+            lambda: self.fallback.prefix_hash_batch(prefixes, payloads),
+        )
+
+    def hash_packed(self, buf, offsets):
+        """Routed flat-buffer hashing (the seal/flush path): same cost
+        model and wedge watchdog as the (prefix, payload) shape."""
+        return self._routed(
+            len(offsets) - 1,
+            lambda: self.inner.hash_packed(buf, offsets),
+            lambda: self.fallback.hash_packed(buf, offsets),
+        )
+
+    def _routed(self, n, device_call, host_fn):
+        """Host/device dispatch: cost mode picks the cheaper measured
+        side (exploring an unmeasured device bucket), device mode sends
+        every batch at or above the floor to the card."""
+        from ..utils.devicewatch import DeviceWedged, call_with_deadline
+
+        self._check_alive()
+        use_device = False
+        if n > 0:
+            if not self._route_by_cost:
+                use_device = n >= self.min_device_nodes
+            else:
+                use_device = self._flat.use_device(n)
+        if use_device:
+            t0 = time.perf_counter()
+            try:
+                out = call_with_deadline(
+                    device_call, self._t_first, label="hash-device",
+                )
+            except DeviceWedged as exc:
+                self._wedge(exc)
+                raise
+            self._flat.observe_device(n, (time.perf_counter() - t0) * 1000.0)
+            return out
+        t0 = time.perf_counter()
+        out = host_fn()
+        if n > 0:
+            self._flat.observe_host(n, (time.perf_counter() - t0) * 1000.0)
+        return out
+
+    def get_json(self) -> dict:
+        """Hash-plane routing snapshot: the device, the routing mode and
+        floor, the node counters, transfers and both cost models."""
+        describe = getattr(self.inner, "describe", None)
+        return {
+            "backend": self.name,
+            "wedged": self.device_wedged,
+            "routing": self.routing,
+            "arms": ["device"],
+            "fused": bool(self.fused_enabled),
+            "mesh": describe() if describe is not None else None,
+            "device_nodes": self.device_nodes,
+            "host_nodes": self.host_nodes,
+            "min_device_nodes": self.min_device_nodes,
+            "transfers": self.transfer_json(),
+            "flat_model": self._flat.get_json(),
+            "tree_model": self._tree.get_json(),
+        }
+
+    def transfer_json(self) -> Optional[dict]:
+        """Transfer-honesty aggregate of the inner hasher: both meters,
+        the flat ``transfers`` and the whole-tree ``tree_transfers``
+        (kept apart on the inner so the one-readback-per-tree pin stays
+        crisp there). Per-close deltas of this block are the residency
+        proof."""
+        agg: Optional[dict] = None
+        for meter in (getattr(self.inner, "transfers", None),
+                      getattr(self.inner, "tree_transfers", None)):
+            if meter is None:
+                continue
+            j = meter.get_json()
+            if agg is None:
+                agg = dict(j)
+            else:
+                for k, v in j.items():
+                    agg[k] = agg.get(k, 0) + v
+        return agg
+
+    def flat_hasher(self) -> "_RoutedFlat":
+        """This hasher's routed FLAT facade (no hash_tree attr): tree
+        hashing through it level-batches into the routed hash_packed
+        path."""
+        return _RoutedFlat(self)
+
+    def _host_tree(self, root) -> int:
+        """Level-batched hashing through the watched flat path."""
+        from ..state.shamap import compute_hashes
+
+        return compute_hashes(root, _RoutedFlat(self))
+
+    def hash_tree(self, root, hint_nodes: Optional[int] = None) -> int:
+        from ..utils.devicewatch import DeviceWedged, call_with_deadline
+
+        self._check_alive()
+        inner_tree = getattr(self.inner, "hash_tree", None)
+        if inner_tree is None:
+            return self._host_tree(root)
+        if (
+            hint_nodes is not None
+            and hint_nodes < self.min_device_nodes
+            and self._route_by_cost
+        ):
+            # caller-declared small dirty set (incremental-seal residual
+            # drains): below any plausible device win, and exploring the
+            # device per tiny batch would burn a round-trip per close
+            return self._host_tree(root)
+        if self._route_by_cost and not self._tree.use_device(1):
+            from ..state.shamap import compute_hashes
+
+            t0 = time.perf_counter()
+            count = compute_hashes(root, self.fallback)
+            if count:
+                self._tree.observe_host(
+                    count, (time.perf_counter() - t0) * 1000.0
+                )
+            return count
+        cancel = threading.Event()
+        lock = threading.Lock()
+        t0 = time.perf_counter()
+        try:
+            count = call_with_deadline(
+                lambda: inner_tree(root, cancelled=cancel, cancel_lock=lock),
+                self._t_first, label="hash-device",
+            )
+        except DeviceWedged as exc:
+            # setting cancelled under the shared lock means the abandoned
+            # call either already stamped the whole tree or stamps
+            # nothing: the tree is never left half-hashed behind the
+            # caller's back
+            with lock:
+                cancel.set()
+            self._wedge(exc)
+            raise
+        if count:
+            # per-node rate in the size-independent bucket 1
+            self._tree.observe_device(
+                1, (time.perf_counter() - t0) * 1000.0 / count
+            )
+        return count
+
+
+# --------------------------------------------------------------------------
 # path-quality plane: Q16.16 candidate evaluation on K4
+
+# candidate batches below this never route to the device under cost
+# routing: a path_find with a handful of candidates can never amortize a
+# launch
+PATHQ_DEVICE_FLOOR = 256
 
 
 class PathQualityEvaluator:
@@ -534,34 +989,39 @@ class PathQualityEvaluator:
     Two arms give the same bytes: the NumPy host arm
     (``ops.pathq.path_quality_host``) and K4 on the card
     (``ops.pathq.path_quality``). ``routing``: "device" (default) runs
-    every batch on K4 on ``device``; "host" runs the host arm. The JAX
-    package's measured-cost routing ("cost") and mesh widths above one
-    are not ported (ROADMAP Queue A item 3 and item 2) and raise. A
+    every batch on K4 on ``device``; "host" runs the host arm; "cost"
+    routes each batch by the measured-cost model (``_HashCostModel``:
+    per-pow2-bucket EWMAs, the first sample discarded, bounded
+    re-exploration, and batches under ``min_device_batch`` on the
+    host). Mesh widths above one raise (ROADMAP Queue A item 5). A
     device batch never falls back to the host arm: a failed build or
     launch raises."""
 
-    def __init__(self, mesh=None, routing: Optional[str] = None, device="cuda"):
+    def __init__(self, mesh=None, routing: Optional[str] = None,
+                 device="cuda", min_device_batch: int = PATHQ_DEVICE_FLOOR):
         routing = (routing or "device").strip().lower()
-        if routing == "cost":
-            raise NotImplementedError(
-                "path evaluator routing='cost' needs the measured-cost model "
-                "(_HashCostModel), not ported yet (ROADMAP Queue A item 3); "
-                "use routing='device' or 'host'"
-            )
-        if routing not in ("device", "host"):
+        if routing not in ("device", "host", "cost"):
             raise ValueError(
-                f"path evaluator routing must be device|host, got {routing!r}"
+                f"path evaluator routing must be cost|device|host, got {routing!r}"
             )
         try:
             self.width = parse_width(mesh)
         except ValueError:
             raise ValueError(
                 f"mesh={mesh!r}: path evaluation across more than one card is "
-                "not ported yet (ROADMAP Queue A item 2)"
+                "not ported yet (ROADMAP Queue A item 5)"
             ) from None
         self.routing = routing
-        self.device = resolve_device(device) if routing == "device" else None
+        self.device = resolve_device(device) if routing != "host" else None
+        self._model = _HashCostModel(
+            reexplore_every=64, min_device_nodes=min_device_batch,
+            arms=("dev1",),
+        )
         self._lock = threading.Lock()
+        # fn(rates) for every non-empty batch, before it is evaluated:
+        # lets a caller hold a kernel to its plain version on the very
+        # batches the path search gave it
+        self.batch_observers: list[Callable[[np.ndarray], None]] = []
         self.host_batches = 0
         self.device_batches = 0
         self.rows_evaluated = 0
@@ -583,13 +1043,23 @@ class PathQualityEvaluator:
         n = int(rates.shape[0])
         if n == 0:
             return np.zeros((0,), dtype=np.uint32)
+        for observe in self.batch_observers:
+            observe(rates)
         if self.routing == "host":
+            arm = "host"
+        elif self.routing == "device":
+            arm = "dev1"
+        else:
+            arm = self._model.choose(n)
+        t0 = time.perf_counter()
+        if arm == "host":
             out = self.evaluate_host(rates)
         else:
             out = self._evaluate_device(rates)
+        self._model.observe(arm, n, (time.perf_counter() - t0) * 1000.0)
         with self._lock:
             self.rows_evaluated += n
-            if self.routing == "host":
+            if arm == "host":
                 self.host_batches += 1
             else:
                 self.device_batches += 1
@@ -597,17 +1067,25 @@ class PathQualityEvaluator:
 
     def get_json(self) -> dict:
         with self._lock:
-            return {
-                "mesh": self.width,
-                "routing": self.routing,
-                "device": None if self.device is None else str(self.device),
+            counters = {
                 "host_batches": self.host_batches,
                 "device_batches": self.device_batches,
                 "rows_evaluated": self.rows_evaluated,
             }
+        return {
+            "mesh": self.width,
+            "routing": self.routing,
+            "device": None if self.device is None else str(self.device),
+            "min_device_batch": self._model.min_device_nodes,
+            **counters,
+            "model": self._model.get_json(),
+        }
 
 
 def make_path_evaluator(mesh=None, routing: Optional[str] = None,
-                        device="cuda") -> PathQualityEvaluator:
+                        device="cuda",
+                        min_device_batch: int = PATHQ_DEVICE_FLOOR,
+                        ) -> PathQualityEvaluator:
     """The one wiring of the path-quality evaluator."""
-    return PathQualityEvaluator(mesh=mesh, routing=routing, device=device)
+    return PathQualityEvaluator(mesh=mesh, routing=routing, device=device,
+                                min_device_batch=min_device_batch)

@@ -96,6 +96,10 @@ class ClosePipeline:
             "clf": LatencyHist(),
             "total": LatencyHist(),
         }
+        # the ms of each stage of the entry persisted last; a ``done``
+        # callback (run on the worker before the next entry starts)
+        # reads its own ledger's here
+        self.last_stage_ms: dict[str, float] = {}
         self._name = name
         # worker starts lazily on first submit: a Node constructed and
         # discarded without stop() must not leak a polling daemon thread
@@ -291,22 +295,28 @@ class ClosePipeline:
             results = self.recover_results(entry.ledger)
             entry.results = results
 
+        stages = {"queue_wait": (t_start - entry.enqueued_at) * 1000.0}
         t0 = time.perf_counter()
         self.save_stage(entry.ledger)
         t1 = time.perf_counter()
-        self.stage_hist["nodestore"].record((t1 - t0) * 1000.0)
+        stages["nodestore"] = (t1 - t0) * 1000.0
+        self.stage_hist["nodestore"].record(stages["nodestore"])
         tr.complete("persist.nodestore", "persist", t0, t1, seq=seq)
         self.txdb_stage(entry.ledger, results)
         t2 = time.perf_counter()
-        self.stage_hist["txdb"].record((t2 - t1) * 1000.0)
+        stages["txdb"] = (t2 - t1) * 1000.0
+        self.stage_hist["txdb"].record(stages["txdb"])
         tr.complete("persist.txdb", "persist", t1, t2, seq=seq)
         if entry.kind == "close":
             self.clf_stage(entry.ledger)
             t3 = time.perf_counter()
-            self.stage_hist["clf"].record((t3 - t2) * 1000.0)
+            stages["clf"] = (t3 - t2) * 1000.0
+            self.stage_hist["clf"].record(stages["clf"])
             tr.complete("persist.clf", "persist", t2, t3, seq=seq)
         t_end = time.perf_counter()
-        self.stage_hist["total"].record((t_end - t_start) * 1000.0)
+        stages["total"] = (t_end - t_start) * 1000.0
+        self.stage_hist["total"].record(stages["total"])
+        self.last_stage_ms = stages
         tr.complete("persist.total", "persist", t_start, t_end, seq=seq,
                     kind=entry.kind, txs=len(results or ()))
         # per-tx persist marks close out each SAMPLED transaction's

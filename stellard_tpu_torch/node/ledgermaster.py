@@ -27,8 +27,10 @@ With ``delta_replay = False`` every closing transaction runs the full
 transactor, and without ``persist_prep`` both trees are sealed in the
 closing thread; the closed ledgers are byte-identical either way. Every
 error a helper thread absorbs is counted in ``tree_stats``, and one that
-came from the card is raised again by the next close. The admission
-queue (txq), the parallel speculation executor and the consensus paths
+came from the card is raised again by the next close. The node wires
+its admission queue (``txq``, node/txq.py) in: held transactions are
+absorbed into it and its queued ones promoted at each close. The
+parallel speculation executor and the consensus paths
 (``close_with_txset``, ``switch_lcl``, ``check_accept``) are not part of
 this package yet.
 """
@@ -121,6 +123,14 @@ class LedgerMaster:
         # a sequence-gap flood cannot pin memory forever
         self.held: dict[tuple[bytes, int], tuple[SerializedTransaction, int]] = {}
         self.held_stats = {"evicted": 0, "expired": 0}
+        # optional loader for cache misses (Node wires the NodeStore in)
+        self.fetch_fallback: Optional[Callable[[bytes], Optional[Ledger]]] = None
+        # admission-control plane ([txq]): wired by Node; promotion of
+        # queued txs into each new open ledger happens at _open_next
+        self.txq = None
+        # the validated-ledger hook (Node wires the read plane's
+        # note_validated); standalone closes are their own validation
+        self.on_validated: Optional[Callable[[Ledger], None]] = None
         # optional persist-row materializer (node.build_tx_rows): when
         # set, the close overlaps this Python tail with the seal
         # tree-hash, whose device batches release the GIL
@@ -231,7 +241,12 @@ class LedgerMaster:
 
     def get_ledger_by_hash(self, h: bytes) -> Optional[Ledger]:
         with self._lock:
-            return self.ledgers_by_hash.get(h)
+            led = self.ledgers_by_hash.get(h)
+            if led is None and self.fetch_fallback is not None:
+                led = self.fetch_fallback(h)
+                if led is not None:
+                    self.ledgers_by_hash.put(h, led)
+            return led
 
     # -- held transactions (reference: addHeldTransaction) ----------------
 
@@ -620,23 +635,34 @@ class LedgerMaster:
             # standalone trusts its own closes (reference: standalone mode
             # skips validations)
             self.validated = new_lcl
+            if self.on_validated:
+                self.on_validated(new_lcl)
 
             self._note_close_stages(t0, t_apply, t_seal, new_lcl.seq)
             return new_lcl, results
 
     def _open_next(self, new_lcl: Ledger, apply_ms: float) -> None:
-        """Open the successor ledger and re-apply the held pile to it.
-        ``apply_ms`` (this close's apply pass) is the capacity input of
-        the admission queue, which is not part of this package yet;
-        without it the held pile is re-applied as it is. Caller holds
+        """Open the successor ledger and replenish it from the held pile
+        or the admission queue. With the TxQ enabled this is the
+        promotion site — held terPRE_SEQ txs are absorbed into the
+        fee-ordered queue and the best-paying eligible queued txs fill
+        the new open ledger up to the soft cap, sized from ``apply_ms``
+        (this close's apply pass); without it (no TxQ, or [txq]
+        enabled=0) the held pile is re-applied as it is. Caller holds
         the lock."""
         self.current = new_lcl.open_successor()
-        for tx, expire in self._drain_held():
-            ter, _applied = self._open_apply(
-                tx, TxParams.OPEN_LEDGER | TxParams.RETRY
-            )
-            if ter == TER.terPRE_SEQ:
-                self._hold(tx, expire)
+        txq = self.txq
+        if txq is not None and txq.enabled:
+            for tx, expire in self._drain_held():
+                txq.absorb_held(tx, self, expire)
+            txq.after_close(self, new_lcl, apply_ms)
+        else:
+            for tx, expire in self._drain_held():
+                ter, _applied = self._open_apply(
+                    tx, TxParams.OPEN_LEDGER | TxParams.RETRY
+                )
+                if ter == TER.terPRE_SEQ:
+                    self._hold(tx, expire)
 
     def _drain_spec(self, spec) -> None:
         """Seal the open window's parallel-speculation session before the
@@ -730,6 +756,10 @@ class LedgerMaster:
 
     def _note_delta_stats(self, replay) -> None:
         c = replay.counts()
+        if self.txq is not None and self.txq.enabled:
+            # queue-aware speculation honesty: which of the txs the
+            # queue promoted into this window spliced vs fell back
+            self.txq.note_close_classes(replay.classes())
         # one atomic multi-key bump: concurrent readers never see a torn
         # closes/spliced pair
         self.delta_stats.add_many(

@@ -1,22 +1,46 @@
-"""Node: the persist-side helpers of the application container.
+"""Node: the application container of the standalone node.
 
-Reference: src/ripple_app/main/Application.cpp. The ``Node`` class (the
-wiring of storage, crypto plane, executor, ledger chain and API doors)
-comes with the standalone node (ROADMAP Queue A item 4). What the close
-path needs of it is here already: ``build_tx_rows``, which the chain's
-``LedgerMaster.persist_prep`` runs beside the threaded seal, and
-``_results_from_meta``, the close pipeline's ``recover_results`` for
-ledgers that were never applied locally.
+Reference: src/ripple_app/main/Application.cpp — ApplicationImp owns ~35
+subsystems wired in constructor order (:257-365) with setup() (:659-917)
+and run(); here the container is small because the build splits into a
+host protocol machine + a device crypto plane on the card (K1 verifies,
+K2/K3 hash, K4 pre-ranks paths), but the wiring order (storage → crypto
+plane → executor → ledger chain → brain → API doors) mirrors the
+reference.
+
+This is the JAX package's ``Node`` in standalone mode. The planes whose
+modules this package does not have stay ``None`` — the peer overlay,
+the parallel speculation executor, the health watchdog and flight
+recorder, the history shards, online deletion, the archive tier, the
+ledger cleaner and the SNTP clock — and ``Config.check_ported`` refuses
+a config that would turn one on. ``[start_up] load`` resumes
+eagerly: lazy loading is ROADMAP Queue A item 6.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import os
+import threading
+import time
+from typing import Callable, Optional
 
+from ..nodestore.core import make_database
+from ..protocol.keys import KeyPair, decode_seed
+from ..protocol.sttx import SerializedTransaction
 from ..protocol.ter import TER
 from ..state.ledger import Ledger
+from .config import Config
+from .hashrouter import HashRouter
+from .jobqueue import JobQueue
+from .ledgermaster import LedgerMaster
+from .networkops import NetworkOPs, TxStatus
+from .txdb import TxDatabase
+from .verifyplane import VerifyPlane
 
-__all__ = ["build_tx_rows"]
+__all__ = ["Node"]
+
+# reference: the well-known test genesis passphrase ("masterpassphrase")
+MASTER_PASSPHRASE = "masterpassphrase"
 
 
 def _results_from_meta(ledger: Ledger) -> dict:
@@ -85,3 +109,720 @@ def _result_token(txid: bytes, results: dict, meta: Optional[bytes]) -> str:
         except Exception:  # noqa: BLE001 — unparseable meta: fall through
             pass
     return TER.tesSUCCESS.token
+
+
+class Node:
+    """One standalone stellard node. Construct → setup() → (serve / drive)."""
+
+    def __init__(self, config: Optional[Config] = None):
+        self.config = config or Config()
+        cfg = self.config
+        # a plane this package does not have must not be turned on by a
+        # Config built in code either (from_ini checks the parsed ones)
+        cfg.check_ported()
+
+        # tracing plane FIRST ([trace]): every subsystem below records
+        # its lifecycle spans into this node's ring (node/tracer.py);
+        # trace_status/trace_dump serve it, [insight] ships span-derived
+        # stage percentiles
+        from .tracer import Tracer
+
+        self.tracer = Tracer.from_config(cfg)
+
+        # storage plane (reference: NodeStore Manager + main db :330)
+        db_kwargs = {}
+        if cfg.node_db_path:
+            db_kwargs["path"] = cfg.node_db_path
+        if cfg.node_db_compression and cfg.node_db_type == "cpplog":
+            db_kwargs["compression"] = cfg.node_db_compression
+        if cfg.node_db_type == "segstore":
+            db_kwargs.update(
+                durability=cfg.node_db_durability,
+                group_commit_ms=cfg.node_db_group_commit_ms,
+                segment_bytes=cfg.node_db_segment_mb << 20,
+                checkpoint_bytes=cfg.node_db_checkpoint_mb << 20,
+                compact_ratio=cfg.node_db_compact_ratio,
+                tracer=self.tracer,
+            )
+        if cfg.node_db_type == "sqlite" and cfg.node_db_synchronous:
+            db_kwargs["synchronous"] = cfg.node_db_synchronous
+        self.nodestore = make_database(type=cfg.node_db_type, **db_kwargs)
+        self.txdb = TxDatabase(cfg.database_path or ":memory:")
+        # the JAX node's planes that this package does not have (the
+        # peer overlay, the speculation executor, the ledger cleaner and
+        # online deletion, history shards, the flight recorder) are
+        # absent: the handlers read them with getattr, and the config
+        # refuses every key that would turn one on. The health watchdog
+        # is read directly.
+        self.health = None
+
+        # the process-wide hot-node cache of eager loads
+        from ..state.shamap import configure_inner_cache, inner_node_cache
+
+        configure_inner_cache(cfg.tree_cache_mb)
+        inner_node_cache().tracer = self.tracer  # `cache.fault` spans
+
+        # stellar CLF plane: SQL mirror + LCL pointer (reference:
+        # stellar::gLedgerMaster + workingledger.db, Application.cpp:716)
+        from ..state.clf import CLFMirror, LedgerSqlDatabase
+
+        clf_path = (
+            cfg.database_path + ".clf" if cfg.database_path else ":memory:"
+        )
+        self.clf = CLFMirror(LedgerSqlDatabase(clf_path))
+
+        # ledger-close pipeline: closed ledgers persist on a bounded,
+        # strictly-ordered drain OFF the close path (reference:
+        # pendSaveValidated; ordered because concurrent workers could
+        # commit ledger N+1's CLF pointer before N's, regressing the
+        # resume point). Bounded: a disk that cannot keep up with the
+        # close rate back-pressures closes (briefly) instead of pinning
+        # an unbounded backlog of whole Ledgers in memory.
+        # [close_pipeline] enabled=0 keeps closes on the serial in-line
+        # path.
+        from .closepipeline import ClosePipeline
+
+        self.close_pipeline = ClosePipeline(
+            save_stage=lambda led: led.save(self.nodestore),
+            txdb_stage=self._persist_tx_rows,
+            clf_stage=self._commit_clf,
+            recover_results=_results_from_meta,
+            depth=cfg.close_pipeline_depth,
+            tracer=self.tracer,
+        )
+
+        # crypto plane: cpu | cuda batch backends. The cuda hasher runs
+        # under the wedge watchdog (a device call that never returns
+        # would freeze every ledger close, utils/devicewatch.py), and
+        # every [hash_backend] / [signature_backend] option reaches its
+        # factory — routing, floors, device and deadlines are cfg axes,
+        # and unknown keys fail loudly at build, never silently no-op.
+        # A cuda backend without a card raises here.
+        from ..crypto.backend import make_watched_hasher
+
+        self.hasher = make_watched_hasher(
+            cfg.hash_backend,
+            min_device_nodes=cfg.hash_min_device_nodes,
+            mesh=cfg.hash_mesh,
+            routing=cfg.hash_routing,
+            first_timeout=cfg.hash_device_first_timeout_s,
+            device=cfg.hash_device,
+        )
+        # [tree] fused=0 kill-switch: compute_hashes / the seal drainer
+        # fall back to the staged per-level hash_packed path (one
+        # round-trip per level) — the fused-vs-staged identity leg
+        self.hasher.fused_enabled = cfg.tree_fused
+        self.verify_plane = VerifyPlane(
+            backend=cfg.signature_backend,
+            window_ms=cfg.verify_batch_window_ms,
+            max_batch=cfg.verify_max_batch,
+            min_device_batch=cfg.verify_min_device_batch,
+            backend_opts=cfg.verify_backend_opts(),
+            routing=cfg.verify_routing,
+            device_first_timeout=cfg.verify_device_first_timeout_s,
+            device_warm_timeout=cfg.verify_device_warm_timeout_s,
+            tracer=self.tracer,
+        )
+        self.verify_prewarm: Optional[threading.Thread] = None
+        if cfg.signature_backend != "cpu":
+            # build K1 and measure its batch sizes in the background;
+            # serve() waits for it and fails if it failed
+            self.verify_prewarm = self.verify_plane.start_prewarm()
+
+        # executor (reference: JobQueue :287)
+        self.job_queue = JobQueue(
+            threads=cfg.thread_count(), tracer=self.tracer
+        )
+        self.hash_router = HashRouter()
+
+        # load plane (reference: LoadFeeTrack :346, LoadManager :354)
+        from .loadmgr import LoadFeeTrack, LoadManager
+
+        self.fee_track = LoadFeeTrack()
+        self.load_manager = LoadManager(self.job_queue, self.fee_track)
+
+        # admission-control plane ([txq], node/txq.py): soft open-ledger
+        # cap + escalating fee + bounded fee-priority queue between the
+        # verify plane and the open ledger; wired into NetworkOPs
+        # (admit) and LedgerMaster (promotion at _open_next) below
+        from .txq import TxQ
+
+        self.txq = TxQ.from_config(
+            cfg, fee_track=self.fee_track, tracer=self.tracer
+        )
+
+        # trust + anti-DoS planes (reference: UNL :323, PoW factory :352)
+        from ..utils.pow import PowFactory
+        from .unl import UniqueNodeList
+
+        unl_path = cfg.database_path + ".unl" if cfg.database_path else None
+        self.unl = UniqueNodeList(unl_path)
+        if cfg.validators:
+            from ..protocol.keys import decode_node_public
+
+            # the INLINE config is operator-written: a malformed key there
+            # is a misconfiguration that must fail loudly, not shrink the
+            # trusted set silently
+            for v in cfg.validators:
+                self.unl.add(decode_node_public(v), "config")
+        self.pow_factory = PowFactory()
+
+        # ops plane: insight metrics (reference: CollectorManager :287)
+        from .metrics import CollectorManager
+
+        self.collector = CollectorManager.from_config(cfg.insight)
+        if cfg.insight_history:
+            # embedded history: the bounded in-process ring the
+            # metrics_history RPC and the GET /metrics door read
+            self.collector.enable_history(
+                cfg.insight_history_interval, cfg.insight_history_window
+            )
+
+        # node identity + validator identity
+        self.node_keys = self._load_or_create_identity()
+        self.validation_keys: Optional[KeyPair] = None
+        if cfg.validation_seed:
+            self.validation_keys = KeyPair.from_seed(decode_seed(cfg.validation_seed))
+
+        # ledger chain + brain
+        self.ledger_master = LedgerMaster(
+            hash_batch=self.hasher, router=self.hash_router,
+            tracer=self.tracer,
+        )
+
+        def _fetch_fallback(h: bytes):
+            # history-cache miss -> the in-flight close-pipeline entry
+            # (read-your-writes: a queued-but-unpersisted ledger must
+            # never miss), then rebuild from the NodeStore. The load is
+            # eager: lazy loading is ROADMAP Queue A item 6.
+            led = self.close_pipeline.get(h)
+            if led is not None:
+                return led
+            try:
+                return Ledger.load(self.nodestore, h, hash_batch=self.hasher)
+            except (KeyError, ValueError):
+                return None
+
+        self.ledger_master.fetch_fallback = _fetch_fallback
+        # close-path overlap seam: close_and_advance materializes the
+        # persist rows (Python meta/row tail) WHILE the two seal threads
+        # hash the trees through the hasher
+        self.ledger_master.persist_prep = build_tx_rows
+        # [close] delta_replay: speculative close-mode execution at
+        # submit + optimistic delta splice at close (serial fallback per
+        # tx on any read-set conflict)
+        self.ledger_master.delta_replay = cfg.close_delta_replay
+        # [tree]: incremental O(dirty) seal — speculated writes pre-hash
+        # in background batches between closes; the full seal stays the
+        # automatic fallback (incremental=0 is the kill-switch)
+        self.ledger_master.incremental_seal = cfg.tree_incremental_seal
+        self.ledger_master.seal_drain_batch = cfg.tree_drain_batch
+        # [txq]: the ledger chain promotes queued txs at _open_next and
+        # the queue's deferred (off-close-path) speculation rides the
+        # job queue
+        self.ledger_master.txq = self.txq
+        from .jobqueue import JobType as _JT
+
+        self.txq.spec_dispatch = lambda thunk: self.job_queue.add_job(
+            _JT.jtTRANSACTION, "txqSpeculate", thunk
+        )
+        self.ops = NetworkOPs(
+            self.ledger_master,
+            self.job_queue,
+            self.verify_plane,
+            self.hash_router,
+            standalone=cfg.standalone,
+            fee_track=self.fee_track,
+            tracer=self.tracer,
+            txq=self.txq,
+        )
+        # configured skew applies to the ops-plane clock (standalone
+        # closes, status, staleness checks)
+        self.ops.net_time_offset = int(cfg.network_time_offset)
+
+        # RPC-door resource pricing ([overlay] rpc_resource=1): one
+        # decaying charge balance per CLIENT IP, priced with the peer
+        # fee schedule's FEE_*_RPC charges (overlay/resource.py) —
+        # abusive RPC clients warn/drop exactly like abusive peers.
+        # [rpc_admin_allow] IPs are exempt (the reference never charges
+        # admin requests), swept on the maintenance timer below.
+        self.rpc_resources = None
+        if cfg.overlay_rpc_resource:
+            from ..overlay.resource import ResourceManager as _RM
+
+            self.rpc_resources = _RM(admin=set(cfg.admin_ips))
+
+        # read plane (rpc/readplane.py): the serving side's immutable
+        # validated-snapshot pointer + validated-seq result cache. Read
+        # RPCs resolve "validated" from the pointer (never the chain
+        # lock); the hot four read RPCs memoize whole results per
+        # validated seq. The snapshot is min(persisted, validated):
+        # publish_closed_ledger feeds the persisted floor after its
+        # sinks, on_validated below feeds the validated floor.
+        from ..rpc.readplane import ReadPlane, ResultCache
+
+        self.read_cache = (
+            ResultCache(cfg.rpc_cache_size)
+            if cfg.rpc_cache_size > 0 else None
+        )
+        self.read_plane = ReadPlane(cache=self.read_cache)
+        self.ops.read_plane = self.read_plane
+        self.ledger_master.on_validated = self.read_plane.note_validated
+
+        # liquidity plane ([paths], paths/plane.py): the incremental
+        # per-close book index + device-routed candidate pre-ranking
+        # (K4) + per-subscription staleness/shedding. The close hook
+        # advances the index from each close's own write set so both
+        # the RPC door and the subscription publisher serve a warm
+        # index without ever rescanning unchanged books.
+        self.path_plane = None
+        if cfg.paths_enabled:
+            from ..crypto.backend import make_path_evaluator
+            from ..paths.plane import PathPlane
+
+            evaluator = None
+            if cfg.paths_device_prune:
+                evaluator = make_path_evaluator(
+                    mesh=cfg.paths_mesh,
+                    min_device_batch=cfg.paths_min_device_batch,
+                    routing=cfg.paths_routing,
+                    # K4 runs where the hash plane runs: on the card for
+                    # a cuda node, as the plain version for a cpu one
+                    device=(cfg.hash_device if cfg.hash_backend == "cuda"
+                            else "cpu"),
+                )
+            self.path_plane = PathPlane(
+                incremental=cfg.paths_incremental,
+                evaluator=evaluator,
+                device_prune=cfg.paths_device_prune,
+                prune_floor=cfg.paths_prune_floor,
+                prune_keep=cfg.paths_prune_keep,
+                max_updates_per_close=cfg.paths_max_updates_per_close,
+                resources=self.rpc_resources,
+            )
+            self.ops.on_ledger_closed.append(
+                lambda led, results: self.path_plane.note_close(led)
+            )
+        # hook(ledger, results) for each closed ledger once its
+        # node-store, txdb and CLF writes have committed (on the close
+        # pipeline's worker when the pipeline is on)
+        self.on_persisted: list[Callable[[Ledger, dict], None]] = []
+        if cfg.close_pipeline_enabled:
+            # the ledger-closed sink ENQUEUES — ledger N's NodeStore/
+            # txdb/CLF writes overlap ledger N+1's verify/apply
+            self.ops.on_ledger_closed.append(self.persist_close)
+        else:
+            # serial fallback ([close_pipeline] enabled=0): persistence
+            # rides the ledger-closed sink in-line, on the close path
+            self.ops.on_ledger_closed.append(self._persist_closed_ledger)
+
+        self.master_keys = KeyPair.from_passphrase(MASTER_PASSPHRASE)
+        self._running = threading.Event()
+        self.started_at = time.monotonic()  # server_info uptime
+        self._debug_log_handler = None
+
+        # API doors (started by serve(); reference: WSDoors/RPCDoor
+        # Application.cpp:817-891)
+        self.http_server = None
+        self.ws_server = None
+        self.subs = None
+
+    def _load_or_create_identity(self) -> KeyPair:
+        """reference: LocalCredentials::start (wallet.db node seed) — a
+        stable per-node keypair, created on first start and persisted."""
+        import json
+
+        path = (
+            self.config.database_path + ".wallet"
+            if self.config.database_path
+            else None
+        )
+        if path and os.path.exists(path):
+            try:
+                with open(path) as fh:
+                    rec = json.loads(fh.read())
+                return KeyPair.from_seed(bytes.fromhex(rec["node_seed"]))
+            except (OSError, ValueError, KeyError):
+                pass  # unreadable wallet: regenerate below
+        kp = KeyPair.random()
+        if path:
+            tmp = path + ".tmp"
+            with open(tmp, "w") as fh:
+                fh.write(json.dumps({
+                    "node_seed": kp.seed.hex(),
+                    "node_public": kp.human_node_public,
+                }))
+            os.replace(tmp, path)
+            os.chmod(path, 0o600)
+        return kp
+
+    # -- lifecycle --------------------------------------------------------
+
+    def setup(self) -> "Node":
+        """reference: ApplicationImp::setup — START_UP switch
+        (Application.cpp:733-762)."""
+        if self.config.debug_logfile and self._debug_log_handler is None:
+            # [debug_logfile]: full-severity mirror on disk regardless of
+            # the console/partition levels (reference: setDebugLogFile,
+            # Application.cpp:687-689). The handler is owned by this Node
+            # and detached on stop() so setup/stop cycles in one process
+            # neither duplicate lines nor leak descriptors.
+            import logging
+
+            handler = logging.FileHandler(self.config.debug_logfile)
+            handler.setLevel(logging.DEBUG)
+            handler.setFormatter(logging.Formatter(
+                "%(asctime)s %(name)s %(levelname)s %(message)s"
+            ))
+            root = logging.getLogger("stellard")
+            root.addHandler(handler)
+            if root.level > logging.DEBUG or root.level == logging.NOTSET:
+                root.setLevel(logging.DEBUG)
+            self._debug_log_handler = handler
+        if self.config.start_up == "fresh":
+            self.ledger_master.start_new_ledger(self.master_keys.account_id)
+            # persist the genesis close so later offline replay can load
+            # every ledger's parent (reference: startNewLedger saves the
+            # seq-1 ledger before opening seq 2)
+            genesis = self.ledger_master.closed_ledger()
+            genesis.save(self.nodestore)
+            self.txdb.save_ledger_header(genesis)
+        elif self.config.start_up == "load":
+            # resume preference order (reference: loadLastKnownCLF
+            # Application.cpp:729, then loadOldLedger :737-758): the CLF
+            # state pointer is the atomically-committed source of truth;
+            # the txdb header index is the fallback. The load is eager
+            # (the JAX node's is lazy; ROADMAP Queue A item 6).
+            led = self.clf.load_last_known(self.nodestore, hash_batch=self.hasher)
+            if led is None:
+                hdr = self.txdb.get_ledger_header()
+                if hdr is not None:
+                    led = Ledger.load(
+                        self.nodestore, hdr["hash"], hash_batch=self.hasher,
+                    )
+            if led is None:
+                self.ledger_master.start_new_ledger(self.master_keys.account_id)
+            else:
+                self.ledger_master.load_ledger(led)
+        return self
+
+    def wait_device_ready(self) -> None:
+        """Wait for the verify plane's K1 prewarm; raise its error if it
+        failed to build or launch K1 (the node does not carry on on the
+        CPU). A no-op for a cpu signature backend."""
+        if self.verify_prewarm is not None:
+            self.verify_prewarm.join()
+        if self.verify_plane.prewarm_error is not None:
+            raise RuntimeError(
+                "the verify plane's device prewarm failed"
+            ) from self.verify_plane.prewarm_error
+
+    def serve(self) -> "Node":
+        """Open the configured API doors (reference: ApplicationImp::setup
+        WSDoors :817-868, RPCDoor :877-891). Waits for the verify
+        plane's device prewarm first, and fails if it failed."""
+        from ..rpc.infosub import SubscriptionManager
+
+        self.wait_device_ready()
+        cfg0 = self.config
+        self.subs = SubscriptionManager(
+            self.ops,
+            shards=cfg0.subs_shards,
+            sendq_cap=cfg0.subs_sendq_cap,
+            evict_drops=cfg0.subs_evict_drops,
+            push_retries=cfg0.subs_push_retries,
+            resume_horizon=cfg0.subs_resume_horizon,
+            tracer=self.tracer,
+        )
+        # `server` stream: publish on load-factor movement (pubServer)
+        self.fee_track.on_change.append(self.subs.pub_server_status)
+        # path subscriptions ride the liquidity plane's staleness budget
+        self.subs.path_plane = self.path_plane
+        if self.config.rpc_port is not None:
+            from ..rpc.http_server import HttpRpcServer
+
+            self.http_server = HttpRpcServer(
+                self, self.config.rpc_ip, self.config.rpc_port,
+            ).start()
+        if self.config.websocket_port is not None:
+            from ..rpc.ws_server import WsRpcServer
+
+            self.ws_server = WsRpcServer(
+                self, self.config.websocket_ip, self.config.websocket_port,
+                subs=self.subs,
+            ).start()
+        self._running.set()
+        self.load_manager.start()
+        # pull-gauges for the metrics plane (insight Hook shape)
+        self.collector.hook(
+            "jobq",
+            lambda: {
+                t: s["queued"] + s["running"]
+                for t, s in self.job_queue.get_json().items()
+            },
+        )
+        self.collector.hook(
+            "verify",
+            lambda: {
+                "batches": self.verify_plane.batches,
+                "verified": self.verify_plane.verified,
+            },
+        )
+        # routing-flip telemetry: which side (cpu vs device) took the
+        # majority of verify batches since the last flush; a majority
+        # change is one flip
+        _route = {"side": None, "cpu": 0, "dev": 0, "flips": 0}
+
+        def _verify_routing():
+            vp = self.verify_plane
+            dc, cc = vp.device_batches, vp.cpu_batches
+            d_dev, d_cpu = dc - _route["dev"], cc - _route["cpu"]
+            _route["dev"], _route["cpu"] = dc, cc
+            if d_dev or d_cpu:
+                side = "device" if d_dev >= d_cpu else "cpu"
+                if _route["side"] is not None and side != _route["side"]:
+                    _route["flips"] += 1
+                _route["side"] = side
+            return {"flips": _route["flips"]}
+
+        self.collector.hook("verify_routing", _verify_routing)
+        self.collector.hook(
+            "load", lambda: {"factor": self.fee_track.load_factor}
+        )
+        self.collector.hook(
+            "txq",
+            lambda: {
+                "size": len(self.txq),
+                "expected": self.txq.metrics.txns_expected,
+                "evicted": self.txq.stats["evicted"],
+                "promoted": self.txq.stats["promoted"],
+            },
+        )
+        self.collector.hook(
+            "close_pipeline",
+            lambda: {
+                "depth": self.close_pipeline.pending(),
+                "persisted": self.close_pipeline.persisted,
+                "backpressure_waits": self.close_pipeline.backpressure_waits,
+            },
+        )
+        # subscription-fanout + read-cache gauges: published/delivered/
+        # dropped/evicted and cache hit rates ride the same statsd
+        # surface as everything else
+        self.collector.hook(
+            "subs",
+            lambda: {
+                k: v for k, v in self.subs.get_json().items()
+                if isinstance(v, (int, float)) and not isinstance(v, bool)
+            },
+        )
+        self.collector.hook("subs_shard", self.subs.shard_stats)
+        self.collector.register_hist("subs_fanout_lag_ms",
+                                     self.subs.lag_hist)
+        if self.read_cache is not None:
+            self.collector.hook(
+                "cache",
+                lambda: {
+                    k: v
+                    for k, v in self.read_cache.get_json().items()
+                    if isinstance(v, (int, float))
+                },
+            )
+        if self.path_plane is not None:
+            # liquidity-plane gauges (`paths.*`): re-ranks, sheds,
+            # staleness, index continuity
+            self.collector.hook(
+                "paths",
+                lambda: {
+                    k: v for k, v in self.path_plane.get_json().items()
+                    if isinstance(v, (int, float))
+                    and not isinstance(v, bool)
+                },
+            )
+        # span-derived per-stage latency percentiles (trace.<stage>.p50_ms
+        # et al.): the unified latency surface the tracing plane feeds
+        self.collector.hook("trace", self.tracer.statsd_hook)
+        self.collector.hook(
+            "delta_replay",
+            # snapshot via delta_replay_json: it takes the chain lock, so
+            # the three counters are mutually consistent per sample
+            lambda: {
+                k: v
+                for k, v in self.ledger_master.delta_replay_json().items()
+                if k in ("spliced", "fallback", "invalidated")
+            },
+        )
+        self.collector.start()
+        return self
+
+    def run(self) -> None:
+        """Block until stopped (reference: ApplicationImp::run)."""
+        import time as _time
+
+        from .jobqueue import JobType
+
+        # watchdog armed only once the run loop drives heartbeats
+        # (reference: activateDeadlockDetector from ApplicationImp::run
+        # :1028); embedders that drive the node directly never arm it
+        self.load_manager.arm()
+        last_beat = 0.0
+        last_sweep = 0.0
+        while self._running.is_set():
+            # the heartbeat must flow THROUGH the job queue: a wedged
+            # worker pool or master lock then starves the canary reset and
+            # the detector fires (reference: the heartbeat is itself a
+            # jtNETOP_TIMER job)
+            now = _time.monotonic()
+            if now - last_sweep >= 30.0:
+                # cache sweep (reference: ApplicationImp::doSweep on the
+                # sweep timer — jtSWEEP job over the aged caches)
+                last_sweep = now
+                self.job_queue.add_job(
+                    JobType.jtSWEEP,
+                    "sweep",
+                    self.ledger_master.ledgers_by_hash.sweep,
+                )
+                # RPC-client charge-table expiry on the same maintenance
+                # timer — idle client endpoints age out so a long-lived
+                # node's map stays bounded
+                if self.rpc_resources is not None:
+                    self.job_queue.add_job(
+                        JobType.jtSWEEP, "rpcResourceSweep",
+                        self.rpc_resources.sweep,
+                    )
+                # disk-space guard (reference: doSweep fatals under 512MB
+                # free, Application.cpp:1098-1106): stopping cleanly now
+                # beats corrupting the stores on a full disk later
+                if self.config.database_path:
+                    import shutil
+
+                    try:
+                        free = shutil.disk_usage(
+                            os.path.dirname(
+                                os.path.abspath(self.config.database_path)
+                            )
+                        ).free
+                    except OSError:
+                        free = None
+                    if free is not None and free < 512 * 1024 * 1024:
+                        import logging
+
+                        logging.getLogger("stellard.node").critical(
+                            "remaining free disk space is less than "
+                            "512MB (%d bytes) — shutting down", free,
+                        )
+                        self._running.clear()
+            if now - last_beat >= 1.0:
+                last_beat = now
+                self.job_queue.add_job(
+                    JobType.jtNETOP_TIMER,
+                    "heartbeat",
+                    self.load_manager.reset_deadlock_detector,
+                )
+            _time.sleep(0.2)
+
+    def stop(self) -> None:
+        self._running.clear()
+        self.load_manager.stop()
+        self.ledger_master.stop_seal_drainer()
+        # drain-on-stop guarantee: everything queued persists before the
+        # stores close (the CLF pointer lands on the last closed ledger)
+        self.close_pipeline.stop(timeout=60)
+        if self.subs is not None:
+            self.subs.stop()
+        self.collector.stop()
+        if self.http_server:
+            self.http_server.stop()
+        if self.ws_server:
+            self.ws_server.stop()
+        self.job_queue.stop()
+        self.verify_plane.stop()
+        self.nodestore.close()
+        self.txdb.close()
+        if self._debug_log_handler is not None:
+            import logging
+
+            logging.getLogger("stellard").removeHandler(self._debug_log_handler)
+            self._debug_log_handler.close()
+            self._debug_log_handler = None
+
+    # -- persistence on close (reference: pendSaveValidated + CLF commit) --
+
+    def persist_close(self, ledger: Ledger, results: dict) -> None:
+        """Queue a closed ledger on the close pipeline (the node's
+        ledger-closed sink, and the door for a ledger closed on
+        ``ledger_master`` directly): its writes overlap the next close,
+        and the ``on_persisted`` hooks run once they commit."""
+        self.close_pipeline.submit_close(
+            ledger, results,
+            done=lambda res: self._note_persisted(ledger, res),
+        )
+
+    def _note_persisted(self, ledger: Ledger, results: dict) -> None:
+        for hook in list(self.on_persisted):
+            hook(ledger, results)
+
+    def _persist_closed_ledger(self, ledger: Ledger, results: dict) -> None:
+        """Serial (in-line) persist: the close-pipeline-disabled path and
+        embedders that drive persistence directly."""
+        self.persist_ledger_data(ledger, results)
+        self._commit_clf(ledger)
+        self._note_persisted(ledger, results)
+
+    def _commit_clf(self, ledger: Ledger) -> None:
+        # CLF commit: one scoped SQL transaction — entry-row delta + LCL
+        # pointer (reference: stellar::LedgerMaster::commitLedgerClose).
+        # NOT part of persist_ledger_data: a repaired HISTORICAL ledger
+        # must never move the CLF resume pointer backwards.
+        prev = self.ledger_master.get_ledger_by_hash(ledger.parent_hash)
+        self.clf.commit_ledger_close(ledger, prev)
+
+    def _persist_tx_rows(self, ledger: Ledger, results: dict) -> None:
+        """Header + tx rows in ONE sqlite transaction (close-pipeline txdb
+        stage). Rows were usually materialized at close time overlapped
+        with the seal tree-hash (LedgerMaster.persist_prep)."""
+        rows = getattr(ledger, "persist_rows", None)
+        if rows is None:
+            rows = build_tx_rows(ledger, results)
+        else:
+            # one-shot: the memo must not pin row data in the ledger
+            # cache for the ledger's whole cache lifetime
+            ledger.persist_rows = None
+        self.txdb.save_ledger(ledger, rows)
+
+    def persist_ledger_data(self, ledger: Ledger, results: dict) -> None:
+        """NodeStore + header + tx rows for one ledger (no CLF pointer) —
+        the shared half of close-persistence and history repair."""
+        ledger.save(self.nodestore)
+        self._persist_tx_rows(ledger, results)
+
+    # -- convenience driving (tests / CLI) --------------------------------
+
+    def submit(self, tx: SerializedTransaction) -> tuple[TER, bool]:
+        return self.ops.process_transaction(tx)
+
+    def close_ledger(self):
+        """Test/CLI convenience close: synchronous-DURABLE — the close
+        pipeline drains before returning, so callers may immediately read
+        txdb/CLF state. The perf paths (`ledger_accept` RPC) call
+        ops.accept_ledger directly and stay pipelined."""
+        out = self.ops.accept_ledger()
+        if not self.close_pipeline.flush(timeout=60):
+            # the docstring's durability promise must not fail silently
+            raise RuntimeError(
+                "close_ledger: persistence pipeline failed to drain within "
+                "60s — storage stalled or wedged"
+            )
+        # synchronous contract extends to the admission plane: the
+        # deferred open-window replenish (promotion + queue-aware
+        # speculation) lands before this returns, so a caller's next
+        # close sees the promoted txs (perf paths stay deferred)
+        if not self.txq.quiesce(timeout=30):
+            raise RuntimeError(
+                "close_ledger: admission-queue replenish failed to land "
+                "within 30s — job queue stalled or wedged"
+            )
+        return out
+
+    def tx_status(self, txid: bytes) -> Optional[TxStatus]:
+        return self.ops.on_tx_result.get(txid)

@@ -11,8 +11,9 @@ actually runs — a per-signature EWMA for the CPU path, a per-size-bucket
 EWMA for the device — and sends each batch to the side predicted faster;
 ``device`` sends every batch of at least ``min_device_batch`` to the
 device. A device call that overruns its deadline (utils.devicewatch)
-disables the device for the process and the batch is verified on the
-CPU side instead (``device_wedged`` in get_json).
+raises ``DeviceWedged``, and so does every later batch of the plane:
+no batch is verified on the CPU instead (``device_wedged`` in
+get_json; a restart is the recovery).
 
 The plane defaults to the ``cuda`` backend on the first CUDA device, so
 a plane built without arguments runs on the card and raises where
@@ -35,7 +36,9 @@ from typing import Optional, Sequence
 import numpy as np
 
 from ..crypto.backend import BatchVerifier, VerifyRequest, make_verifier
-from ..utils.devicewatch import DeviceWedged, call_with_deadline, resolve_timeouts
+from ..utils.devicewatch import (
+    HEALTH, DeviceWedged, call_with_deadline, resolve_timeouts,
+)
 from .metrics import LatencyHist
 
 log = logging.getLogger("stellard.device")
@@ -178,6 +181,12 @@ class VerifyPlane:
         )
         self._device_warm = False
         self.device_wedged = False
+        # start_prewarm: set while the prewarm runs (a device batch waits
+        # for it), and the error that failed it (raised to every later
+        # device batch instead of answering from the CPU)
+        self._prewarm_done = threading.Event()
+        self._prewarm_done.set()
+        self.prewarm_error: Optional[BaseException] = None
 
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
@@ -249,17 +258,89 @@ class VerifyPlane:
         hi = getattr(self.verifier, "max_batch", self.max_batch)
         return self._t_warm * max(1, -(-n // max(1, hi)))
 
+    def start_prewarm(
+        self, sizes: Optional[Sequence[int]] = None, rounds: int = 2
+    ) -> threading.Thread:
+        """Build K1 and measure the device's batch sizes OFF the traffic
+        path (the JAX plane compiles its pad buckets here). ``sizes``
+        defaults to every power-of-two size from ``min_device_batch`` to
+        ``max_batch``, each run ``rounds`` times (at least twice: the
+        first sample of a size may include the build and is discarded by
+        the model). Join the returned thread for a deterministic warm
+        start.
+
+        Unlike the JAX plane, whose live batches ride the CPU until the
+        prewarm ends and which logs a failed prewarm and carries on on
+        the CPU, a device batch here waits for the prewarm, and a prewarm
+        that fails to build or launch K1 leaves its error in
+        ``prewarm_error``: every later device batch raises it, and the
+        node's ``serve()`` fails. A deadline overrun (a wedge) is kept
+        there too, and counted (``device_wedged``)."""
+        if sizes is None:
+            ladder = []
+            size = max(1, self.min_device_batch)
+            while size < self.max_batch:
+                ladder.append(size)
+                size *= 2
+            ladder.append(self.max_batch)
+            sizes = sorted(set(ladder))
+        if self._device_capable:
+            self._prewarm_done.clear()
+
+        def run() -> None:
+            try:
+                if not self._device_capable:
+                    return
+                req = VerifyRequest(b"\x66" * 32, b"\x77" * 32, b"\x88" * 64)
+                for size in sizes:
+                    reqs = [req] * size
+                    for _ in range(max(2, rounds)):
+                        t0 = time.perf_counter()
+                        call_with_deadline(
+                            lambda: self.verifier.verify_batch(reqs),
+                            self._device_deadline(size),
+                            label="verify-prewarm",
+                        )
+                        self._device_warm = True
+                        self.model.observe_device(
+                            size, (time.perf_counter() - t0) * 1000.0
+                        )
+            except DeviceWedged as exc:
+                self.device_wedged = True
+                self.prewarm_error = exc
+                log.error("verify prewarm: %s", exc)
+            except Exception as exc:  # noqa: BLE001 — kept, raised by every device batch
+                self.prewarm_error = exc
+                log.error("verify prewarm failed: %r", exc)
+            finally:
+                self._prewarm_done.set()
+
+        t = threading.Thread(target=run, name="verify-prewarm", daemon=True)
+        t.start()
+        return t
+
     def verify_many(self, reqs: Sequence[VerifyRequest]) -> np.ndarray:
         if not reqs:
             return np.zeros(0, bool)
         n = len(reqs)
         use_device = False
         if self._device_capable:
+            self._prewarm_done.wait()
+            if self.prewarm_error is not None:
+                raise RuntimeError(
+                    "the verify plane's device prewarm failed; no batch is "
+                    "verified on the CPU instead"
+                ) from self.prewarm_error
+            if self.device_wedged or HEALTH.dead:
+                self.device_wedged = True
+                raise DeviceWedged(
+                    "the verify plane's device is wedged; no batch is "
+                    "verified on the CPU instead (restart the node)"
+                )
             if self._route_by_cost:
                 use_device = self.model.use_device(n)
             else:
                 use_device = n >= self.min_device_batch
-        wedged_now = False
         if use_device:
             t0 = time.perf_counter()
             try:
@@ -281,12 +362,11 @@ class VerifyPlane:
                                      routed="device")
                 return out
             except DeviceWedged as exc:
-                # the device is dead for the process; this batch (and
-                # every later one) verifies on the CPU
-                self._device_capable = False
+                # the device is dead for the process: this batch and
+                # every later one fail
                 self.device_wedged = True
-                wedged_now = True
-                log.error("verify plane: %s — falling back to CPU", exc)
+                log.error("verify plane: %s", exc)
+                raise
         t0 = time.perf_counter()
         out = self.cpu.verify_batch(reqs)
         t1 = time.perf_counter()
@@ -300,10 +380,8 @@ class VerifyPlane:
         self._hist["cpu"].record(ms)
         self.batches += 1
         self.verified += n
-        self.tracer.complete(
-            "verify.batch", "verify", t0, t1, n=n, routed="cpu",
-            **({"wedged_fallback": True} if wedged_now else {}),
-        )
+        self.tracer.complete("verify.batch", "verify", t0, t1, n=n,
+                             routed="cpu")
         return out
 
     def stop(self) -> None:

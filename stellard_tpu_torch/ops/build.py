@@ -110,11 +110,15 @@ def check(err: int, what: str) -> None:
 
 def is_device_error(exc: BaseException) -> bool:
     """Whether ``exc`` came from the card: a kernel that did not build,
-    load or launch, or an error torch raised for the CUDA device. The
+    load or launch, a device call that overran its deadline
+    (``utils.devicewatch.DeviceWedged``), or an error torch raised for
+    the CUDA device. The
     close path's helper threads count every error they absorb, but one
     of these they hand back to the close (LedgerMaster), so that a
     failing card is never hidden behind the host's recomputation."""
-    if isinstance(exc, KernelError):
+    from ..utils.devicewatch import DeviceWedged
+
+    if isinstance(exc, (KernelError, DeviceWedged)):
         return True
     import torch
 

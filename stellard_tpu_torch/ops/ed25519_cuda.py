@@ -17,12 +17,15 @@ from . import build
 from . import ed25519_ref as ref
 from .ed25519 import verify_kernel_ref
 
-__all__ = ["verify", "verify_kernel_ref", "launches", "base_table_np"]
+__all__ = ["verify", "verify_kernel_ref", "launches", "launches_by_batch", "base_table_np"]
 
 LIB = "ed25519_verify"
 
-# launches of the CUDA kernel in this process (never counts plain runs)
+# launches of the CUDA kernel in this process (never counts plain runs),
+# and the same launches by batch size (the RPC door's submits launch K1
+# one signature at a time)
 launches = 0
+launches_by_batch: dict[int, int] = {}
 
 _BASE_TABLES: dict[torch.device, torch.Tensor] = {}
 
@@ -102,4 +105,5 @@ def verify(a_words, r_words, s_bytes, h_bytes, s_canonical) -> torch.Tensor:
     build.check(err, "ed25519_verify")
     global launches
     launches += 1
+    launches_by_batch[b] = launches_by_batch.get(b, 0) + 1
     return out

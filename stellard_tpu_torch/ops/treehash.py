@@ -61,7 +61,10 @@ _COUNT_LOCK = threading.Lock()
 
 
 def _count(kernel: str) -> None:
-    name = threading.current_thread().name
+    # a watchdog's helper thread carries the role of the thread that
+    # called it (utils.devicewatch.call_with_deadline)
+    th = threading.current_thread()
+    name = getattr(th, "role", th.name)
     with _COUNT_LOCK:
         launches[kernel] += 1
         per = launches_by_thread.setdefault(name, dict.fromkeys(launches, 0))

@@ -1,0 +1,2213 @@
+"""RPC method handlers + dispatch.
+
+Reference: src/ripple_rpc/handlers/*.cpp (60 handlers) dispatched by
+RPCHandler::doCommand (src/ripple_app/rpc/RPCHandler.cpp) with per-method
+role requirements (ADMIN/GUEST). The same handler table serves HTTP
+JSON-RPC and WebSocket commands, as in the reference.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from dataclasses import dataclass, field
+from enum import IntEnum
+from typing import Any, Callable, Optional
+
+from ..protocol.formats import LedgerEntryType
+from ..protocol.keys import (
+    KeyPair,
+    decode_account_id,
+    encode_account_id,
+    encode_node_public,
+    encode_seed,
+)
+from ..engine.flags import (
+    lsfHighAuth,
+    lsfHighNoRipple,
+    lsfLowAuth,
+    lsfLowNoRipple,
+)
+from ..protocol.sfields import (
+    sfAccount,
+    sfBalance,
+    sfFlags,
+    sfHighLimit,
+    sfHighQualityIn,
+    sfHighQualityOut,
+    sfLedgerEntryType,
+    sfLowLimit,
+    sfLowQualityIn,
+    sfLowQualityOut,
+    sfOwnerCount,
+    sfRegularKey,
+    sfSequence,
+    sfTakerGets,
+    sfTakerPays,
+)
+from ..protocol.stamount import STAmount, currency_from_iso, iso_from_currency
+from ..protocol.stobject import STObject
+from ..protocol.sttx import SerializedTransaction
+from ..protocol.ter import TER
+from ..state import indexes
+from ..state.entryset import LedgerEntrySet
+from ..state.ledger import Ledger
+from ..state.shamap import MissingNodeError
+from .errors import RPCError
+from .infosub import InfoSub, SubscriptionManager
+from .txsign import transaction_sign
+
+__all__ = ["Role", "HANDLERS", "dispatch", "Context"]
+
+
+class Role(IntEnum):
+    GUEST = 0
+    ADMIN = 1
+
+
+@dataclass
+class Context:
+    node: Any
+    params: dict
+    role: Role = Role.ADMIN
+    infosub: Optional[InfoSub] = None
+    subs: Optional[SubscriptionManager] = None
+    # set by the result-cache wrapper (rpc/readplane.py): the exact
+    # validated ledger this request was keyed against — _select_ledger
+    # resolves "validated" to it so the computed result always matches
+    # its cache key even if the tip advances mid-request
+    pinned_validated: Any = None
+
+
+HANDLERS: dict[str, tuple[Callable[[Context], dict], Role]] = {}
+
+
+def handler(name: str, role: Role = Role.GUEST):
+    def deco(fn):
+        HANDLERS[name] = (fn, role)
+        return fn
+
+    return deco
+
+
+def dispatch(ctx: Context, method: str) -> dict:
+    """-> result dict; error results carry {"error": ...} (reference:
+    RPCHandler::doCommand wraps into status:error).
+
+    The hot read RPCs route through the validated-seq result cache
+    (rpc/readplane.py) when the request targets validated state — a
+    cache entry is immutable by construction (a validated ledger never
+    changes), invalidated wholesale by the next validated seq."""
+    entry = HANDLERS.get(method)
+    if entry is None:
+        return RPCError("unknownCmd").to_json()
+    fn, need_role = entry
+    if need_role == Role.ADMIN and ctx.role != Role.ADMIN:
+        return RPCError("noPermission").to_json()
+    try:
+        from .readplane import cached_dispatch
+
+        return cached_dispatch(ctx, method, lambda: fn(ctx))
+    except RPCError as exc:
+        return exc.to_json()
+    except MissingNodeError as exc:
+        # a lazily-opened historical ledger faulted a node the store no
+        # longer holds (online-deletion sweep retired it mid-cache-life)
+        # — that is "this history is gone", not an internal error
+        return RPCError(
+            "lgrNotFound",
+            f"historical state no longer retained ({exc})",
+        ).to_json()
+    except Exception as exc:  # noqa: BLE001 — handler bug must not kill the door
+        import traceback
+
+        traceback.print_exc()
+        return RPCError("internal", str(exc)).to_json()
+
+
+# -- RPC resource pricing (doc/overlay.md charging schedule) ---------------
+#
+# Every non-admin request charges its client's endpoint with the SAME
+# fee schedule the peer overlay uses (overlay/resource.py FEE_*_RPC):
+# burden-classed per method, extra on malformed/unknown requests, WARN
+# is advisory (rpc_warning attaches `warning: "load"` to responses —
+# the reference's load warning), DROP refuses with rpcSLOW_DOWN until
+# the balance decays. Admin-allowed IPs are exempt.
+
+def rpc_method_fee(method: Optional[str]):
+    from ..overlay.resource import (
+        FEE_HIGH_BURDEN_RPC,
+        FEE_INVALID_RPC,
+        FEE_LOW_BURDEN_RPC,
+        FEE_MEDIUM_BURDEN_RPC,
+        FEE_PATH_FIND,
+        FEE_REFERENCE_RPC,
+    )
+
+    if not method or method not in HANDLERS:
+        return FEE_INVALID_RPC
+    if method in ("server_info", "server_state", "fee", "ping", "random"):
+        return FEE_REFERENCE_RPC          # cheap reference data
+    if method in ("path_find", "ripple_path_find"):
+        return FEE_PATH_FIND              # full candidate search + trials
+    if method in ("account_tx", "ledger", "ledger_data", "book_offers",
+                  "subscribe"):
+        return FEE_MEDIUM_BURDEN_RPC      # history walks / tree dumps
+    if method in ("sign", "submit"):
+        return FEE_HIGH_BURDEN_RPC if method == "sign" else (
+            FEE_LOW_BURDEN_RPC            # submit: verify + apply work
+        )
+    return FEE_REFERENCE_RPC
+
+
+def charge_rpc_client(node, client_ip: str, method: Optional[str],
+                      role: Role) -> Optional[dict]:
+    """Charge one inbound RPC request against its client's balance.
+    Returns an error-result dict when the request must be REFUSED
+    (balance at/above the drop line), else None. Admin-role requests
+    and admin-exempt IPs are never charged."""
+    rm = getattr(node, "rpc_resources", None)
+    if rm is None or not client_ip or role == Role.ADMIN:
+        return None
+    from ..overlay.resource import Disposition
+
+    addr = (client_ip, 0)
+    if not rm.should_admit(addr):
+        rm.note_refused(addr)
+        return RPCError("slowDown").to_json()
+    if rm.charge(addr, rpc_method_fee(method)) == Disposition.DROP:
+        rm.note_disconnect()
+        return RPCError("slowDown").to_json()
+    return None
+
+
+def rpc_warning(node, client_ip: str, role: Role) -> Optional[str]:
+    """Advisory back-off signal for a served request: "load" while the
+    client's balance sits in WARN (the doors attach it to the response
+    so a client can slow down BEFORE it gets hard-refused)."""
+    rm = getattr(node, "rpc_resources", None)
+    if rm is None or not client_ip or role == Role.ADMIN:
+        return None
+    return "load" if rm.is_throttled((client_ip, 0)) else None
+
+
+# -- helpers ---------------------------------------------------------------
+
+
+def _parse_account(params: dict, key: str = "account") -> bytes:
+    v = params.get(key)
+    if not v:
+        raise RPCError("srcActMissing" if key == "account" else "invalidParams")
+    try:
+        return decode_account_id(v)
+    except (ValueError, KeyError) as exc:
+        raise RPCError("actMalformed") from exc
+
+
+def _load_historical(ctx: Context, ledger_hash: bytes) -> Optional[Ledger]:
+    """In-memory miss -> rebuild from the NodeStore (the history cache is
+    bounded/aged, but persisted ledgers stay queryable forever). The
+    rebuilt ledger re-enters the cache so a polling client only pays the
+    reconstruction once."""
+    try:
+        # lazy: an RPC touching one account of a historical ledger must
+        # not deserialize the whole tree (out-of-core plane); cold: its
+        # faults enter the hot cache one epoch behind, so a deep
+        # history scan cannot thrash the serving snapshot's working set
+        led = Ledger.load(
+            ctx.node.nodestore, ledger_hash, hash_batch=ctx.node.hasher,
+            lazy=True, cold=True,
+        )
+    except (KeyError, ValueError, AttributeError):
+        return None
+    ctx.node.ledger_master.ledgers_by_hash.put(ledger_hash, led)
+    return led
+
+
+def _select_ledger(ctx: Context) -> Ledger:
+    """reference: RPC::lookupLedger (impl/LookupLedger.cpp) — by
+    ledger_hash, numeric ledger_index, or current|closed|validated.
+
+    Read RPCs never take the chain lock here (pinned by test): the
+    current/closed/validated tips resolve from bare attribute reads —
+    the chain swaps whole immutable objects under its own lock, so a
+    racing reader sees either tip, both complete — and "validated"
+    prefers the read plane's published snapshot (the pointer
+    publish_closed_ledger hands the serving side). A follower serves
+    the VALIDATED snapshot for selector-less requests (doc/follower.md
+    consistency contract)."""
+    lm = ctx.node.ledger_master
+    p = ctx.params
+    if p.get("ledger_hash"):
+        h = bytes.fromhex(p["ledger_hash"])
+        led = lm.get_ledger_by_hash(h) or _load_historical(ctx, h)
+        if led is None:
+            raise RPCError("lgrNotFound")
+        return led
+    idx = p.get("ledger_index")
+    if idx is None:
+        idx = (
+            "validated"
+            if getattr(ctx.node, "serve_validated_default", False)
+            else "current"
+        )
+    if isinstance(idx, int) or (isinstance(idx, str) and idx.isdigit()):
+        led = lm.get_ledger_by_seq(int(idx))
+        if led is None:
+            # read-your-writes: a closed-but-not-yet-persisted ledger
+            # resolves from its in-flight close-pipeline entry
+            pipeline = getattr(ctx.node, "close_pipeline", None)
+            if pipeline is not None:
+                led = pipeline.get_by_seq(int(idx))
+        if led is None:
+            hdr = ctx.node.txdb.get_ledger_header(seq=int(idx))
+            if hdr is not None:
+                led = _load_historical(ctx, hdr["hash"])
+        if led is None:
+            raise RPCError("lgrNotFound")
+        return led
+    if idx == "current":
+        led = lm.current
+        if led is None:
+            raise RPCError("lgrNotFound")
+        return led
+    if idx == "closed":
+        led = lm.closed
+        if led is None:
+            raise RPCError("lgrNotFound")
+        return led
+    if idx == "validated":
+        from .readplane import serving_validated
+
+        led = ctx.pinned_validated
+        if led is None:
+            led = serving_validated(ctx.node)
+        if led is None:
+            raise RPCError("lgrNotFound")
+        return led
+    raise RPCError("invalidParams", f"bad ledger_index {idx!r}")
+
+
+def _ledger_ident(led: Ledger) -> dict:
+    out: dict[str, Any] = {"ledger_index": led.seq}
+    if led.closed:
+        out["ledger_hash"] = led.hash().hex().upper()
+    else:
+        out["ledger_current_index"] = led.seq
+    return out
+
+
+def _tx_entries(led: Ledger):
+    """Yield (txid, tx, meta_blob) from a ledger's tx map."""
+    for txid, blob, meta in led.tx_entries():
+        yield txid, SerializedTransaction.from_bytes(blob), meta
+
+
+# -- basics ----------------------------------------------------------------
+
+
+@handler("ping")
+def do_ping(ctx: Context) -> dict:
+    return {}
+
+
+@handler("random")
+def do_random(ctx: Context) -> dict:
+    return {"random": os.urandom(32).hex().upper()}
+
+
+@handler("wallet_propose")
+def do_wallet_propose(ctx: Context) -> dict:
+    """reference: handlers/WalletPropose.cpp — random or passphrase seed."""
+    passphrase = ctx.params.get("passphrase")
+    kp = (
+        KeyPair.from_passphrase(passphrase) if passphrase else KeyPair.random()
+    )
+    return {
+        "master_seed": kp.human_seed,
+        "master_seed_hex": kp.seed.hex().upper(),
+        "account_id": kp.human_account_id,
+        "public_key": kp.human_account_public,
+        "public_key_hex": kp.public.hex().upper(),
+    }
+
+
+@handler("validation_create", Role.ADMIN)
+def do_validation_create(ctx: Context) -> dict:
+    """reference: handlers/ValidationCreate.cpp"""
+    passphrase = ctx.params.get("secret")
+    kp = (
+        KeyPair.from_passphrase(passphrase) if passphrase else KeyPair.random()
+    )
+    return {
+        "validation_key": passphrase or "",
+        "validation_public_key": kp.human_node_public,
+        "validation_seed": kp.human_seed,
+    }
+
+
+@handler("validation_seed", Role.ADMIN)
+def do_validation_seed(ctx: Context) -> dict:
+    node = ctx.node
+    if not node.validation_keys:
+        return {"message": "not a validator"}
+    return {
+        "validation_public_key": node.validation_keys.human_node_public,
+        "validation_seed": node.validation_keys.human_seed,
+    }
+
+
+# -- server introspection --------------------------------------------------
+
+
+@handler("server_info")
+def do_server_info(ctx: Context) -> dict:
+    """reference: handlers/ServerInfo.cpp via NetworkOPs::getServerInfo"""
+    node = ctx.node
+    lm = node.ledger_master
+    lcl = lm.closed_ledger()
+    # the validated ledger is the QUORUM-confirmed one — reporting the
+    # LCL here would claim agreement the net has not reached (closed
+    # chains legitimately diverge until validations land)
+    val = lm.validated if lm.validated is not None else lcl
+    from ..utils.rfc1751 import word_from_blob
+
+    info = {
+        "build_version": "stellard-tpu-torch 0.1.0",
+        # one RFC 1751 dictionary word naming this node — the reference
+        # derives it from the node address (NetworkOPs.cpp:1696,
+        # RFC1751::getWordFromBlob); here from the node identity key
+        "hostid": word_from_blob(node.node_keys.public),
+        "server_state": node.ops.server_state(),
+        "complete_ledgers": _complete_ledgers(node),
+        "peers": (
+            node.overlay.peer_count()
+            if getattr(node, "overlay", None) is not None
+            else 0
+        ),
+        "load_factor": node.fee_track.load_factor / 256.0,
+        "load_base": 256,
+        "signature_backend": node.config.signature_backend,
+        "validation_quorum": node.config.validation_quorum,
+        "validated_ledger": {
+            "seq": val.seq,
+            "hash": val.hash().hex().upper(),
+            "close_time": val.close_time,
+            "base_fee_str": str(val.base_fee),
+            "reserve_base_str": str(val.reserve_base),
+            "reserve_inc_str": str(val.reserve_increment),
+        },
+        "closed_ledger": {
+            "seq": lcl.seq,
+            "hash": lcl.hash().hex().upper(),
+        },
+        # node identity vs validator key, as the reference splits them
+        # (NetworkOPs.cpp:1721-1726): pubkey_node is the persisted
+        # LocalCredentials identity; pubkey_validator is "none" for
+        # non-validators
+        "pubkey_node": node.node_keys.human_node_public,
+        "pubkey_validator": (
+            node.validation_keys.human_node_public
+            if node.validation_keys
+            else "none"
+        ),
+        "uptime": int(time.monotonic() - node.started_at),
+    }
+    return {"info": info}
+
+
+def _complete_ledgers(node) -> str:
+    seqs = sorted(node.ledger_master.ledger_history)
+    if not seqs:
+        return "empty"
+    return f"{seqs[0]}-{seqs[-1]}" if len(seqs) > 1 else str(seqs[0])
+
+
+@handler("server_state")
+def do_server_state(ctx: Context) -> dict:
+    node = ctx.node
+    state = {
+        "server_state": node.ops.server_state(),
+        "complete_ledgers": _complete_ledgers(node),
+        "peers": 0,
+        "load_base": 256,
+        "load_factor": node.fee_track.load_factor,
+    }
+    pipeline = getattr(node, "close_pipeline", None)
+    if pipeline is not None:
+        # per-stage latency histograms + queue-depth gauges for the
+        # ledger-close persistence pipeline
+        state["close_pipeline"] = pipeline.get_json()
+    # storage plane: aggregate counters only (appends, bytes, fsyncs,
+    # fetch hit/miss, segments, live ratio, compaction/sweep counts —
+    # no filesystem paths on a GUEST-reachable method)
+    state["node_store"] = node.nodestore.get_json()
+    deleter = getattr(node, "online_deleter", None)
+    if deleter is not None:
+        state["node_store"]["online_delete"] = deleter.get_json()
+    # delta-replay close: spliced/fallback/invalidation counters +
+    # close-stage (apply/seal/total) latency percentiles
+    state["delta_replay"] = node.ledger_master.delta_replay_json()
+    # batched state-tree commit plane: merges, pre-hash drains, seal
+    # adoptions (aggregate counters only — no per-tx detail to gate)
+    state["tree"] = node.ledger_master.tree_json()
+    spec_ex = getattr(node, "spec_executor", None)
+    if spec_ex is not None:
+        # parallel speculation plane: worker pool + scheduler counters
+        # (dispatched/committed/retries/aborts — aggregate only)
+        state["spec"] = spec_ex.get_json()
+    txq = getattr(node, "txq", None)
+    if txq is not None:
+        # admission-control plane: queue depth, soft cap, escalated
+        # open-ledger fee level (aggregate only — no txids)
+        state["txq"] = txq.get_json()
+    # read plane: serving snapshot seq + result-cache hit rates
+    # (aggregate counters only — no params/keys on a GUEST method)
+    cache = getattr(node, "read_cache", None)
+    if cache is not None:
+        state["read_cache"] = cache.get_json()
+    tracer = getattr(node, "tracer", None)
+    if tracer is not None:
+        # tracing plane status; the consensus/close timeline is ADMIN
+        # only — its events carry txids and peer key prefixes, which a
+        # GUEST-reachable method must not leak (trace_status/trace_dump
+        # serve the full detail behind the ADMIN gate)
+        state["trace"] = tracer.status_json(
+            timeline=(ctx.role == Role.ADMIN)
+        )
+    health = getattr(node, "health", None)
+    if health is not None:
+        # SLO watchdog verdict (node/health.py): status + reason
+        # strings are aggregate-only — safe on a GUEST-reachable method
+        state["health"] = health.get_json()
+    return {"state": state}
+
+
+@handler("fee")
+def do_fee(ctx: Context) -> dict:
+    """Admission-control fee oracle (reference: rippled's `fee` method,
+    handlers/Fee1.cpp): current open-ledger size vs the adaptive soft
+    cap, queue occupancy, and the fee (drops + 1/256 levels) required
+    to enter the open ledger right now."""
+    node = ctx.node
+    led = node.ledger_master.current_ledger()
+    txq = getattr(node, "txq", None)
+    if txq is None:
+        # load-factor-only fallback (no admission plane wired)
+        base = led.base_fee
+        factor = node.fee_track.load_factor if node.fee_track else 256
+        return {
+            "drops": {
+                "base_fee": str(base),
+                "minimum_fee": str(base),
+                "open_ledger_fee": str(base * factor // 256),
+            },
+            "levels": {
+                "reference_level": "256",
+                "open_ledger_level": str(factor),
+            },
+            "ledger_current_index": led.seq,
+        }
+    out = txq.fee_json(led)
+    out["enabled"] = txq.enabled
+    return out
+
+
+def _crypto_json(node) -> dict:
+    """The get_counts crypto block: devices seen, per-plane device
+    provenance (width, kernel selected, routing mode) and cost-model
+    snapshots. CUDA is only consulted when some subsystem already
+    initialized it — a cpu-backend node must not pay device discovery
+    for a counters RPC."""
+    import torch
+
+    vp = node.verify_plane.get_json()
+    out: dict = {
+        "verify": {
+            "backend": vp.get("backend"),
+            "routing": vp.get("routing"),
+            "mesh": vp.get("mesh"),
+            "arms": vp.get("arms"),
+            "model": vp.get("model"),
+            "device_sigs": vp.get("device_sigs"),
+            "cpu_sigs": vp.get("cpu_sigs"),
+            "transfers": vp.get("transfers"),
+        },
+    }
+    hasher = getattr(node, "hasher", None)
+    hj = getattr(hasher, "get_json", None)
+    if hj is not None:
+        out["hash"] = hj()
+    else:
+        out["hash"] = {
+            "backend": getattr(hasher, "name", None),
+            "device_nodes": getattr(hasher, "device_nodes", 0),
+            "host_nodes": getattr(hasher, "host_nodes", 0),
+        }
+    # transfer honesty: total host<->device traffic across
+    # both planes — per-close deltas of transfers/bytes_moved are the
+    # device-residency proof a BENCH reader gates on
+    total_t = 0
+    total_b = 0
+    for block in (vp.get("transfers"), out["hash"].get("transfers")):
+        if isinstance(block, dict):
+            total_t += int(block.get("transfers", 0))
+            total_b += int(block.get("bytes_moved", 0))
+    out["transfers"] = total_t
+    out["bytes_moved"] = total_b
+    if torch.cuda.is_initialized():
+        try:
+            out["devices"] = [
+                torch.cuda.get_device_name(i)
+                for i in range(torch.cuda.device_count())
+            ]
+        except Exception:  # noqa: BLE001 — counters must never fail the RPC
+            out["devices"] = "unavailable"
+    else:
+        out["devices"] = "cuda-uninitialized"
+    return out
+
+
+@handler("get_counts", Role.ADMIN)
+def do_get_counts(ctx: Context) -> dict:
+    """reference: handlers/GetCounts.cpp — object/op counters."""
+    node = ctx.node
+    hist = node.ledger_master.ledgers_by_hash
+    out = {
+        "jobq": node.job_queue.get_json(),
+        "verify_plane": node.verify_plane.get_json(),
+        # crypto-plane routing honesty: devices actually
+        # seen, mesh width / kernel selected per plane, and the
+        # three-arm (host/1-chip/N-chip) cost-model snapshots — the
+        # counters BENCH lines and operators read to know what ran
+        "crypto": _crypto_json(node),
+        "hash_router": node.hash_router.size(),
+        "ledgers_cached": len(hist),
+        "ledger_cache": {
+            "hits": hist.hits,
+            "misses": hist.misses,
+            "target_size": hist.target_size,
+        },
+    }
+    pipeline = getattr(node, "close_pipeline", None)
+    if pipeline is not None:
+        out["close_pipeline"] = pipeline.get_json()
+        out["persist_backlog"] = pipeline.pending()
+    txq = getattr(node, "txq", None)
+    if txq is not None:
+        # admission-control plane: queue depth/caps + admit/evict/
+        # promote counters incl. the queue-aware-speculation split
+        out["txq"] = txq.get_json()
+    # storage plane: façade cache + backend stats (segstore: segments,
+    # live ratio, appends/fsyncs, checkpoint/compaction/sweep counters)
+    out["node_store"] = node.nodestore.get_json()
+    deleter = getattr(node, "online_deleter", None)
+    if deleter is not None:
+        out["node_store"]["online_delete"] = deleter.get_json()
+    out["held"] = {
+        "count": len(node.ledger_master.held),
+        **node.ledger_master.held_stats,
+    }
+    out["delta_replay"] = node.ledger_master.delta_replay_json()
+    # batched state-tree commit plane: bulk merges, background pre-hash
+    # drains, seal adoptions (node/ledgermaster.py tree_json)
+    out["tree"] = node.ledger_master.tree_json()
+    spec_ex = getattr(node, "spec_executor", None)
+    if spec_ex is not None:
+        # parallel speculation plane (engine/specexec.py)
+        out["spec"] = spec_ex.get_json()
+    # out-of-core state plane: the bounded hot-node cache — hit/miss/
+    # fault/evict + resident_bytes evidence for the lazy-faulting tier
+    # (state/hotcache.py; [tree] cache_mb)
+    from ..state.shamap import inner_node_cache
+
+    out["shamap_inner_cache"] = inner_node_cache().get_json()
+    # history-shard tier: sealed ranges + cold-read counters
+    shardstore = getattr(node, "shardstore", None)
+    if shardstore is not None:
+        out["history_shards"] = shardstore.get_json()
+    # subscription-fanout plane (`subs.*`): shards, bounded-queue drops,
+    # slow-consumer evictions, publish→deliver lag, HTTP-push stats
+    subs = getattr(node, "subs", None)
+    if subs is not None:
+        out["subs"] = subs.get_json()
+    # validated-seq result cache + serving snapshot (rpc/readplane.py)
+    cache = getattr(node, "read_cache", None)
+    if cache is not None:
+        out["read_cache"] = cache.get_json()
+    plane = getattr(node, "read_plane", None)
+    if plane is not None:
+        out["read_plane"] = plane.get_json()
+    # liquidity plane (`paths.*`): incremental index continuity, per-
+    # close re-rank/shed counts, staleness quantiles, evaluator routing
+    path_plane = getattr(node, "path_plane", None)
+    if path_plane is not None:
+        out["paths"] = path_plane.get_json()
+    tracer = getattr(node, "tracer", None)
+    if tracer is not None:
+        out["trace"] = tracer.status_json()  # ADMIN method: timeline ok
+    # resource-pricing plane (`resource.*`): per-endpoint charge
+    # balances + warn/drop/refuse/throttle evidence for the peer
+    # overlay and the RPC doors (doc/overlay.md charging schedule)
+    resource: dict = {}
+    rpc_rm = getattr(node, "rpc_resources", None)
+    if rpc_rm is not None:
+        resource["rpc"] = rpc_rm.get_json()
+    overlay = getattr(node, "overlay", None)
+    if overlay is not None:
+        resource["peers"] = overlay.resources.get_json()
+        # squelch plane (`squelch.*`): relay fan-out bound evidence +
+        # sendq shedding (doc/overlay.md degradation contract)
+        out["squelch"] = overlay.squelch_json()
+        out["peers"] = overlay.peer_count()
+        vn = getattr(overlay, "node", None)
+        if vn is not None:
+            if getattr(vn, "follower", False):
+                # follower ingest plane: ledgers adopted, validation-
+                # seen -> adopted latency, live acquisitions, segfetch
+                out["follower"] = vn.follower_json()
+            sb = getattr(vn, "shard_backfill", None)
+            if sb is not None:
+                # archive tier (doc/archive.md): backfill session
+                # state + the verified floor gating the forever cache
+                out["archive"] = {
+                    "backfill": sb.get_json(),
+                    "verified_floor": (
+                        plane.archive_floor if plane is not None else 0
+                    ),
+                    "txdb": node.txdb.counts(),
+                }
+            # byzantine-defense counters: hostile inputs recognized and
+            # neutralized (bad sigs, equivocation, oversized/forged
+            # txsets, malformed frames, garbage segments)
+            defense = getattr(vn, "defense", None)
+            if defense is not None:
+                out["byzantine"] = defense.snapshot()
+            # catch-up acquisition plane: live tree acquisitions plus
+            # the segment bulk path's timeout/retry/backoff counters
+            acq = {
+                "inbound_live": len(vn.inbound.live),
+            }
+            sc = getattr(vn, "segment_catchup", None)
+            if sc is not None:
+                acq["segfetch"] = sc.get_json()
+            out["acquisition"] = acq
+    if resource:
+        out["resource"] = resource
+    # SLO health plane: watchdog verdict + flight-recorder occupancy
+    # and the dump paths written this process (node/health.py)
+    health = getattr(node, "health", None)
+    if health is not None:
+        out["health"] = health.get_json()
+    flight = getattr(node, "flight", None)
+    if flight is not None:
+        out["flight"] = flight.get_json()
+    return out
+
+
+@handler("trace_status", Role.ADMIN)
+def do_trace_status(ctx: Context) -> dict:
+    """Tracing-plane status: [trace] knobs, ring occupancy, span-derived
+    per-stage latency quantiles, and the recent consensus/close
+    timeline."""
+    return {"trace": ctx.node.tracer.status_json()}
+
+
+@handler("trace_dump", Role.ADMIN)
+def do_trace_dump(ctx: Context) -> dict:
+    """Dump the span ring as Chrome trace-event JSON — loadable directly
+    in Perfetto / chrome://tracing (tools/traceview.py wraps fetch +
+    schema validation). Params: {"reset": true} drains atomically —
+    snapshot + ring clear under one lock hold — so successive dumps
+    window cleanly with no span lost between windows."""
+    return ctx.node.tracer.chrome_trace(
+        reset=bool(ctx.params.get("reset"))
+    )
+
+
+@handler("metrics_history", Role.ADMIN)
+def do_metrics_history(ctx: Context) -> dict:
+    """The embedded metric time-series ring ([insight] history_interval/
+    history_window, node/metrics.py MetricsHistory): bounded in-process
+    snapshots of every instrument, queryable without external scrape
+    infrastructure. Params: {"since": <ts>} lower-bounds snapshot wall
+    time, {"limit": N} keeps only the newest N rows."""
+    try:
+        since = float(ctx.params.get("since", 0.0))
+        limit = int(ctx.params.get("limit", 0))
+    except (TypeError, ValueError):
+        return {"error": "invalidParams"}
+    return ctx.node.collector.history_json(since=since, limit=limit)
+
+
+@handler("health", Role.ADMIN)
+def do_health(ctx: Context) -> dict:
+    """SLO watchdog verdict + flight-recorder state (node/health.py).
+    The watchdog block rides NESTED: the RPC envelope owns the top-level
+    `status` key and would clobber the health verdict."""
+    node = ctx.node
+    out: dict = {"enabled": node.health is not None}
+    if node.health is not None:
+        out["health"] = node.health.get_json()
+    flight = getattr(node, "flight", None)
+    if flight is not None:
+        out["flight"] = flight.get_json()
+    return out
+
+
+@handler("consensus_info", Role.ADMIN)
+def do_consensus_info(ctx: Context) -> dict:
+    node = ctx.node
+    info = {
+        "standalone": node.config.standalone,
+        "validation_quorum": node.config.validation_quorum,
+    }
+    overlay = getattr(node, "overlay", None)
+    if overlay is not None:
+        # live round state (reference: LedgerConsensus::getJson via
+        # NetworkOPs::getConsensusInfo), read under the master lock
+        with overlay.node.lock:
+            info.update(overlay.node.consensus_info())
+    return {"info": info}
+
+
+@handler("peers", Role.ADMIN)
+def do_peers(ctx: Context) -> dict:
+    overlay = getattr(ctx.node, "overlay", None)
+    if overlay is None:
+        return {"peers": []}
+    return {"peers": overlay.peers_json(), "slots": overlay.slots_json()}
+
+
+@handler("stop", Role.ADMIN)
+def do_stop(ctx: Context) -> dict:
+    ctx.node._running.clear()
+    return {"message": "stellard server stopping"}
+
+
+@handler("log_level", Role.ADMIN)
+def do_log_level(ctx: Context) -> dict:
+    """reference: handlers/LogLevel.cpp — read current levels, or set
+    the base severity / one partition's severity. Every logger in this
+    tree lives under the "stellard" hierarchy (stellard.device,
+    stellard.netops, ...), so the base set covers them all; a
+    `partition` narrows to stellard.<partition>. (The handler
+    previously set a logger name nothing logs to — no effect at all.)"""
+    import logging
+
+    levels = {
+        "trace": logging.DEBUG,
+        "debug": logging.DEBUG,
+        "info": logging.INFO,
+        "warn": logging.WARNING,
+        "warning": logging.WARNING,
+        "error": logging.ERROR,
+        "fatal": logging.CRITICAL,
+    }
+    severity = ctx.params.get("severity")
+    if severity:
+        if severity not in levels:
+            raise RPCError("invalidParams", f"unknown severity {severity!r}")
+        partition = ctx.params.get("partition")
+        if partition:
+            if partition not in _LOG_PARTITIONS:
+                # a typo'd name would silently create a phantom logger
+                # nothing logs to (and pollute reads forever)
+                raise RPCError(
+                    "invalidParams", f"unknown partition {partition!r}"
+                )
+            name = f"stellard.{partition}"
+        else:
+            name = "stellard"
+        logging.getLogger(name).setLevel(levels[severity])
+        return {}
+    base = logging.getLogger("stellard")
+    out = {"base": logging.getLevelName(base.getEffectiveLevel()).lower()}
+    # snapshot: lazy first-time getLogger() in another thread mutates
+    # loggerDict mid-iteration otherwise
+    for name, logger in list(logging.root.manager.loggerDict.items()):
+        if name.startswith("stellard.") and isinstance(
+            logger, logging.Logger
+        ) and logger.level != logging.NOTSET:
+            out[name.removeprefix("stellard.")] = logging.getLevelName(
+                logger.level
+            ).lower()
+    return {"levels": out}
+
+
+# the known log partitions (stellard.<name>) — a static allowlist, not
+# an existence check: several of these loggers are created lazily in
+# rare error paths, and an operator must be able to raise their
+# verbosity BEFORE the event they want to capture
+_LOG_PARTITIONS = frozenset({
+    "device", "netops", "node", "validator", "unl", "cleaner", "fatal",
+})
+
+
+@handler("feature", Role.ADMIN)
+def do_feature(ctx: Context) -> dict:
+    return {"features": {}}
+
+
+# -- ledger inspection -----------------------------------------------------
+
+
+@handler("ledger_current")
+def do_ledger_current(ctx: Context) -> dict:
+    return {
+        "ledger_current_index": ctx.node.ledger_master.current_ledger().seq
+    }
+
+
+@handler("ledger_closed")
+def do_ledger_closed(ctx: Context) -> dict:
+    lcl = ctx.node.ledger_master.closed_ledger()
+    return {
+        "ledger_index": lcl.seq,
+        "ledger_hash": lcl.hash().hex().upper(),
+    }
+
+
+def _ledger_header_json(led: Ledger, full_txs: bool = False) -> dict:
+    out = {
+        "seqNum": str(led.seq),
+        "ledger_index": str(led.seq),
+        "parent_hash": led.parent_hash.hex().upper(),
+        "total_coins": str(led.tot_coins),
+        "fee_pool": str(led.fee_pool),
+        "inflation_seq": str(led.inflation_seq),
+        "close_time": led.close_time,
+        "parent_close_time": led.parent_close_time,
+        "close_time_resolution": led.close_resolution,
+        "close_flags": led.close_flags,
+        "closed": led.closed,
+        "transaction_hash": led.tx_hash.hex().upper(),
+        "account_hash": led.account_hash.hex().upper(),
+    }
+    if led.closed:
+        out["ledger_hash"] = led.hash().hex().upper()
+        out["hash"] = out["ledger_hash"]
+        out["accepted"] = led.accepted
+    return out
+
+
+@handler("ledger")
+def do_ledger(ctx: Context) -> dict:
+    led = _select_ledger(ctx)
+    out = {"ledger": _ledger_header_json(led)}
+    if ctx.params.get("transactions"):
+        expand = bool(ctx.params.get("expand"))
+        txs = []
+        for txid, tx, meta in _tx_entries(led):
+            if expand:
+                j = tx.obj.to_json()
+                j["hash"] = txid.hex().upper()
+                if meta:
+                    j["metaData"] = STObject.from_bytes(meta).to_json()
+                txs.append(j)
+            else:
+                txs.append(txid.hex().upper())
+        out["ledger"]["transactions"] = txs
+    if ctx.params.get("accounts"):
+        out["ledger"]["accountState"] = [
+            STObject.from_bytes(leaf.item.data).to_json()
+            for leaf in led.state_map.leaves()
+        ]
+    return out
+
+
+@handler("ledger_data")
+def do_ledger_data(ctx: Context) -> dict:
+    """Paginated full-state dump (reference: handlers/LedgerData.cpp)."""
+    led = _select_ledger(ctx)
+    limit = min(int(ctx.params.get("limit", 256)), 2048)
+    marker = ctx.params.get("marker")
+    start = bytes.fromhex(marker) if marker else b"\x00" * 32
+    out_state = []
+    next_marker = None
+    cursor = start if marker else None
+    n = 0
+    while n < limit:
+        item = led.state_map.succ(cursor) if cursor is not None else led.state_map.succ(b"\x00" * 32)
+        # succ is strictly-greater; seed the first call one below
+        if item is None:
+            break
+        cursor = item.tag
+        out_state.append(
+            {
+                "index": item.tag.hex().upper(),
+                "data": item.data.hex().upper(),
+            }
+        )
+        n += 1
+    if n == limit:
+        nxt = led.state_map.succ(cursor)
+        if nxt is not None:
+            next_marker = cursor.hex().upper()
+    out = _ledger_ident(led)
+    out["state"] = out_state
+    if next_marker:
+        out["marker"] = next_marker
+    return out
+
+
+@handler("ledger_entry")
+def do_ledger_entry(ctx: Context) -> dict:
+    """reference: handlers/LedgerEntry.cpp — fetch one SLE by index or by
+    typed locator (account_root, offer, ripple_state)."""
+    led = _select_ledger(ctx)
+    p = ctx.params
+    if p.get("index"):
+        idx = bytes.fromhex(p["index"])
+    elif p.get("account_root"):
+        idx = indexes.account_root_index(
+            decode_account_id(p["account_root"])
+        )
+    elif p.get("offer"):
+        o = p["offer"]
+        idx = indexes.offer_index(decode_account_id(o["account"]), int(o["seq"]))
+    elif p.get("ripple_state"):
+        rs = p["ripple_state"]
+        a = decode_account_id(rs["accounts"][0])
+        b = decode_account_id(rs["accounts"][1])
+        cur = currency_from_iso(rs["currency"])
+        idx = indexes.ripple_state_index(a, b, cur)
+    else:
+        raise RPCError("invalidParams", "no ledger_entry locator")
+    item = led.state_map.get(idx)
+    if item is None:
+        raise RPCError("lgrNotFound", "entryNotFound")
+    out = _ledger_ident(led)
+    out["index"] = idx.hex().upper()
+    out["node_binary"] = item.data.hex().upper()
+    out["node"] = STObject.from_bytes(item.data).to_json()
+    return out
+
+
+@handler("ledger_accept", Role.ADMIN)
+def do_ledger_accept(ctx: Context) -> dict:
+    """Standalone manual close (reference: handlers/LedgerAccept.cpp —
+    rejected unless RUN_STANDALONE)."""
+    node = ctx.node
+    if not node.config.standalone:
+        raise RPCError("notStandalone")
+    node.ops.accept_ledger()
+    return {
+        "ledger_current_index": node.ledger_master.current_ledger().seq
+    }
+
+
+@handler("tx")
+def do_tx(ctx: Context) -> dict:
+    """reference: handlers/Tx.cpp — by transaction hash, from the SQL
+    history DB, with metadata."""
+    h = ctx.params.get("transaction")
+    if not h:
+        raise RPCError("invalidParams", "missing transaction")
+    txid = bytes.fromhex(h)
+    row = ctx.node.txdb.get_transaction(txid)
+    if row is None:
+        # read-your-writes: the tx may live in a closed ledger still
+        # queued in the close pipeline (persisted momentarily)
+        pipeline = getattr(ctx.node, "close_pipeline", None)
+        found = pipeline.lookup_tx(txid) if pipeline is not None else None
+        if found is None:
+            raise RPCError("txnNotFound")
+        led, blob, meta, _results = found
+        row = {"raw": blob, "meta": meta, "ledger_seq": led.seq}
+    tx = SerializedTransaction.from_bytes(row["raw"])
+    out = tx.obj.to_json()
+    out["hash"] = h.upper()
+    out["ledger_index"] = row["ledger_seq"]
+    out["validated"] = True
+    if row["meta"]:
+        out["meta"] = STObject.from_bytes(row["meta"]).to_json()
+    return out
+
+
+@handler("tx_history")
+def do_tx_history(ctx: Context) -> dict:
+    _await_history(ctx)
+    start = int(ctx.params.get("start", 0))
+    rows = ctx.node.txdb.tx_history(start=start, limit=20)
+    txs = []
+    for r in rows:
+        tx = SerializedTransaction.from_bytes(r["raw"])
+        j = tx.obj.to_json()
+        j["hash"] = r["txid"].hex().upper()
+        j["ledger_index"] = r["ledger_seq"]
+        txs.append(j)
+    return {"index": start, "txs": txs}
+
+
+# -- account inspection ----------------------------------------------------
+
+
+@handler("account_info")
+def do_account_info(ctx: Context) -> dict:
+    """reference: handlers/AccountInfo.cpp"""
+    led = _select_ledger(ctx)
+    account_id = _parse_account(ctx.params)
+    root = led.account_root(account_id)
+    if root is None:
+        raise RPCError("actNotFound", account=ctx.params.get("account"))
+    j = root.to_json()
+    j["Balance"] = root[sfBalance].to_json()
+    j["index"] = indexes.account_root_index(account_id).hex().upper()
+    out = _ledger_ident(led)
+    out["account_data"] = j
+    if ctx.params.get("queue"):
+        # admission-queue block (reference: account_info queue_data):
+        # this account's queued sequence chain, fee levels, total
+        # queued fee spend
+        txq = getattr(ctx.node, "txq", None)
+        if txq is not None:
+            out["queue_data"] = txq.account_json(account_id)
+    return out
+
+
+@handler("account_lines")
+def do_account_lines(ctx: Context) -> dict:
+    """reference: handlers/AccountLines.cpp — walk the owner directory for
+    ltRIPPLE_STATE entries; render from this account's perspective."""
+    led = _select_ledger(ctx)
+    account_id = _parse_account(ctx.params)
+    if led.account_root(account_id) is None:
+        raise RPCError("actNotFound")
+    peer = None
+    if ctx.params.get("peer"):
+        peer = decode_account_id(ctx.params["peer"])
+    les = LedgerEntrySet(led)
+    lines = []
+    for entry_idx in les.dir_entries(indexes.owner_dir_index(account_id)):
+        sle = les.peek(entry_idx)
+        if sle is None or sle.get(sfLedgerEntryType) != int(
+            LedgerEntryType.ltRIPPLE_STATE
+        ):
+            continue
+        low = sle[sfLowLimit]
+        high = sle[sfHighLimit]
+        balance = sle[sfBalance]
+        is_low = low.issuer == account_id
+        other = high.issuer if is_low else low.issuer
+        if peer is not None and other != peer:
+            continue
+        bal = balance if is_low else -balance
+        limit = low if is_low else high
+        limit_peer = high if is_low else low
+        row = {
+            "account": encode_account_id(other),
+            "balance": bal.value_text(),
+            "currency": iso_from_currency(balance.currency),
+            "limit": limit.value_text(),
+            "limit_peer": limit_peer.value_text(),
+        }
+        # optional fields match the reference's presence rules
+        # (AccountLines.cpp:102-112: only emitted when set)
+        q_in = sle.get(sfLowQualityIn if is_low else sfHighQualityIn, 0)
+        q_out = sle.get(sfLowQualityOut if is_low else sfHighQualityOut, 0)
+        if q_in:
+            row["quality_in"] = q_in
+        if q_out:
+            row["quality_out"] = q_out
+        flags = sle.get(sfFlags, 0)
+        my_auth = lsfLowAuth if is_low else lsfHighAuth
+        peer_auth = lsfHighAuth if is_low else lsfLowAuth
+        my_nr = lsfLowNoRipple if is_low else lsfHighNoRipple
+        peer_nr = lsfHighNoRipple if is_low else lsfLowNoRipple
+        if flags & my_auth:
+            row["authorized"] = True
+        if flags & peer_auth:
+            row["peer_authorized"] = True
+        if flags & my_nr:
+            row["no_ripple"] = True
+        if flags & peer_nr:
+            row["no_ripple_peer"] = True
+        lines.append(row)
+    out = _ledger_ident(led)
+    out["account"] = ctx.params["account"]
+    out["lines"] = lines
+    return out
+
+
+@handler("account_offers")
+def do_account_offers(ctx: Context) -> dict:
+    """reference: handlers/AccountOffers.cpp"""
+    led = _select_ledger(ctx)
+    account_id = _parse_account(ctx.params)
+    if led.account_root(account_id) is None:
+        raise RPCError("actNotFound")
+    les = LedgerEntrySet(led)
+    offers = []
+    for entry_idx in les.dir_entries(indexes.owner_dir_index(account_id)):
+        sle = les.peek(entry_idx)
+        if sle is None or sle.get(sfLedgerEntryType) != int(
+            LedgerEntryType.ltOFFER
+        ):
+            continue
+        offers.append(
+            {
+                "flags": sle.get(sfFlags, 0),
+                "seq": sle[sfSequence],
+                "taker_gets": sle[sfTakerGets].to_json(),
+                "taker_pays": sle[sfTakerPays].to_json(),
+            }
+        )
+    out = _ledger_ident(led)
+    out["account"] = ctx.params["account"]
+    out["offers"] = offers
+    return out
+
+
+def _await_history(ctx: Context) -> None:
+    """Read-your-writes for the SQL-index RPCs: a just-closed ledger may
+    still be queued in the close pipeline; wait (bounded) for the CLOSE
+    entries pending at call time so history queries never miss a tx
+    already reported COMMITTED. Repairs and later-arriving closes are
+    excluded — a cleaner backfill must not add latency here — and the
+    queue is almost always empty or one deep, so this is microseconds in
+    the common case. Pagination/marker semantics stay untouched; on
+    timeout (storage stalled) the query proceeds over what is stored."""
+    pipeline = getattr(ctx.node, "close_pipeline", None)
+    if pipeline is not None:
+        pipeline.wait_for_closes(timeout=10)
+
+
+@handler("account_tx")
+def do_account_tx(ctx: Context) -> dict:
+    """reference: handlers/AccountTx.cpp over the SQL index."""
+    _await_history(ctx)
+    account_id = _parse_account(ctx.params)
+    p = ctx.params
+    min_l = int(p.get("ledger_index_min", -1))
+    max_l = int(p.get("ledger_index_max", -1))
+    if min_l < 0:
+        min_l = 0
+    if max_l < 0:
+        max_l = 1 << 62
+    forward = bool(p.get("forward", False))
+    binary = bool(p.get("binary", False))
+    limit = max(1, min(int(p.get("limit", 200)), 500))
+    after = None
+    marker = p.get("marker")
+    if marker is not None:
+        # a malformed marker must fail loudly, not restart from page one
+        # (a well-behaved pager would then loop forever over duplicates)
+        try:
+            after = (int(marker["ledger"]), int(marker["seq"]))
+        except (TypeError, KeyError, ValueError):
+            raise RPCError("invalidParams", "malformed marker")
+    # sql_trim retention floor: rows strictly below it were deleted by
+    # online-deletion rotation. With history shards configured
+    # ([node_db] shards=, doc/storage.md) the below-floor portion
+    # routes to cold storage instead; WITHOUT them, a marker pointing
+    # below the floor (a pager resuming across a trim) and a window
+    # lying entirely below it must both fail CLEANLY — a silent empty
+    # page would end a well-behaved pagination loop as if history were
+    # complete
+    floor = getattr(ctx.node.txdb, "retain_floor", 0)
+    shardstore = getattr(ctx.node, "shardstore", None)
+    req_min = min_l
+    # fetch one extra row: its presence means the walk was truncated and
+    # a resume marker must be returned (AccountTx.cpp resumeToken)
+    want = limit + 1
+    # the tier split is planned against one floor reading, but sql_trim
+    # runs on other threads: a trim landing between the shard walk
+    # (< floor) and the SQL walk (>= floor) deletes rows in
+    # [floor, new_floor) that neither tier served. The floor is
+    # monotonic, so re-checking it after the walk and re-planning
+    # against the new value closes the window; the bound only caps
+    # pathological back-to-back trims
+    for _ in range(4):
+        min_l = req_min
+        shard_range = (
+            shardstore.range() if shardstore is not None else None
+        )
+        shards_cover_below = (
+            floor > 0 and shard_range is not None and min_l < floor
+        )
+        if shards_cover_below:
+            # the shard tier only covers [shard_lo, floor): history
+            # below the FIRST sealed shard (trimmed before shards were
+            # enabled) is gone everywhere, and must keep the clean
+            # lgrIdxInvalid / clamp-and-echo contract — never a quietly
+            # complete-looking page with a hole at the front
+            shard_lo = shard_range[0]
+            if min_l < shard_lo:
+                if after is not None and after[0] < shard_lo:
+                    raise RPCError(
+                        "lgrIdxInvalid",
+                        f"marker ledger {after[0]} is below the oldest "
+                        f"sealed history shard ({shard_lo})",
+                    )
+                if max_l < shard_lo:
+                    raise RPCError(
+                        "lgrIdxInvalid",
+                        f"requested window ends below the oldest sealed "
+                        f"history shard ({shard_lo})",
+                    )
+                min_l = shard_lo  # serve what exists; echo effective min
+        if floor > 0 and not shards_cover_below:
+            if after is not None and after[0] < floor:
+                raise RPCError(
+                    "lgrIdxInvalid",
+                    f"marker ledger {after[0]} is below the retained "
+                    f"history floor {floor}",
+                )
+            if max_l < floor:
+                raise RPCError(
+                    "lgrIdxInvalid",
+                    f"requested window ends below the retained history "
+                    f"floor {floor}",
+                )
+            if min_l < floor:
+                # window straddles the floor: serve what exists and
+                # REPORT the effective (clamped) minimum — the
+                # reference's effective-range echo — so a pager can see
+                # the truncation instead of reading a quietly
+                # complete-looking history
+                min_l = floor
+        if shards_cover_below:
+            # two-tier walk, cold shards below the floor + SQL at/above
+            # it, in one consistent (ledger_seq, txn_seq) order; the
+            # EXCLUSIVE `after` marker filters identically in both
+            # tiers, so a pager resumes seamlessly across the boundary
+            shard_hi = min(max_l, floor - 1)
+            rows = []
+            if forward:
+                # a resume marker at/above the floor already consumed
+                # the whole shard tier (every shard row is < floor and
+                # the marker is exclusive) — skip the cold-storage walk
+                if after is None or after[0] < floor:
+                    rows.extend(shardstore.account_tx(
+                        account_id, min_l, shard_hi, want, True,
+                        after=after,
+                    ))
+                if len(rows) < want and max_l >= floor:
+                    rows.extend(ctx.node.txdb.account_transactions(
+                        account_id, floor, max_l, want - len(rows), True,
+                        after=after,
+                    ))
+            else:
+                if max_l >= floor:
+                    rows.extend(ctx.node.txdb.account_transactions(
+                        account_id, floor, max_l, want, False,
+                        after=after,
+                    ))
+                if len(rows) < want:
+                    rows.extend(shardstore.account_tx(
+                        account_id, min_l, shard_hi, want - len(rows),
+                        False, after=after,
+                    ))
+        else:
+            rows = ctx.node.txdb.account_transactions(
+                account_id, min_l, max_l, want, forward, after=after
+            )
+        new_floor = getattr(ctx.node.txdb, "retain_floor", 0)
+        if new_floor == floor:
+            break
+        floor = new_floor
+    more = len(rows) > limit
+    rows = rows[:limit]
+    served_from_shards = any("shard" in r for r in rows)
+    txs = []
+    for r in rows:
+        if binary:
+            entry = {
+                "tx_blob": r["raw"].hex().upper(),
+                "ledger_index": r["ledger_seq"],
+                "validated": True,
+            }
+            if r["meta"]:
+                entry["meta"] = r["meta"].hex().upper()
+        else:
+            tx = SerializedTransaction.from_bytes(r["raw"])
+            j = tx.obj.to_json()
+            j["hash"] = r["txid"].hex().upper()
+            j["ledger_index"] = r["ledger_seq"]
+            entry = {"tx": j, "validated": True}
+            if r["meta"]:
+                entry["meta"] = STObject.from_bytes(r["meta"]).to_json()
+        if "shard" in r:
+            # cold-storage provenance: this row came off a sealed
+            # history shard, not the live SQL index
+            entry["shard"] = r["shard"]
+        txs.append(entry)
+    out = {
+        "account": p["account"],
+        "ledger_index_min": min_l,
+        "ledger_index_max": max_l if max_l < (1 << 62) else -1,
+        "limit": limit,
+        "transactions": txs,
+    }
+    if served_from_shards:
+        out["history_shards"] = True
+    if more and rows:
+        out["marker"] = {
+            "ledger": rows[-1]["ledger_seq"],
+            "seq": rows[-1]["txn_seq"],
+        }
+    return out
+
+
+# -- order books -----------------------------------------------------------
+
+
+def _parse_book_side(p: dict, key: str) -> tuple[bytes, bytes]:
+    side = p.get(key)
+    if not isinstance(side, dict) or "currency" not in side:
+        raise RPCError("invalidParams", f"missing {key}")
+    iso = side["currency"]
+    currency = bytes.fromhex(iso) if len(iso) == 40 else currency_from_iso(iso)
+    issuer = b"\x00" * 20
+    if side.get("issuer"):
+        issuer = decode_account_id(side["issuer"])
+    return currency, issuer
+
+
+@handler("book_offers")
+def do_book_offers(ctx: Context) -> dict:
+    """reference: handlers/BookOffers.cpp — walk the book's quality
+    directories in order, rendering resting offers."""
+    led = _select_ledger(ctx)
+    pays_currency, pays_issuer = _parse_book_side(ctx.params, "taker_pays")
+    gets_currency, gets_issuer = _parse_book_side(ctx.params, "taker_gets")
+    limit = min(int(ctx.params.get("limit", 256)), 512)
+
+    les = LedgerEntrySet(led)
+    base = indexes.book_base(
+        pays_currency, pays_issuer, gets_currency, gets_issuer
+    )
+    end = indexes.quality_next(base)
+    offers = []
+    cursor = base
+    while len(offers) < limit:
+        item = led.state_map.succ(cursor)
+        if item is None or item.tag >= end:
+            break
+        cursor = item.tag
+        dir_sle = les.peek(item.tag)
+        if dir_sle is None:
+            continue
+        if dir_sle.get(sfLedgerEntryType) != int(LedgerEntryType.ltDIR_NODE):
+            continue
+        for offer_idx in les.dir_entries(item.tag):
+            sle = les.peek(offer_idx)
+            if sle is None or sle.get(sfLedgerEntryType) != int(
+                LedgerEntryType.ltOFFER
+            ):
+                continue
+            j = sle.to_json()
+            j["index"] = offer_idx.hex().upper()
+            j["quality"] = str(indexes.get_quality(item.tag))
+            offers.append(j)
+            if len(offers) >= limit:
+                break
+    out = _ledger_ident(led)
+    out["offers"] = offers
+    return out
+
+
+# -- submission ------------------------------------------------------------
+
+
+def _engine_result(ter: TER, tx: SerializedTransaction) -> dict:
+    return {
+        "engine_result": ter.token,
+        "engine_result_code": int(ter),
+        "engine_result_message": ter.human,
+        "tx_blob": tx.serialize().hex().upper(),
+        "tx_json": {
+            **tx.obj.to_json(),
+            "hash": tx.txid().hex().upper(),
+        },
+    }
+
+
+@handler("submit")
+def do_submit(ctx: Context) -> dict:
+    """reference: handlers/Submit.cpp:26-80 — tx_blob path or
+    sign-and-submit tx_json path."""
+    p = ctx.params
+    if "tx_blob" in p:
+        try:
+            tx = SerializedTransaction.from_bytes(bytes.fromhex(p["tx_blob"]))
+        except Exception as exc:  # noqa: BLE001
+            raise RPCError("invalidTransaction", str(exc)) from exc
+    elif "tx_json" in p:
+        if "secret" not in p:
+            raise RPCError("invalidParams", "missing secret")
+        tx = transaction_sign(
+            ctx.node, p["tx_json"], p["secret"],
+            build_path=bool(p.get("build_path")),
+        )
+    else:
+        raise RPCError("invalidParams", "need tx_blob or tx_json")
+    ter, _applied = ctx.node.ops.process_transaction(
+        tx, admin=(ctx.role == Role.ADMIN)
+    )
+    out = _engine_result(ter, tx)
+    if ter == TER.terQUEUED:
+        # admission control queued it: tell the caller what entering the
+        # open ledger would have cost (and would cost on resubmit)
+        txq = getattr(ctx.node, "txq", None)
+        if txq is not None:
+            led = ctx.node.ledger_master.current_ledger()
+            out["queued"] = True
+            out["open_ledger_fee"] = str(txq.open_ledger_fee(led))
+    return out
+
+
+@handler("sign")
+def do_sign(ctx: Context) -> dict:
+    """reference: handlers/Sign.cpp → RPC::transactionSign (no submit)."""
+    p = ctx.params
+    if "tx_json" not in p or "secret" not in p:
+        raise RPCError("invalidParams", "need tx_json and secret")
+    tx = transaction_sign(
+        ctx.node, p["tx_json"], p["secret"],
+        build_path=bool(p.get("build_path")),
+    )
+    return {
+        "tx_blob": tx.serialize().hex().upper(),
+        "tx_json": {**tx.obj.to_json(), "hash": tx.txid().hex().upper()},
+    }
+
+
+# -- pub/sub ---------------------------------------------------------------
+
+
+def _url_sub_target(ctx: Context):
+    """Resolve the subscription target for a `url` param (reference:
+    Subscribe.cpp:34-80 — HTTP callers subscribe a server-side RPCSub
+    pusher instead of a websocket InfoSub; admin only)."""
+    p = ctx.params
+    if ctx.role != Role.ADMIN:
+        raise RPCError("noPermission")
+    subs = ctx.subs or getattr(ctx.node, "subs", None)
+    if subs is None:
+        raise RPCError("notSupported", "node is not serving subscriptions")
+    try:
+        sub = subs.rpc_sub(
+            p["url"],
+            p.get("url_username", p.get("username", "")),
+            p.get("url_password", p.get("password", "")),
+        )
+    except ValueError as exc:
+        raise RPCError("invalidParams", str(exc)) from exc
+    return sub, subs
+
+
+@handler("subscribe")
+def do_subscribe(ctx: Context) -> dict:
+    """reference: handlers/Subscribe.cpp:86-112 (websocket InfoSub) and
+    :34-80 (HTTP `url` callbacks via RPCSub)."""
+    p0 = ctx.params
+    # decode-validate BEFORE registering a url sub: a later param error
+    # must not leak a phantom rpc_subs entry
+    for key in ("accounts", "accounts_proposed", "rt_accounts"):
+        for a in p0.get(key) or []:
+            try:
+                decode_account_id(a)
+            except (ValueError, KeyError) as exc:
+                raise RPCError("actMalformed") from exc
+    if ctx.params.get("url"):
+        infosub, subs = _url_sub_target(ctx)
+    elif ctx.infosub is None or ctx.subs is None:
+        raise RPCError("notSupported",
+                       "subscribe requires a websocket or a url")
+    else:
+        infosub, subs = ctx.infosub, ctx.subs
+    ctx = Context(ctx.node, ctx.params, ctx.role, infosub, subs)
+    p = ctx.params
+    result = {}
+    if p.get("streams"):
+        result.update(ctx.subs.subscribe_streams(ctx.infosub, p["streams"]))
+    if p.get("accounts"):
+        accts = [decode_account_id(a) for a in p["accounts"]]
+        ctx.subs.subscribe_accounts(ctx.infosub, accts)
+    if p.get("accounts_proposed") or p.get("rt_accounts"):
+        accts = [
+            decode_account_id(a)
+            for a in (p.get("accounts_proposed") or p.get("rt_accounts"))
+        ]
+        ctx.subs.subscribe_accounts(ctx.infosub, accts, proposed=True)
+    if "resume" in p:
+        # WS-door resume cursor (doc/follower.md reconnect-storm
+        # hardening): `resume: N` (or `{"last_seq": N}`) replays every
+        # ledgerClosed event after N still inside the bounded replay
+        # ring and re-attaches the ledger stream — zero gaps, zero
+        # dups. A cursor past the horizon gets the EXPLICIT cold
+        # answer ({"cold": true} + the current floor), never a silent
+        # re-subscribe.
+        r = p["resume"]
+        if isinstance(r, dict):
+            r = r.get("last_seq")
+        if isinstance(r, bool) or not isinstance(r, (int, str)):
+            raise RPCError("invalidParams", "malformed resume cursor")
+        try:
+            last_seq = int(r)
+        except (TypeError, ValueError) as exc:
+            raise RPCError("invalidParams",
+                           "malformed resume cursor") from exc
+        if last_seq < 0:
+            raise RPCError("invalidParams", "malformed resume cursor")
+        result.update(ctx.subs.resume(ctx.infosub, last_seq))
+    return result
+
+
+@handler("unsubscribe")
+def do_unsubscribe(ctx: Context) -> dict:
+    _prune = None
+    if ctx.params.get("url"):
+        if ctx.role != Role.ADMIN:
+            raise RPCError("noPermission")
+        subs = ctx.subs or getattr(ctx.node, "subs", None)
+        if subs is None:
+            raise RPCError("notSupported", "node is not serving subscriptions")
+        # lookup ONLY: unsubscribing a never-subscribed url must error,
+        # not find-or-create a phantom subscription
+        infosub = subs.rpc_sub_lookup(ctx.params["url"])
+        if infosub is None:
+            raise RPCError("invalidParams",
+                           f"no subscription for url {ctx.params['url']!r}")
+        _prune = (subs, infosub)
+        ctx = Context(ctx.node, ctx.params, ctx.role, infosub, subs)
+    elif ctx.infosub is None or ctx.subs is None:
+        raise RPCError("notSupported",
+                       "unsubscribe requires a websocket or a url")
+    p = ctx.params
+    if p.get("streams"):
+        ctx.subs.unsubscribe_streams(ctx.infosub, p["streams"])
+    if p.get("accounts"):
+        ctx.subs.unsubscribe_accounts(
+            ctx.infosub, [decode_account_id(a) for a in p["accounts"]]
+        )
+    if p.get("accounts_proposed"):
+        ctx.subs.unsubscribe_accounts(
+            ctx.infosub,
+            [decode_account_id(a) for a in p["accounts_proposed"]],
+            proposed=True,
+        )
+    if _prune is not None:
+        _prune[0].prune_rpc_sub(_prune[1])
+    return {}
+
+
+@handler("ripple_path_find")
+def do_ripple_path_find(ctx: Context) -> dict:
+    """reference: handlers/RipplePathFind.cpp — one-shot path search:
+    source_account, destination_account, destination_amount
+    [, send_max] -> ranked alternatives."""
+    from ..paths import find_paths
+    from ..protocol.stamount import STAmount as _STA
+    from ..protocol.stobject import STPathSet
+
+    led = _select_ledger(ctx)
+    p = ctx.params
+    try:
+        src = decode_account_id(p["source_account"])
+        dst = decode_account_id(p["destination_account"])
+        dst_amount = _STA.from_json(p["destination_amount"])
+        send_max = _STA.from_json(p["send_max"]) if "send_max" in p else None
+        # search_level bounds which cost-ranked shape-table rows run;
+        # 0/absent means "use the default level" (reference: PathRequest
+        # treats iLevel 0 as unset, PathRequest.cpp:370-375)
+        level = int(p["search_level"]) if "search_level" in p else 0
+        if level < 0:
+            raise ValueError(f"search_level {level} out of range")
+        level = level or None
+    except (KeyError, ValueError, TypeError) as e:
+        raise RPCError("invalidParams", str(e))
+    kwargs = {"send_max": send_max}
+    if level is not None:
+        kwargs["level"] = level
+    # liquidity plane: serve off the incrementally-maintained
+    # book index when it already reflects the selected ledger (never
+    # advance it here — an RPC against a historical ledger must not
+    # wreck close-to-close continuity), and let the device plane
+    # pre-rank oversized candidate sets
+    plane = getattr(ctx.node, "path_plane", None)
+    if plane is not None:
+        books = plane.books_if_current(led)
+        if books is not None:
+            kwargs["books"] = books
+        pre_rank = plane.make_pre_rank(led)
+        if pre_rank is not None:
+            kwargs["pre_rank"] = pre_rank
+    alts = find_paths(led, src, dst, dst_amount, **kwargs)
+    out = _ledger_ident(led)
+    out["source_account"] = p["source_account"]
+    out["destination_account"] = p["destination_account"]
+    out["destination_amount"] = p["destination_amount"]
+    out["alternatives"] = [
+        {
+            "paths_computed": STPathSet(a["paths"]).to_json(),
+            "source_amount": a["source_amount"].to_json(),
+        }
+        for a in alts
+    ]
+    return out
+
+
+@handler("path_find")
+def do_path_find(ctx: Context) -> dict:
+    """reference: handlers/PathFind.cpp — the WebSocket subscription
+    form: `create` registers a LIVE path request (re-searched and pushed
+    to the subscriber on every ledger close, PathRequests role), `close`
+    tears it down, `status` reports it. Over HTTP (no subscriber), a
+    create degrades to the one-shot search."""
+    sub_cmd = ctx.params.get("subcommand", "create")
+    if sub_cmd == "close":
+        if ctx.infosub is not None and ctx.subs is not None:
+            rid = ctx.params.get("id")
+            if rid is not None:
+                try:
+                    rid = int(rid)
+                except (TypeError, ValueError):
+                    raise RPCError("invalidParams", "id must be an integer")
+            closed = ctx.subs.close_path_request(ctx.infosub, rid)
+            return {"closed": closed}
+        return {"closed": True}
+    if sub_cmd == "status":
+        if ctx.infosub is None:
+            raise RPCError("notSupported", "status requires a websocket")
+        return {
+            "requests": [
+                {"id": rid, **req.get("echo", {})}
+                for rid, req in ctx.infosub.path_requests.items()
+            ]
+        }
+    if sub_cmd != "create":
+        raise RPCError("invalidParams", f"unknown subcommand {sub_cmd!r}")
+    # the initial answer is the same pure function of the validated
+    # snapshot as ripple_path_find — route it through the validated-seq
+    # result cache so back-to-back creates share one search
+    # (dispatch-level wrapping keys on "path_find", which is not
+    # cacheable because create/close mutate subscription state)
+    from .readplane import cached_dispatch
+
+    out = cached_dispatch(ctx, "ripple_path_find",
+                          lambda: do_ripple_path_find(ctx))
+    if ctx.infosub is not None and ctx.subs is not None:
+        from ..protocol.stamount import STAmount as _STA
+
+        p = ctx.params
+        request = {
+            "src": decode_account_id(p["source_account"]),
+            "dst": decode_account_id(p["destination_account"]),
+            "dst_amount": _STA.from_json(p["destination_amount"]),
+            "echo": {
+                "source_account": p["source_account"],
+                "destination_account": p["destination_account"],
+                "destination_amount": p["destination_amount"],
+            },
+        }
+        if "send_max" in p:
+            request["send_max"] = _STA.from_json(p["send_max"])
+        out["id"] = ctx.subs.create_path_request(ctx.infosub, request)
+    return out
+
+
+# --------------------------------------------------------------------------
+# round-3 surface completion: the remaining Handlers.cpp table entries
+
+
+@handler("account_currencies")
+def do_account_currencies(ctx: Context) -> dict:
+    """reference: handlers/AccountCurrencies.cpp — currencies the account
+    can send (positive balance or peer credit) and receive (inbound
+    limit)."""
+    led = _select_ledger(ctx)
+    account_id = _parse_account(ctx.params)
+    if led.account_root(account_id) is None:
+        raise RPCError("actNotFound")
+    les = LedgerEntrySet(led)
+    send, receive = set(), set()
+    for entry_idx in les.dir_entries(indexes.owner_dir_index(account_id)):
+        sle = les.peek(entry_idx)
+        if sle is None or sle.get(sfLedgerEntryType) != int(
+            LedgerEntryType.ltRIPPLE_STATE
+        ):
+            continue
+        low = sle[sfLowLimit]
+        high = sle[sfHighLimit]
+        is_low = low.issuer == account_id
+        balance = sle[sfBalance] if is_low else -sle[sfBalance]
+        our_limit = low if is_low else high
+        peer_limit = high if is_low else low
+        iso = iso_from_currency(low.currency)
+        # sendable = positive balance OR remaining peer credit (a line
+        # drawn to its full limit has no capacity left)
+        if balance.signum() > 0 or (peer_limit + balance).signum() > 0:
+            send.add(iso)
+        if our_limit.signum() > 0:
+            receive.add(iso)
+    out = _ledger_ident(led)
+    out["send_currencies"] = sorted(send)
+    out["receive_currencies"] = sorted(receive)
+    return out
+
+
+@handler("owner_info")
+def do_owner_info(ctx: Context) -> dict:
+    """reference: handlers/OwnerInfo.cpp — everything the account owns in
+    the current and closed ledgers (offers + trust lines)."""
+    account_id = _parse_account(ctx.params)
+
+    def owned(led: Ledger) -> dict:
+        if led.account_root(account_id) is None:
+            return {}
+        les = LedgerEntrySet(led)
+        offers, lines = [], []
+        for entry_idx in les.dir_entries(indexes.owner_dir_index(account_id)):
+            sle = les.peek(entry_idx)
+            if sle is None:
+                continue
+            et = sle.get(sfLedgerEntryType)
+            if et == int(LedgerEntryType.ltOFFER):
+                offers.append({
+                    "seq": sle.get(sfSequence, 0),
+                    "taker_pays": sle[sfTakerPays].to_json(),
+                    "taker_gets": sle[sfTakerGets].to_json(),
+                })
+            elif et == int(LedgerEntryType.ltRIPPLE_STATE):
+                lines.append({
+                    "balance": sle[sfBalance].to_json(),
+                    "flags": sle.get(sfFlags, 0),
+                })
+        return {"offers": offers, "ripple_lines": lines}
+
+    return {
+        "accepted": owned(ctx.node.ledger_master.closed_ledger()),
+        "current": owned(ctx.node.ledger_master.current_ledger()),
+    }
+
+
+@handler("transaction_entry")
+def do_transaction_entry(ctx: Context) -> dict:
+    """reference: handlers/TransactionEntry.cpp — a transaction looked up
+    INSIDE a specific ledger (by tx_hash + ledger hash/index)."""
+    p = ctx.params
+    if "tx_hash" not in p:
+        raise RPCError("fieldNotFoundTransaction")
+    led = _select_ledger(ctx)
+    try:
+        txid = bytes.fromhex(p["tx_hash"])
+    except ValueError:
+        raise RPCError("invalidParams", "malformed tx_hash")
+    for tid, blob, meta in led.tx_entries():
+        if tid == txid:
+            tx = SerializedTransaction.from_bytes(blob)
+            out = _ledger_ident(led)
+            out["tx_json"] = tx.obj.to_json()
+            if meta:
+                out["metadata"] = STObject.from_bytes(meta).to_json()
+            return out
+    raise RPCError("transactionNotFound")
+
+
+@handler("ledger_header")
+def do_ledger_header(ctx: Context) -> dict:
+    """reference: handlers/LedgerHeader.cpp — header blob + fields."""
+    led = _select_ledger(ctx)
+    out = _ledger_ident(led)
+    out["ledger_data"] = led.header_bytes().hex().upper()
+    out["ledger"] = {
+        "parent_hash": led.parent_hash.hex().upper(),
+        "seqNum": led.seq,
+        "close_time": led.close_time,
+        "close_time_resolution": led.close_resolution,
+        "totalCoins": str(led.tot_coins),
+        "transaction_hash": led.tx_hash.hex().upper(),
+        "account_hash": led.account_hash.hex().upper(),
+    }
+    return out
+
+
+@handler("fetch_info", Role.ADMIN)
+def do_fetch_info(ctx: Context) -> dict:
+    """reference: handlers/FetchInfo.cpp — live acquisition status."""
+    info: dict = {}
+    overlay = getattr(ctx.node, "overlay", None)
+    inbound = getattr(getattr(overlay, "node", None), "inbound", None)
+    if inbound is not None:
+        for h, il in list(inbound.live.items()):
+            info[h.hex().upper()] = {
+                "have_base": il.header is not None,
+                "failed": il.failed,
+                "complete": il.is_complete(),
+            }
+    return {"info": info}
+
+
+@handler("print", Role.ADMIN)
+def do_print(ctx: Context) -> dict:
+    """reference: handlers/Print.cpp — the PropertyStream walk over live
+    subsystems; every plane reports its own introspection JSON."""
+    node = ctx.node
+    out = {
+        "app": {
+            "jobq": node.job_queue.get_json(),
+            "verify_plane": node.verify_plane.get_json(),
+            "load": node.load_manager.get_json(),
+            "clf": node.clf.get_json(),
+            "unl": {"count": len(node.unl)},
+            "nodestore": getattr(node.nodestore, "get_json", dict)(),
+        }
+    }
+    overlay = getattr(node, "overlay", None)
+    if overlay is not None:
+        out["app"]["peerfinder"] = overlay.peerfinder.get_json()
+        out["app"]["resources"] = overlay.resources.get_json()
+        out["app"]["squelch"] = overlay.squelch_json()
+    rpc_rm = getattr(node, "rpc_resources", None)
+    if rpc_rm is not None:
+        out["app"]["rpc_resources"] = rpc_rm.get_json()
+    return out
+
+
+@handler("connect", Role.ADMIN)
+def do_connect(ctx: Context) -> dict:
+    """reference: handlers/Connect.cpp — ask the overlay to dial a peer."""
+    overlay = getattr(ctx.node, "overlay", None)
+    if overlay is None:
+        raise RPCError("notSynced", "no overlay running (standalone)")
+    p = ctx.params
+    if "ip" not in p:
+        raise RPCError("invalidParams", "missing ip")
+    addr = (p["ip"], int(p.get("port", 51235)))
+    overlay.peerfinder.bootcache.insert(addr)
+    overlay._spawn(overlay._dial, addr)
+    return {"message": "connecting"}
+
+
+@handler("log_rotate", Role.ADMIN)
+def do_log_rotate(ctx: Context) -> dict:
+    """reference: handlers/LogRotate.cpp — reopen the debug log."""
+    import logging
+
+    for h in logging.getLogger().handlers:
+        if hasattr(h, "doRollover"):
+            h.doRollover()
+    return {"message": "The log file was closed and reopened."}
+
+
+@handler("inflate", Role.ADMIN)
+def do_inflate(ctx: Context) -> dict:
+    """reference: handlers/Inflate.cpp (Stellar-specific) — build, sign
+    and submit an Inflation transaction for the given sequence."""
+    p = ctx.params
+    if "seq" not in p:
+        raise RPCError("invalidParams", "missing seq")
+    from ..protocol.formats import TxType as _Tx
+    from ..protocol.keys import decode_seed, passphrase_to_seed
+    from ..protocol.sfields import sfInflateSeq
+
+    node = ctx.node
+    secret = p.get("secret")
+    if not secret:
+        raise RPCError("invalidParams", "missing secret")
+    try:
+        seed = decode_seed(secret)
+    except (ValueError, KeyError):
+        seed = passphrase_to_seed(secret)
+    kp = KeyPair.from_seed(seed)
+    led = node.ledger_master.current_ledger()
+    root = led.account_root(kp.account_id)
+    if root is None:
+        raise RPCError("actNotFound")
+    tx = SerializedTransaction.build(
+        _Tx.ttINFLATION, kp.account_id, root[sfSequence], 10,
+        {sfInflateSeq: int(p["seq"])},
+    )
+    tx.sign(kp)
+    ter, applied = node.ops.process_transaction(tx, admin=True)
+    return {"engine_result": ter.token, "applied": applied}
+
+
+# -- UNL management (reference: handlers/Unl*.cpp) -------------------------
+
+
+@handler("unl_list", Role.ADMIN)
+def do_unl_list(ctx: Context) -> dict:
+    return {"unl": ctx.node.unl.get_json()}
+
+
+@handler("unl_add", Role.ADMIN)
+def do_unl_add(ctx: Context) -> dict:
+    p = ctx.params
+    if "node" not in p:
+        raise RPCError("invalidParams", "missing node")
+    from ..protocol.keys import decode_node_public
+
+    try:
+        pk = decode_node_public(p["node"])
+    except (ValueError, KeyError):
+        raise RPCError("invalidParams", "malformed node public key")
+    ctx.node.unl.add(pk, p.get("comment", ""))
+    return {"pubkey_validator": p["node"]}
+
+
+@handler("unl_delete", Role.ADMIN)
+def do_unl_delete(ctx: Context) -> dict:
+    p = ctx.params
+    if "node" not in p:
+        raise RPCError("invalidParams", "missing node")
+    from ..protocol.keys import decode_node_public
+
+    try:
+        pk = decode_node_public(p["node"])
+    except (ValueError, KeyError):
+        raise RPCError("invalidParams", "malformed node public key")
+    if not ctx.node.unl.remove(pk):
+        raise RPCError("invalidParams", "not on the UNL")
+    return {"pubkey_validator": p["node"]}
+
+
+@handler("unl_reset", Role.ADMIN)
+def do_unl_reset(ctx: Context) -> dict:
+    ctx.node.unl.reset()
+    return {"message": "removing nodes"}
+
+
+@handler("unl_load", Role.ADMIN)
+def do_unl_load(ctx: Context) -> dict:
+    """Re-seed from the config [validators] section."""
+    from ..protocol.keys import decode_node_public
+
+    n = ctx.node.unl.load_from(
+        (decode_node_public(v) for v in ctx.node.config.validators), "config"
+    )
+    return {"message": f"loading (added {n})"}
+
+
+@handler("unl_network", Role.ADMIN)
+def do_unl_network(ctx: Context) -> dict:
+    """The reference fetched network UNL sites; this build has no site
+    fetcher (zero-egress deployments), so report the static posture."""
+    return {"message": "no network sources configured"}
+
+
+@handler("unl_score", Role.ADMIN)
+def do_unl_score(ctx: Context) -> dict:
+    """reference: UnlScore.cpp — scoring is deprecated there; here the
+    observed-validation bookkeeping doubles as the score report."""
+    return {"unl": ctx.node.unl.get_json()}
+
+
+# -- proof of work (reference: handlers/Proof*.cpp) ------------------------
+
+
+@handler("proof_create", Role.ADMIN)
+def do_proof_create(ctx: Context) -> dict:
+    pw = ctx.node.pow_factory.get_proof()
+    return {
+        "token": pw.token,
+        "challenge": pw.challenge.hex().upper(),
+        "target": pw.target.hex().upper(),
+        "iterations": pw.iterations,
+    }
+
+
+@handler("proof_solve", Role.ADMIN)
+def do_proof_solve(ctx: Context) -> dict:
+    p = ctx.params
+    try:
+        challenge = bytes.fromhex(p["challenge"])
+        target = bytes.fromhex(p["target"])
+        iterations = int(p["iterations"])
+    except (KeyError, ValueError):
+        raise RPCError("invalidParams", "need challenge/target/iterations")
+    from ..utils.pow import ProofOfWork
+
+    pw = ProofOfWork(p.get("token", ""), iterations, challenge, target)
+    solution = pw.solve()
+    if solution is None:
+        raise RPCError("internal", "no solution found")
+    return {"solution": solution.hex().upper()}
+
+
+@handler("proof_verify", Role.ADMIN)
+def do_proof_verify(ctx: Context) -> dict:
+    p = ctx.params
+    try:
+        challenge = bytes.fromhex(p["challenge"])
+        solution = bytes.fromhex(p["solution"])
+        token = p["token"]
+    except (KeyError, ValueError):
+        raise RPCError("invalidParams", "need token/challenge/solution")
+    ok, reason = ctx.node.pow_factory.check_proof(token, challenge, solution)
+    return {"valid": ok, "reason": reason}
+
+
+# -- wallet / misc ---------------------------------------------------------
+
+
+@handler("wallet_seed", Role.ADMIN)
+def do_wallet_seed(ctx: Context) -> dict:
+    """reference: handlers/WalletSeed.cpp — seed in its encodings."""
+    from ..protocol.keys import decode_seed, passphrase_to_seed
+
+    p = ctx.params
+    secret = p.get("secret")
+    if secret:
+        try:
+            seed = decode_seed(secret)
+        except (ValueError, KeyError):
+            seed = passphrase_to_seed(secret)
+    else:
+        seed = os.urandom(32)
+    kp = KeyPair.from_seed(seed)
+    return {
+        "seed": kp.human_seed,
+        "key": kp.human_seed,
+        "deprecated": "use wallet_propose instead",
+    }
+
+
+@handler("wallet_accounts")
+def do_wallet_accounts(ctx: Context) -> dict:
+    """reference: handlers/WalletAccounts.cpp — accounts reachable from a
+    seed (Ed25519 seeds map to exactly one account)."""
+    from ..protocol.keys import decode_seed, passphrase_to_seed
+
+    p = ctx.params
+    if "seed" not in p and "secret" not in p:
+        raise RPCError("invalidParams", "missing seed")
+    secret = p.get("seed", p.get("secret"))
+    try:
+        seed = decode_seed(secret)
+    except (ValueError, KeyError):
+        seed = passphrase_to_seed(secret)
+    kp = KeyPair.from_seed(seed)
+    led = _select_ledger(ctx)
+    accounts = []
+    if led.account_root(kp.account_id) is not None:
+        accounts.append({"account": kp.human_account_id})
+    return {"accounts": accounts}
+
+
+@handler("nickname_info")
+def do_nickname_info(ctx: Context) -> dict:
+    """reference: handlers/NicknameInfo.cpp — nickname entries are
+    vestigial (no transactor creates them); faithful 'not found'."""
+    raise RPCError("actNotFound", "no nickname entries exist")
+
+
+@handler("blacklist", Role.ADMIN)
+def do_blacklist(ctx: Context) -> dict:
+    """reference: handlers/BlackList.cpp — resource-manager balances
+    for BOTH charge planes: peer overlay endpoints and RPC clients."""
+    overlay = getattr(ctx.node, "overlay", None)
+    out = {
+        "blacklist": (
+            overlay.resources.get_json() if overlay is not None else {}
+        ),
+    }
+    rpc_rm = getattr(ctx.node, "rpc_resources", None)
+    if rpc_rm is not None:
+        out["rpc"] = rpc_rm.get_json()
+    return out
+
+
+@handler("profile", Role.ADMIN)
+def do_profile(ctx: Context) -> dict:
+    """Device-plane profiler control (SURVEY §5 tracing). The reference's
+    Profile.cpp was a load generator; this build's `profile` instead
+    records what the card executes with ``torch.profiler`` (CUDA
+    activity only) and writes it as a Chrome trace, ``trace.json`` in
+    ``dir``, at stop. Without a CUDA device, start answers ``internal``.
+
+    params: {"action": "start"|"stop"|"status", "dir": optional path}
+    """
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    p = ctx.params
+    node = ctx.node
+    action = p.get("action", "status")
+    if action == "start":
+        if getattr(node, "_trace_dir", None):
+            raise RPCError("internal", "trace already running")
+        trace_dir = p.get("dir")
+        if not trace_dir:
+            import tempfile
+
+            trace_dir = tempfile.mkdtemp(prefix="stellard-trace-")
+        try:
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.start()
+        except Exception as exc:  # noqa: BLE001 — surface, don't crash the door
+            raise RPCError("internal", f"profiler start failed: {exc}") from exc
+        node._profiler = prof
+        node._trace_dir = trace_dir
+        return {"status": "tracing", "dir": trace_dir}
+    if action == "stop":
+        trace_dir = getattr(node, "_trace_dir", None)
+        if not trace_dir:
+            raise RPCError("internal", "no trace running")
+        prof = node._profiler
+        try:
+            prof.stop()
+            os.makedirs(trace_dir, exist_ok=True)
+            trace = os.path.join(trace_dir, "trace.json")
+            prof.export_chrome_trace(trace)
+        finally:
+            node._trace_dir = None
+            node._profiler = None
+        return {"status": "stopped", "dir": trace_dir, "trace": trace}
+    return {
+        "status": "tracing" if getattr(node, "_trace_dir", None) else "idle",
+        "dir": getattr(node, "_trace_dir", None),
+        "verify_latency": node.verify_plane.get_json()["latency_histogram_ms"],
+    }
+
+
+@handler("sms", Role.ADMIN)
+def do_sms(ctx: Context) -> dict:
+    """reference: handlers/SMS.cpp — posts to a configured SMS gateway;
+    zero-egress deployments have none."""
+    raise RPCError("notImpl", "no sms gateway configured")
+
+
+@handler("ledger_cleaner", Role.ADMIN)
+def do_ledger_cleaner(ctx: Context) -> dict:
+    """reference: handlers/LedgerCleaner.cpp — drive the integrity
+    checker. The checker is not part of this package (ROADMAP Queue A
+    item 6): without it the command answers notImpl."""
+    if getattr(ctx.node, "ledger_cleaner", None) is None:
+        raise RPCError("notImpl", "the ledger cleaner is not part of this build")
+    p = ctx.params
+    if p.get("stop"):
+        return ctx.node.ledger_cleaner.stop()
+    if p.get("status") or not (p.get("ledger") or p.get("min_ledger")
+                               or p.get("max_ledger") or p.get("full")):
+        return ctx.node.ledger_cleaner.get_json()
+    if p.get("ledger"):
+        lo = hi = int(p["ledger"])
+    else:
+        lo = int(p["min_ledger"]) if p.get("min_ledger") else None
+        hi = int(p["max_ledger"]) if p.get("max_ledger") else None
+    return ctx.node.ledger_cleaner.start(lo, hi)
+
+
+@handler("account_tx_old")
+def do_account_tx_old(ctx: Context) -> dict:
+    """reference: AccountTxOld.cpp — the legacy parameter shape
+    (ledger_min/ledger_max) over the same index."""
+    p = dict(ctx.params)
+    if "ledger_min" in p:
+        p["ledger_index_min"] = p["ledger_min"]
+    if "ledger_max" in p:
+        p["ledger_index_max"] = p["ledger_max"]
+    return do_account_tx(Context(ctx.node, p, ctx.role, ctx.infosub, ctx.subs))
+
+
+@handler("account_tx_switch")
+def do_account_tx_switch(ctx: Context) -> dict:
+    """reference: AccountTxSwitch.cpp routes old/new shapes."""
+    if "ledger_min" in ctx.params or "ledger_max" in ctx.params:
+        return do_account_tx_old(ctx)
+    return do_account_tx(ctx)

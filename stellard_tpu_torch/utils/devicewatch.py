@@ -1,23 +1,25 @@
 """Device-call watchdog: run accelerator calls on a sacrificial thread.
 
 A device call that never returns (a hung CUDA call, a kernel that does not
-terminate) must not freeze a validator mid-consensus: the node degrades
-to its CPU backends instead, and reports the fault loudly (the
-reference's LoadManager deadlock-detector role,
-src/ripple_core/functional/LoadManager.cpp:180-214).
+terminate) must not freeze a validator mid-consensus: the call fails
+instead, and the fault is reported loudly (the reference's LoadManager
+deadlock-detector role, src/ripple_core/functional/LoadManager.cpp:180-214).
+Nothing moves to the host: a wedged card fails the closes and the
+verifications that need it until the node is restarted.
 
 ``call_with_deadline`` runs ``fn`` on a daemon thread and waits up to
 ``timeout_s``. On timeout the thread is abandoned (the leaked thread is
 daemon and holds no locks of ours) and ``DeviceWedged`` raises.
 ``DeviceHealth`` records a permanent verdict so every later device call
-skips the dead backend instantly — one wedge disables the device plane
-for the life of the process; a restart is the recovery path.
+raises at once — one wedge fails every device plane for the life of the
+process; a restart is the recovery path.
 """
 
 from __future__ import annotations
 
 import logging
 import threading
+import time
 from typing import Any, Callable
 
 log = logging.getLogger("stellard.device")
@@ -57,8 +59,7 @@ class DeviceHealth:
             self.reason = reason
             self._dead.set()
             log.error("device plane marked DEAD: %s — all device work "
-                      "now routes to CPU backends for the life of this "
-                      "process", reason)
+                      "now fails for the life of this process", reason)
 
     def reset(self) -> None:
         """Test seam."""
@@ -68,6 +69,23 @@ class DeviceHealth:
 
 # one verdict per process: a wedged device wedges every device plane
 HEALTH = DeviceHealth()
+
+# every call_with_deadline pays for a thread start: the calls made and
+# the ms from the start request to the call running on its thread
+_CALLS_LOCK = threading.Lock()
+call_stats = {"calls": 0, "start_ms": 0.0}
+
+
+def _note_call(start_ms: float) -> None:
+    with _CALLS_LOCK:
+        call_stats["calls"] += 1
+        call_stats["start_ms"] += start_ms
+
+
+def reset_call_stats() -> None:
+    with _CALLS_LOCK:
+        call_stats["calls"] = 0
+        call_stats["start_ms"] = 0.0
 
 
 def call_with_deadline(
@@ -86,8 +104,10 @@ def call_with_deadline(
         raise DeviceWedged(health.reason)
     box: dict[str, Any] = {}
     done = threading.Event()
+    t_start = time.perf_counter()
 
     def run() -> None:
+        _note_call((time.perf_counter() - t_start) * 1e3)
         try:
             box["r"] = fn()
         except BaseException as exc:  # noqa: BLE001 — relayed to caller
@@ -95,7 +115,11 @@ def call_with_deadline(
         finally:
             done.set()
 
+    caller = threading.current_thread()
     t = threading.Thread(target=run, daemon=True, name=f"{label}-call")
+    # device work done on this thread is counted under the role of the
+    # thread that asked for it (ops.treehash.launches_by_thread)
+    t.role = getattr(caller, "role", caller.name)
     t.start()
     if not done.wait(timeout_s):
         health.mark_dead(

@@ -116,16 +116,22 @@ def test_verify_plane_cost_routing_and_wedge_fallback():
             def verify_batch(self, batch):
                 time.sleep(2)
 
-        # a device call past its deadline disables the device and the
-        # batch is verified on the host
+        # a device call past its deadline fails the batch, and every
+        # later batch, small ones included: none is verified on the host
         plane.verifier = Hung()
         plane._device_warm = True
         plane._t_warm = 0.2
+        cpu_sigs = plane.cpu_sigs
         try:
-            assert np.array_equal(plane.verify_many(reqs), want)
+            with pytest.raises(devicewatch.DeviceWedged):
+                plane.verify_many(reqs)
         finally:
             devicewatch.HEALTH.reset()  # the wedge verdict is process-wide
         assert plane.device_wedged and plane.get_json()["device_wedged"]
+        for batch in (reqs, reqs[:4]):
+            with pytest.raises(devicewatch.DeviceWedged):
+                plane.verify_many(batch)
+        assert plane.cpu_sigs == cpu_sigs
     finally:
         plane.stop()
 

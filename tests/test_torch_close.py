@@ -43,6 +43,10 @@ from stellard_tpu_torch.protocol import keys as tkeys
 from stellard_tpu_torch.protocol.ter import TER
 
 SMALL = dict(n_accounts=2000, n_senders=64, n_closes=3, per_close=128, seed=5)
+# the verify plane's deadline for a warm device call: K1's plain version
+# on a loaded CPU can take minutes over a close's batch, where the
+# default (60 s) is set for the card; a call past it fails the close
+PLAIN_K1_DEADLINE_S = 900.0
 
 
 def jax_start_ledger(accounts) -> JaxLedger:
@@ -143,6 +147,133 @@ def _jax_book(lm, bwl: dict, prune_floor: int, first_close: int,
             "prune_batches": plane.get_json()["prune_batches"]}
 
 
+# the JAX node's crypto planes on the host (it has no cuda backend), its
+# path plane's prune floor and host-routed evaluator, and no health
+# watchdog or kernel tuning file (planes this package's node has not)
+JAX_NODE = """
+[signature_backend]
+type=cpu
+
+[hash_backend]
+type=cpu
+
+[paths]
+routing=host
+prune_floor={floor}
+
+[health]
+enabled=0
+
+[kernel_tuning]
+none
+"""
+
+
+# the port's node for the CPU test of the close through the doors: K1
+# on the host (its plain version at batch 1 is slow on the CPU), the
+# hasher as the smoke's (the watchdog's CudaHasher, every tree on K2/K3's
+# plain versions), the path plane's evaluator on K4's plain version
+PORT_NODE_CPU = """
+[signature_backend]
+type=cpu
+
+[hash_backend]
+type=cuda
+device=cpu
+routing=device
+min_device_nodes=0
+
+[paths]
+routing=device
+min_device_batch=1
+prune_floor={floor}
+"""
+
+
+def run_jax_node_closes(wl: dict, store, book=None) -> dict:
+    """The close phase as chip_smoke.close_phase drives it, through the
+    JAX package's Node (run_node_closes)."""
+    return run_node_closes("stellard_tpu", wl, store, JAX_NODE, book)
+
+
+def jax_persistence_surface(node) -> None:
+    """Give the JAX Node the port Node's public persistence surface that
+    chip_smoke.ChainPersist.of_node follows: ``on_persisted`` hooks run
+    once the close pipeline has persisted a ledger (its submit_close
+    wrapped), and ``persist_close``."""
+    node.on_persisted = []
+    pipeline = node.close_pipeline
+    submit_close = pipeline.submit_close
+
+    def submit_with_hooks(ledger, results, done=None, on_failed=None):
+        def landed(res):
+            for hook in node.on_persisted:
+                hook(ledger, res)
+            if done is not None:
+                done(res)
+
+        submit_close(ledger, results, done=landed, on_failed=on_failed)
+
+    pipeline.submit_close = submit_with_hooks
+    node.persist_close = submit_with_hooks
+
+
+def run_node_closes(root: str, wl: dict, store, extra: str, book=None) -> dict:
+    """The close phase as chip_smoke.close_phase drives it, through one
+    package's Node: built from the smoke's config (chip_smoke.NODE_CONFIG
+    under ``store``, with ``extra``), the start ledger resumed through its
+    LedgerMaster.load_ledger and saved to its segstore, each payment a
+    `submit` through its HTTP door and each close a `ledger_accept`
+    (chip_smoke.drive_node_closes), persisted through its close pipeline
+    and followed by chip_smoke.ChainSaver (node-store saves counted, txdb
+    and CLF digested), then the read RPCs (chip_smoke.read_back). With
+    ``book`` = (book workload, prune floor), the book phase goes on on
+    its LedgerMaster as run_jax_closes runs it (JAX only). -> the start
+    hash, the closes, the ledger stream's hashes, the reads, the book
+    (if any), the ChainPersist, the store's digest and each save's
+    nodes."""
+    import importlib
+
+    Config = importlib.import_module(f"{root}.node.config").Config
+    Node = importlib.import_module(f"{root}.node.node").Node
+
+    saver = cs.ChainSaver(store)
+    floor = book[1] if book is not None else cs.BOOK_PRUNE_FLOOR
+    node = Node(Config.from_ini(cs.node_config_text(store, extra.format(floor=floor))))
+    if root == "stellard_tpu":
+        jax_persistence_surface(node)
+    try:
+        if root == "stellard_tpu":
+            start = jax_start_ledger(wl["accounts"])
+        else:
+            from stellard_tpu_torch.interop import ledger_from_items
+
+            start = ledger_from_items(cs.start_header(), cs.account_root_items(wl["accounts"]),
+                                      hash_batch=node.hasher)
+        node.ledger_master.load_ledger(start)
+        saver.attach_node(node)
+        persist, saves = saver.persist, saver.saves
+        saver.save(start)
+        node.serve()
+        res = cs.drive_node_closes(node, wl)
+        persist.flush()
+        out = {"start": start.hash().hex(), "closes": res["closes"], "stream": res["stream"],
+               "reads": cs.read_back(node, wl), "persist": persist, "node": node}
+        if book is not None:
+            out["book"] = _jax_book(node.ledger_master, *book, first_close=len(wl["closes"]),
+                                    on_close=persist.submit)
+        persist.stop()
+        records = list(cs.segstore_records(node.nodestore.backend))
+        assert len(records) == node.nodestore.backend.count() == sum(
+            s["nodes"] for s in saves)
+        assert [s["nodes"] for s in saves] == [s["records"] for s in saves]
+        out["store"] = cs.store_digest(records), [s["nodes"] for s in saves]
+    finally:
+        node.ledger_master.stop_seal_drainer()
+        node.stop()
+    return out
+
+
 def txids(wl: dict, close: int) -> list[bytes]:
     return [JaxSTTx.from_bytes(b).txid() for b, _k, _g in wl["closes"][close]]
 
@@ -150,8 +281,8 @@ def txids(wl: dict, close: int) -> list[bytes]:
 @pytest.fixture(scope="module")
 def small_runs():
     wl = cs.close_workload(**SMALL)
-    plane = VerifyPlane(backend="cuda", routing="device",
-                        backend_opts={"device": "cpu"})
+    plane = VerifyPlane(backend="cuda", routing="device", backend_opts={"device": "cpu"},
+                        device_warm_timeout=PLAIN_K1_DEADLINE_S)
     tkeys.host_verifies = 0
     try:
         port, node = cs.run_closes(wl, CudaHasher(device="cpu"), plane.verify_many)
@@ -199,6 +330,58 @@ def test_no_host_verify_and_all_on_the_plane(small_runs):
     assert pj["device_batches"] == SMALL["n_closes"]
 
 
+@pytest.fixture(scope="module")
+def door_runs(tmp_path_factory):
+    """The close phase through each package's node and doors at the
+    small size, beside the port's harness close (run_closes)."""
+    wl = cs.close_workload(**SMALL)
+    tmp = tmp_path_factory.mktemp("doors")
+    plane = VerifyPlane(backend="cuda", routing="device", backend_opts={"device": "cpu"},
+                        device_warm_timeout=PLAIN_K1_DEADLINE_S)
+    try:
+        harness, node = cs.run_closes(wl, CudaHasher(device="cpu"), plane.verify_many)
+        node["lm"].stop_seal_drainer()
+    finally:
+        plane.stop()
+    port = run_node_closes("stellard_tpu_torch", wl, tmp / "port", PORT_NODE_CPU)
+    jax = run_jax_node_closes(wl, tmp / "jax")
+    return wl, harness, port, jax
+
+
+def test_door_close_equals_the_harness_and_the_jax_node(door_runs):
+    """Each payment submitted to the port's HTTP door and each close a
+    `ledger_accept`: the same ledger hashes, results digests, splice
+    splits and adoptions as the port's harness close (LedgerMaster driven
+    by hand, OPEN_LEDGER|RETRY) and the JAX node driven the same way; the
+    same persisted txdb rows, CLF, store records, `ledger` stream and
+    read RPC answers as the JAX node's."""
+    wl, harness, port, jax = door_runs
+    keys = ("hash", "digest", "close_digest", "delta", "open_ters", "close_ters")
+    for close in range(SMALL["n_closes"]):
+        p, j, h = port["closes"][close], jax["closes"][close], harness[close + 1]
+        assert {k: p[k] for k in keys} == {k: j[k] for k in keys} == {k: h[k] for k in keys}
+    assert port["start"] == jax["start"] == harness[0]["hash"]
+    assert port["stream"] == jax["stream"] == [c["hash"] for c in harness[1:]]
+    assert port["reads"]["digests"] == jax["reads"]["digests"]
+    assert port["reads"]["answers"] == jax["reads"]["answers"]
+    assert port["persist"].digests == jax["persist"].digests
+    assert port["store"] == jax["store"]
+
+
+def test_door_close_runs_the_port_planes(door_runs):
+    """The port's node verified every submit on its plane and sealed
+    through the watchdog's CudaHasher, one readback a tree, nothing
+    wedged and no helper error absorbed."""
+    _wl, _harness, port, _jax = door_runs
+    node = port["node"]
+    n = SMALL["n_closes"] * SMALL["per_close"]
+    assert node.verify_plane.verified == n
+    inner = node.hasher.inner
+    assert inner.tree_calls > 0 and inner.tree_transfers.readbacks == inner.tree_calls
+    assert not node.hasher.device_wedged
+    assert all(node.ledger_master.tree_json()[k] == 0 for k in cs.ABSORBED)
+
+
 # the book phase at a small size: 4 gateways (8 IOUs), 48 traders, 24 with
 # a regular key, 128 transactions a book close, 16 path searches; a prune
 # floor low enough that the searches of this small graph are pre-ranked
@@ -218,8 +401,8 @@ def small_book_runs():
 
     wl = cs.close_workload(**SMALL)
     bwl = cs.book_workload(wl, **SMALL_BOOK)
-    plane = VerifyPlane(backend="cuda", routing="device",
-                        backend_opts={"device": "cpu"})
+    plane = VerifyPlane(backend="cuda", routing="device", backend_opts={"device": "cpu"},
+                        device_warm_timeout=PLAIN_K1_DEADLINE_S)
     paths = PathPlane(evaluator=make_path_evaluator(routing="device", device="cpu"),
                       prune_floor=SMALL_PRUNE_FLOOR)
     tkeys.host_verifies = 0
@@ -298,65 +481,57 @@ def jax_chain_persist(tmp_path, save_stage):
 
 @pytest.mark.slow
 def test_chip_smoke_constants_through_the_jax_package(tmp_path):
-    """Recomputes chip_smoke.py's CLOSE_HASHES / CLOSE_DIGESTS, the book
-    phase's BOOK_HASHES / BOOK_DIGESTS / PATHS_DIGEST, the replay
-    phase's CLOSE_RESULT_DIGESTS / BOOK_RESULT_DIGESTS / STORE_DIGEST /
-    SAVE_NODES and the default close's DELTAS / TXDB_DIGESTS /
-    CLF_DIGESTS at full size through the JAX package (its LedgerMaster,
-    defaults, with its node's persist_prep; its PathPlane with
-    BOOK_PRUNE_FLOOR and the host-routed evaluator; its segstore with
-    its defaults, saving the start ledger and then each closed ledger as
-    the close pipeline's node-store stage, beside a file-backed txdb and
-    CLF)."""
-    from stellard_tpu.nodestore import make_database as jax_make_database
-
+    """Recomputes chip_smoke.py's constants at full size through the JAX
+    package's Node, driven as the smoke drives the port's
+    (run_jax_node_closes): START_HASH, CLOSE_HASHES / CLOSE_DIGESTS, the
+    read RPCs' READ_DIGESTS, the book phase's BOOK_HASHES / BOOK_DIGESTS
+    / PATHS_DIGEST (its PathPlane with BOOK_PRUNE_FLOOR and the
+    host-routed evaluator), the replay phase's CLOSE_RESULT_DIGESTS /
+    BOOK_RESULT_DIGESTS / STORE_DIGEST / SAVE_NODES (the node's segstore
+    with its defaults, the start ledger saved first and each closed
+    ledger by its close pipeline) and the default close's DELTAS /
+    TXDB_DIGESTS / CLF_DIGESTS (its txdb and CLF)."""
     wl = cs.close_workload(**cs.CLOSE_SIZES)
     bwl = cs.book_workload(wl, **cs.BOOK_SIZES)
-    db = jax_make_database(type="segstore", path=str(tmp_path / "store"))
-    saves = []
-    save = lambda led: saves.append(cs.save_counted(led, db))  # noqa: E731
-    setup, on_close, persisted = jax_chain_persist(tmp_path, save)
-    jax = run_jax_closes(wl, book=(bwl, cs.BOOK_PRUNE_FLOOR), on_ledger=save,
-                         setup=setup, on_close=on_close)
-    persist = persisted()
-    book = jax.pop()
-    records = list(cs.segstore_records(db.backend))
-    assert len(records) == db.backend.count() == sum(s["nodes"] for s in saves)
-    store = cs.store_digest(records), [s["nodes"] for s in saves]
-    db.close()
-    closes = jax[1:] + book["book"]
-    got = [c["hash"] for c in jax[1:]], [c["digest"] for c in jax[1:]]
+    jax = run_jax_node_closes(wl, tmp_path / "store", book=(bwl, cs.BOOK_PRUNE_FLOOR))
+    book, persist = jax["book"], jax["persist"]
+    closes = jax["closes"] + book["book"]
+    got = [c["hash"] for c in jax["closes"]], [c["digest"] for c in jax["closes"]]
     got_book = [c["hash"] for c in book["book"]], [c["digest"] for c in book["book"]]
-    got_results = ([c["close_digest"] for c in jax[1:]],
+    got_results = ([c["close_digest"] for c in jax["closes"]],
                    [c["close_digest"] for c in book["book"]])
     deltas = [[c["delta"][k] for k in ("spliced", "fallback", "invalidated", "seal_adopt")]
               for c in closes]
     persisted_digests = ([persist.digests[c["seq"]]["txdb"] for c in closes],
                          [persist.digests[c["seq"]]["clf"] for c in closes])
-    print("START_HASH =", jax[0]["hash"])
+    print("START_HASH =", jax["start"])
     print("CLOSE_HASHES =", got[0])
     print("CLOSE_DIGESTS =", got[1])
+    print("READ_DIGESTS =", jax["reads"]["digests"])
     print("BOOK_HASHES =", got_book[0])
     print("BOOK_DIGESTS =", got_book[1])
     print("PATHS_DIGEST =", book["paths_digest"])
     print("prune_batches =", book["prune_batches"])
     print("CLOSE_RESULT_DIGESTS =", got_results[0])
     print("BOOK_RESULT_DIGESTS =", got_results[1])
-    print("STORE_DIGEST =", store[0])
-    print("SAVE_NODES =", store[1])
+    print("STORE_DIGEST =", jax["store"][0])
+    print("SAVE_NODES =", jax["store"][1])
     print("DELTAS =", deltas)
     print("TXDB_DIGESTS =", persisted_digests[0])
     print("CLF_DIGESTS =", persisted_digests[1])
     pipe = persist.pipeline.get_json()
     print("pipeline =", {k: pipe[k] for k in ("persisted", "failed", "depth_hwm")},
           "clf =", persist.clf.get_json())
-    assert jax[0]["hash"] == cs.START_HASH
+    assert jax["start"] == cs.START_HASH
     assert got == (cs.CLOSE_HASHES, cs.CLOSE_DIGESTS)
+    assert jax["stream"] == cs.CLOSE_HASHES
+    assert jax["reads"]["ledger_closed"] == cs.CLOSE_HASHES[-1]
+    assert jax["reads"]["digests"] == cs.READ_DIGESTS
     assert got_book == (cs.BOOK_HASHES, cs.BOOK_DIGESTS)
     assert book["paths_digest"] == cs.PATHS_DIGEST
     assert book["prune_batches"] > 0
     assert got_results == (cs.CLOSE_RESULT_DIGESTS, cs.BOOK_RESULT_DIGESTS)
-    assert store == (cs.STORE_DIGEST, cs.SAVE_NODES)
+    assert jax["store"] == (cs.STORE_DIGEST, cs.SAVE_NODES)
     assert pipe["persisted"] == len(closes) and pipe["failed"] == 0
     assert deltas == cs.DELTAS
     assert persisted_digests == (cs.TXDB_DIGESTS, cs.CLF_DIGESTS)

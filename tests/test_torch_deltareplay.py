@@ -292,6 +292,11 @@ def test_incremental_seal_knob_keeps_the_bytes(incremental):
     for blob in phases[0]:
         lm.do_transaction(SerializedTransaction.from_bytes(blob),
                           TxParams.OPEN_LEDGER | TxParams.RETRY)
+    # as the node's ledger_accept does: let the drainer take what was
+    # folded before the close (on a loaded host its thread may not have
+    # run yet); with the building tree off nothing was folded and this
+    # returns at once
+    lm.kick_seal_drain(wait_s=60)
     closed, _results = lm.close_and_advance(2000, 30)
     lm.stop_seal_drainer()
     assert closed.hash() == want["hashes"][0]

@@ -52,6 +52,8 @@ def test_every_module_imports_without_jax():
     # and so is the default close's slice: delta replay, the close
     # pipeline, the txdb and the CLF
     assert set(CLOSE_SLICE) <= set(mods)
+    # and so is the standalone node's: config, node, brain, queues, doors
+    assert set(NODE_SLICE) <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"
@@ -69,6 +71,43 @@ def test_every_module_imports_without_jax():
     assert json.loads(r.stdout.strip().splitlines()[-1]) == []
 
 
+# the modules the standalone node's slice added
+NODE_SLICE = tuple(f"stellard_tpu_torch.{m}" for m in (
+    "utils.rfc1751", "utils.pow", "utils.fatal", "protocol.stparsedjson", "node.config",
+    "node.jobqueue", "node.loadmgr", "node.localtxs", "node.txq", "node.networkops",
+    "node.unl", "overlay", "overlay.resource", "rpc", "rpc.errors", "rpc.txsign",
+    "rpc.infosub", "rpc.readplane", "rpc.handlers", "rpc.http_server", "rpc.ws_server",
+    "__main__"))
+
+
+def test_the_cli_imports_neither_jax_nor_the_jax_package():
+    """`python -m stellard_tpu_torch --help` answers, and running the CLI
+    module (its help) leaves jax and the JAX package out of sys.modules."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-m", "stellard_tpu_torch", "--help"],
+                       capture_output=True, text=True, timeout=300, env=env, cwd=str(REPO))
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "stellard-tpu-torch" in r.stdout and "--conf" in r.stdout
+    code = (
+        "import json, runpy, sys\n"
+        f"sys.path.insert(0, {str(REPO)!r})\n"
+        "sys.argv = ['stellard_tpu_torch', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('stellard_tpu_torch', run_name='__main__')\n"
+        "except SystemExit:\n"
+        "    pass\n"
+        "import stellard_tpu_torch.node.node, stellard_tpu_torch.rpc.handlers\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'stellard_tpu.'))\n"
+        "             or m == 'stellard_tpu')\n"
+        "print(json.dumps(bad))\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       timeout=300, env=env, cwd=str(REPO))
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == []
+
+
 # the modules of the default close's slice, and the only modules outside
 # the package they may import: the standard library's threading, timing
 # and typing helpers, and sqlite3 as their one storage engine
@@ -76,8 +115,11 @@ CLOSE_SLICE = ("stellard_tpu_torch.node.metrics", "stellard_tpu_torch.node.txdb"
                "stellard_tpu_torch.state.clf", "stellard_tpu_torch.node.node",
                "stellard_tpu_torch.node.closepipeline", "stellard_tpu_torch.state.specview",
                "stellard_tpu_torch.engine.deltareplay", "stellard_tpu_torch.node.ledgermaster")
+# (since the standalone node: the metrics plane's statsd export over UDP
+# and its history ring, and the node's identity file and free-disk check)
 CLOSE_SLICE_IMPORTS = {"__future__", "bisect", "contextlib", "dataclasses", "logging",
-                       "sqlite3", "threading", "time", "typing"}
+                       "sqlite3", "threading", "time", "typing",
+                       "collections", "socket", "json", "os", "shutil"}
 
 
 def _imported_names(tree: ast.AST):

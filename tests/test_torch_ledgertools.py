@@ -200,7 +200,7 @@ def test_replay_range_on_the_plain_kernels_equal(chains):
 
     (_jlm, jdb, jl), (_plm, pdb, pl) = chains[0]["jax"], chains[0]["port"]
     plane = VerifyPlane(backend="cuda", routing="device", min_device_batch=1,
-                        backend_opts={"device": "cpu"})
+                        backend_opts={"device": "cpu"}, device_warm_timeout=900.0)
     hasher = CudaHasher(device="cpu")
     keys.host_verifies = 0
     try:
@@ -240,7 +240,7 @@ def test_forged_ledger_fails_alone_in_both(chains):
     j_forged.save(jdb)
     flags = []
     plane = VerifyPlane(backend="cuda", routing="device", min_device_batch=1,
-                        backend_opts={"device": "cpu"})
+                        backend_opts={"device": "cpu"}, device_warm_timeout=900.0)
 
     def verify_many(reqs):
         flags.append(np.asarray(plane.verify_many(reqs), bool))

@@ -135,9 +135,15 @@ def test_evaluator_arms_and_counters():
 
 
 def test_evaluator_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 3"):
-        PathQualityEvaluator(routing="cost")
-    with pytest.raises(ValueError, match="ROADMAP Queue A item 2"):
+    # cost routing is ported: batches under the floor go to the host
+    # arm, the first batch at or over it explores the device arm
+    rates = _matrix(100, 6)
+    want = pathq_jax.path_quality_host(rates)
+    cost = PathQualityEvaluator(routing="cost", device="cpu", min_device_batch=64)
+    np.testing.assert_array_equal(cost.evaluate(rates[:10]), want[:10])
+    np.testing.assert_array_equal(cost.evaluate(rates), want)
+    assert (cost.get_json()["host_batches"], cost.get_json()["device_batches"]) == (1, 1)
+    with pytest.raises(ValueError, match="ROADMAP Queue A item 5"):
         PathQualityEvaluator(mesh=4, device="cpu")
     with pytest.raises(ValueError):
         PathQualityEvaluator(routing="bogus")
