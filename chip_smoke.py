@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the ledger close's device plane, then a standalone node's
-closes and its order book and path searches, then the catch-up replay of
-the chain it saved, through the entry points a node calls, at the sizes
-a close really has, and checks every result:
+Drives the ledger close's device plane, then a 4-validator consensus
+net, then a standalone node's closes and its order book and path
+searches, then the catch-up replay of the chain it saved, through the
+entry points a node calls, at the sizes a close really has, and checks
+every result:
 
 1. device   — the card's name and power limit; builds the four CUDA
               kernels (one nvcc a source, started together) and prints
@@ -24,8 +25,41 @@ a close really has, and checks every result:
 4. seal     — a 1,000,000-leaf state SHAMap and a 32,768-leaf
               transaction SHAMap sealed by CudaHasher.hash_tree, then a
               3,000-write / 300-delete delta re-sealed: every root equal
-              to the hashlib root, one readback per tree.
-5. close    — the port's standalone Node under a payment flood
+              to the hashlib root, one readback per tree. Then K3 on the
+              state tree's widest inner level and K2 on every leaf of both
+              trees against their plain versions, exactly, and timed with
+              CUDA events (with their bounds); then the trees are dropped.
+5. consensus — BASELINE config #4 (CONSENSUS_SIZES): the port's SimNet
+              of 4 validators, all on the UNL, quorum 3, full mesh,
+              latency one step of 1,000 ms, idle interval 4, messages as
+              real wire frames; one VerifyPlane("cuda", routing="device",
+              min_device_batch=1), prewarmed, and one WatchdogHasher over
+              a CudaHasher serve all four (each node's verify_many and
+              hash_batch, its LedgerMaster's and its InboundLedgers').
+              A warm-up to seq 2 (funding a second sender), 8 rounds of
+              512 payments of 250 STR from the master account to 16
+              destinations submitted at validator 0 (~1% preceded by a
+              copy with one signature bit flipped, refused by the door
+              and never relayed), each round run until all four validated
+              its ledger; a relay burst of 64 of the second sender's
+              payments (one badly signed) in one delivery to each
+              validator (K1 at batch 64 through prefetch_tx_sigs); a
+              forged validation and a forged proposal from validator 3
+              to validator 0. Every relayed transaction, proposal and
+              validation verified by K1 at batch 1, every tx set and
+              ledger sealed by K2/K3. Every validated hash (the same on
+              all four), closed results digest, round count, defense
+              counter, net counter and the digest of every frame sent
+              equal to the JAX package's SimNet on the same workload
+              (CONSENSUS_HASHES, CONSENSUS_RESULTS, CONSENSUS_COUNTERS;
+              recomputed by
+              JAX_PLATFORMS=cpu python -m pytest tests/test_torch_consensus_workload.py -m slow -q -s);
+              device share 1.0, no host signature check, one readback a
+              tree; then every request the plane was given through K1's
+              plain version on the card in one batch: the same verdicts.
+              The consensus line gives each round's wall ms (p50, p90),
+              payments/s and K1's launches by batch.
+6. close    — the port's standalone Node under a payment flood
               (CLOSE_SIZES), built from a config beside the chain's store
               (NODE_CONFIG with PORT_NODE_DEVICE: both crypto planes on
               the card, K1 for a single signature, admission caps that
@@ -66,7 +100,7 @@ a close really has, and checks every result:
               Then K1 against its plain version on a close's batch and
               at batch sizes 1-33 (good, bad S, non-canonical S,
               undecodable key), and timed at batch 1.
-6. book     — the order book on the same chain (BOOK_SIZES, BASELINE
+7. book     — the order book on the same chain (BOOK_SIZES, BASELINE
               configs #2 and #3): 16 gateways issuing 32 IOUs (four set a
               TransferRate), 2,048 traders with two trust lines each,
               1,024 of them with a regular key; then 4,096 issuing
@@ -78,7 +112,7 @@ a close really has, and checks every result:
               verify plane, applied by the port's transactors, closed
               and persisted as in the close phase, and the node's path
               plane's live book index advanced; then the close pipeline
-              is drained, and 64 path searches run on the last ledger,
+              is drained, and 32 path searches run on the last ledger,
               pre-ranked by K4 through the node's path plane (its
               evaluator routing=device, the prune floor
               BOOK_PRUNE_FLOOR), 4 of them again through its
@@ -95,11 +129,9 @@ a close really has, and checks every result:
               close, each of the 8 closed ledgers by the close
               pipeline's node-store stage; the close_pipeline line gives
               each ledger's stage times.
-7. times    — every kernel against its plain version again, exactly, at
-              the shapes the main path gave it: K1 on both flood
-              chunks, K2 on every leaf of the
-              state and transaction trees, K3 on the state tree's widest
-              inner level, K4 on a 1,048,576 x 8 rate matrix (identity
+8. times    — K1 and K4 against their plain versions again, exactly, at
+              the shapes the main path gave them: K1 on both flood
+              chunks, K4 on a 1,048,576 x 8 rate matrix (identity
               and saturating rows among rates near 1.0, also held to the
               NumPy host arm); each kernel and plain version timed with
               CUDA events on those inputs, with its bound. K4's kernel
@@ -109,13 +141,13 @@ a close really has, and checks every result:
               every S non-canonical and with every key undecodable,
               which stop each lane before and after the decode: the
               split of its time by phase.
-8. replay   — catch-up replay (BASELINE config #5) of that chain: the
+9. replay   — catch-up replay (BASELINE config #5) of that chain: the
               store's records and each save's node count equal to the
               JAX package's (STORE_DIGEST, SAVE_NODES, from the same slow
               test); a forged copy of 1006 (one signature bit flipped in
               its tx map) saved beside it; the store closed and reopened
               from disk; then node/ledgertools.replay_range over 1005,
-              1006, the forged 1006 and 1007 — every signature of the
+              1006 and the forged 1006 — every signature of the
               span in one verify_many on the card (K1), each ledger
               loaded eagerly with its parent, re-applied and sealed by
               CudaHasher (K2, K3). Every real ledger's replayed hash and
@@ -125,14 +157,15 @@ a close really has, and checks every result:
               leaves too long for K2's block ladder and empty inner
               nodes, one readback per sealed tree; K1 rejects exactly
               the forged lane and the forged ledger alone fails. The
-              span is cut from the 8 saved ledgers to 3 to fit the time
+              span is cut from the 8 saved ledgers to 2 to fit the time
               limit (PERF.md §4). The store is removed at the end.
 
 Launch counts are zeroed just before phases 3-4 and read just after, and
-again around phase 5, around phase 6 and around phase 8's replay; the
-kernels line shows the sum, the launches of the main path alone, and
-for K2 and K3 the close and book phases' launches by who made them (the
-seal drainer, the two seal threads, the closing thread). Any
+again around phase 5, around phase 6, around phase 7 and around phase
+9's replay; the kernels line shows the sum, the launches of the main
+path alone, and for K2 and K3 the consensus, close and book phases'
+launches by who made them (the seal drainer, the two seal threads, the
+closing or consensus thread). Any
 failed check exits non-zero without the final line. Without a CUDA device, or without the package
 beside it, the script exits non-zero at once.
 """
@@ -1693,19 +1726,8 @@ def run(dev) -> None:
          device_nodes=cuda_hasher.device_nodes, host_nodes=cuda_hasher.host_nodes)
     emit("launches", **launches)
 
-    # 5. the close phase, counted on its own; the chain saved as it closes ---
-    saver = ChainSaver(STORE_DIR)
-    close = close_phase(dev, name_power, saver, int32_rate)
-
-    # 6. the book phase on the same chain, counted on its own -----------------
-    book = book_phase(dev, name_power, close, saver)
-    close_launches, close_k1_err = close["launches"], close["k1_max_abs_err"]
-    k1_batch1 = close["k1_batch1"]
-    roles = launches_by_role(close["by_thread"], book["by_thread"])
-    close_digests = close["close_digests"] + book["close_digests"]
-    del close
-
-    # 7. K3 and K4 against plain, and times -----------------------------------
+    # K2 and K3 against their plain versions on the seal phase's trees, and
+    # their times; then the trees go (a smaller heap for the collector)
     inners = widest_inner_level(state.root)
     buf, template, child_rows, nkids, want = k3_inputs(inners, dev, HP_INNER_NODE)
     off = nkids
@@ -1717,48 +1739,6 @@ def run(dev) -> None:
     require(np.array_equal(buf[off:].cpu().numpy(), want), "K3 differs from the tree")
     emit("k3_vs_plain", nodes=len(inners), children=nkids, max_abs_err=k3_err,
          equal_tree=True)
-
-    # K1 against its plain version on the flood's chunks, the shapes the
-    # main path launched it at (the first chunk's calls are the timed ones)
-    prep_ms, k1_main_err = [], 0
-    for lo in range(0, N_FLOOD, CHUNK):
-        sl = slice(lo, lo + CHUNK)
-        t0 = time.perf_counter()
-        host = prepare_batch(f_pubs[sl], f_msgs[sl], f_sigs[sl])
-        prep_ms.append((time.perf_counter() - t0) * 1e3)
-        tens = to_tensors(host, dev)
-        if lo == 0:
-            chunk_host, chunk_tens = host, tens
-            k1_ms, got = cuda_ms(lambda: ed25519_cuda.verify(**tens), reps=10)
-            k1_plain_ms, plain = cuda_ms(lambda: verify_kernel_ref(**tens), reps=1)
-        else:
-            got, plain = ed25519_cuda.verify(**tens), verify_kernel_ref(**tens)
-        err = max_abs_err(got, plain)
-        require(err == 0, f"K1 differs from its plain version on flood chunk {lo}")
-        require(np.array_equal(got.cpu().numpy(), expect[sl]),
-                f"K1 verdicts wrong on flood chunk {lo}")
-        k1_main_err = max(k1_main_err, err)
-        emit("k1_vs_plain_main", chunk_start=lo, lanes=int(got.numel()),
-             max_abs_err=err, equal=True)
-    k1_err = max(k1_err, k1_main_err, close_k1_err)
-    k1_b, k1_by = bound_ms(k1_ops(chunk_host), 130 * CHUNK, int32_rate)
-
-    # K1's phases: the same chunk with every S non-canonical (each lane
-    # stops before its decode) and with every key undecodable (each lane
-    # stops after it). Its final inversion is the same exponentiation as
-    # the decode's, one thread a signature.
-    bad_key = undecodable_key(seed=7)
-    stop_before = to_tensors(
-        dict(chunk_host, s_canonical=np.zeros_like(chunk_host["s_canonical"])), dev)
-    stop_after = to_tensors(dict(chunk_host, a_words=np.tile(
-        np.frombuffer(bad_key, chunk_host["a_words"].dtype), (CHUNK, 1))), dev)
-    k1_before_ms, got_before = cuda_ms(lambda: ed25519_cuda.verify(**stop_before), reps=10)
-    k1_after_ms, got_after = cuda_ms(lambda: ed25519_cuda.verify(**stop_after), reps=10)
-    require(not got_before.any().item() and not got_after.any().item(),
-            "K1 accepted a lane with a non-canonical S or an undecodable key")
-    emit("k1_phases", chunk=CHUNK, full_ms=k1_ms, stop_before_decode_ms=k1_before_ms,
-         stop_after_decode_ms=k1_after_ms)
-    del chunk_tens, stop_before, stop_after
 
     # K2 against its plain version on every leaf of the state tree (all in
     # one launch, as the state seal ran them) and of the transaction tree;
@@ -1797,6 +1777,67 @@ def run(dev) -> None:
                            template.numel() * 4 + child_rows.numel() * 4
                            + 32 * nkids + 32 * n3, int32_rate)
 
+    del state, txmap, base_items, sets, deletes, inners, buf, buf_plain, template, child_rows
+
+    # 5. the consensus phase (BASELINE config #4), counted on its own ---------
+    consensus = consensus_phase(dev, name_power, int32_rate)
+
+
+    # 6. the close phase, counted on its own; the chain saved as it closes ---
+    saver = ChainSaver(STORE_DIR)
+    close = close_phase(dev, name_power, saver, int32_rate)
+
+    # 7. the book phase on the same chain, counted on its own -----------------
+    book = book_phase(dev, name_power, close, saver)
+    close_launches, close_k1_err = close["launches"], close["k1_max_abs_err"]
+    k1_batch1 = close["k1_batch1"]
+    roles = launches_by_role(consensus["by_thread"], close["by_thread"], book["by_thread"])
+    close_digests = close["close_digests"] + book["close_digests"]
+    del close
+
+    # 8. K1 and K4 against plain, and times -----------------------------------
+    # K1 against its plain version on the flood's chunks, the shapes the
+    # main path launched it at (the first chunk's calls are the timed ones)
+    prep_ms, k1_main_err = [], 0
+    for lo in range(0, N_FLOOD, CHUNK):
+        sl = slice(lo, lo + CHUNK)
+        t0 = time.perf_counter()
+        host = prepare_batch(f_pubs[sl], f_msgs[sl], f_sigs[sl])
+        prep_ms.append((time.perf_counter() - t0) * 1e3)
+        tens = to_tensors(host, dev)
+        if lo == 0:
+            chunk_host, chunk_tens = host, tens
+            k1_ms, got = cuda_ms(lambda: ed25519_cuda.verify(**tens), reps=10)
+            k1_plain_ms, plain = cuda_ms(lambda: verify_kernel_ref(**tens), reps=1)
+        else:
+            got, plain = ed25519_cuda.verify(**tens), verify_kernel_ref(**tens)
+        err = max_abs_err(got, plain)
+        require(err == 0, f"K1 differs from its plain version on flood chunk {lo}")
+        require(np.array_equal(got.cpu().numpy(), expect[sl]),
+                f"K1 verdicts wrong on flood chunk {lo}")
+        k1_main_err = max(k1_main_err, err)
+        emit("k1_vs_plain_main", chunk_start=lo, lanes=int(got.numel()),
+             max_abs_err=err, equal=True)
+    k1_err = max(k1_err, k1_main_err, close_k1_err, consensus["k1_max_abs_err"])
+    k1_b, k1_by = bound_ms(k1_ops(chunk_host), 130 * CHUNK, int32_rate)
+
+    # K1's phases: the same chunk with every S non-canonical (each lane
+    # stops before its decode) and with every key undecodable (each lane
+    # stops after it). Its final inversion is the same exponentiation as
+    # the decode's, one thread a signature.
+    bad_key = undecodable_key(seed=7)
+    stop_before = to_tensors(
+        dict(chunk_host, s_canonical=np.zeros_like(chunk_host["s_canonical"])), dev)
+    stop_after = to_tensors(dict(chunk_host, a_words=np.tile(
+        np.frombuffer(bad_key, chunk_host["a_words"].dtype), (CHUNK, 1))), dev)
+    k1_before_ms, got_before = cuda_ms(lambda: ed25519_cuda.verify(**stop_before), reps=10)
+    k1_after_ms, got_after = cuda_ms(lambda: ed25519_cuda.verify(**stop_after), reps=10)
+    require(not got_before.any().item() and not got_after.any().item(),
+            "K1 accepted a lane with a non-canonical S or an undecodable key")
+    emit("k1_phases", chunk=CHUNK, full_ms=k1_ms, stop_before_decode_ms=k1_before_ms,
+         stop_after_decode_ms=k1_after_ms)
+    del chunk_tens, stop_before, stop_after
+
     # K4 on a 1,048,576 x 8 matrix: against its plain version and the host
     # arm, exactly; timed. Bound: each rate read once and each composite
     # written once; per hop one 32x32->64 product (2 INT32 issue slots), a
@@ -1831,9 +1872,7 @@ def run(dev) -> None:
          rotated_mb=sum(m.numel() * 4 for m in mats) / 1e6)
     del k4_t, k4_got, k4_plain, mats, outs
 
-    # 8. catch-up replay of the saved chain, counted on its own; the seal
-    # phase's trees go first (a smaller heap for the collector)
-    del state, txmap, base_items, sets, deletes, inners, buf, buf_plain, template, child_rows
+    # 9. catch-up replay of the saved chain, counted on its own
     replay = replay_phase(dev, name_power, saver, close_digests)
     del saver
 
@@ -1843,7 +1882,8 @@ def run(dev) -> None:
          hashlib_seal_ms={k: v["hashlib_seal_ms"] for k, v in seals.items()},
          k1_shape=[CHUNK], k2_shape=k2_shape, k3_nodes=n3, k4_shape=[rows, hops],
          int32_ops_per_s=int32_rate, total_s=time.perf_counter() - t_start)
-    phases = (launches, close_launches, book["launches"], replay["launches"])
+    phases = (launches, consensus["launches"], close_launches, book["launches"],
+              replay["launches"])
     main_launches = lambda name: sum(ph.get(name, 0) for ph in phases)  # noqa: E731
     kernels = [
         dict(name="ed25519_verify", route="cuda",
@@ -2110,6 +2150,477 @@ def k1_small_batches(dev) -> dict:
     return {"max_abs_err": err, "sizes": sizes}
 
 
+# --------------------------------------------------------------------------
+# the consensus phase: BASELINE config #4, a 4-validator UNL net
+
+
+# 8 measured rounds of 512 payments (one close phase close's worth in
+# all), a relay burst of 64 transactions in one delivery
+CONSENSUS_SIZES = dict(n_rounds=8, per_round=512, n_burst=64, bad_share=0.01, seed=37)
+CONSENSUS_DESTS = 16
+PAYMENT_DROPS = 250_000_000  # 250 STR: the first payment to a destination creates it
+FUND_DROPS = 100_000 * 1_000_000  # the relay burst's sender
+# what the JAX package's SimNet gives on the same workload (recomputed by
+# tests/test_torch_consensus.py's slow test): the validated hash and the
+# closed results' digest at every seq from 2, each validator's rounds and
+# defense counters, the net's counters and the disputed transactions that
+# accept() re-checked on the host
+CONSENSUS_HASHES = [
+    "a7b90b2b0049a9a758d22cd7682699ae0b25f6c140596011c929ebbf1bb7fcab",
+    "0bffe0d686ce2acfa55fe6c27e737aa9ee1b99659cb25ee2772118a9e9e1bf64",
+    "6fba4dd20f5416ffa52e61bed787d9265fc06925cb3eaeb40b288de433c193b2",
+    "cef416c0ef9d8feb96a868bd97485e9dbe769ad2959e0e242b718d786fa204cc",
+    "bb8e6f40d118f6280467ac1936de9e506f6ad4e07cc58c2b0d5c6468afce831a",
+    "6b3e0072a3eaaf35b52575d611af77b6044672634c7b1d2e881d3fb2544afe57",
+    "9b453292daf4f2ef8e9664ecdd48b65aa4849be7362d78b97eaefade77024f14",
+    "988d55e49e4dd42650e296408aad7ab43a1316f4c275f1b6a74a8763e4ab68af",
+    "1533c02697f6502d4932d0bdef0593d35f019e1cbb3fc24f3048961250f3a1f9",
+    "e014aa4df9d2e1a02aa776959be9c160f937cb75a83e3e5ce84f690f9e4ec7b0",
+]
+CONSENSUS_RESULTS = [
+    "2eabfade20812835ec436dd68ae5c609c852dabedd31d01131e8e4840d64993e",
+    "d5f69f31f9cd2b00ad5beca0197b1cd0fd3cdc73976807a91bde32e0e051dbb8",
+    "dc07709cb39fd7243457ec582e6c5ce9223f7d0c441cb6c4040f66b5caa8c2ee",
+    "7e2de966096783aa4983c9883f8c6aa0f2ac1a1464f7c4df421531ffbeff25f4",
+    "0a6a47e071136b1125bcf23648d2922e59640cf58089ed649065848a94878bac",
+    "3aaa97ba502d187af5e4d26e81dd49a4914a2cab600b8cbb8239433cf6db5a2c",
+    "b8542b13d5df24e01ee2aed342825cbd82db391db7437c8139c84feeb2ec19a4",
+    "5a1f2dd53833181e72220a04ab8c2341e1b7ca52856a99498ba2fdfb9f482247",
+    "9fe146493f8df0d9d2db9eb4d863bbaa9d06e632e839923383a333d53d866277",
+    "b90e3e86e3708c37dc23890db5eaad2c48ce92e37c63f23b05c97365e6ab84c7",
+]
+CONSENSUS_COUNTERS = {
+    "rounds_completed": [10, 10, 10, 10],
+    "defense": [{"bad_proposal_sig": 1, "bad_validation_sig": 1}, {}, {}, {}],
+    "net_stats": {"sent": 12657, "dropped_link": 0, "dropped_fault": 0, "dropped_down": 0,
+                  "duplicated": 0, "delayed": 0},
+    "dispute_rechecks": 0,
+    "frames": "d121353228c1795811ca3a34f5e6b3d51c1cad9bac03adc9484a625743cce523",
+}
+
+
+def consensus_workload(n_rounds: int, per_round: int, n_burst: int, bad_share: float,
+                       seed: int) -> dict:
+    """Seeded inputs of the consensus phase, as bytes, in the shape of
+    bench.py's ``_payments``: Payments of 250 STR from the master account
+    to 16 destinations with consecutive sequences, the first payment to
+    each destination creating it.
+
+    - ``fund``: the master's sequence 1, funding the relay burst's sender
+      (submitted in the warm-up);
+    - ``rounds``: per measured round, per_round (blob, bad) pairs with
+      the master's sequences from 2; ``bad`` is None or, for a share
+      ``bad_share`` of them, a copy with one bit of the signature's R
+      flipped, to be submitted just before the good one;
+    - ``burst``: n_burst payments of the funded sender for one delivery,
+      its sequences from 1, except lane ``bad_lane``: a copy of its
+      sequence n_burst payment with one signature bit flipped (the good
+      twin is never sent);
+    - ``flip``: the (byte, bit) of the signature flipped in the forged
+      validation and proposal.
+
+    Signed with the port's protocol/keys.py; every flipped copy is bad by
+    the RFC 8032 oracle."""
+    import numpy as np
+
+    from stellard_tpu_torch.ops import ed25519_ref
+    from stellard_tpu_torch.protocol.formats import TxType
+    from stellard_tpu_torch.protocol.keys import KeyPair
+    from stellard_tpu_torch.protocol.sfields import sfAmount, sfDestination, sfTxnSignature
+    from stellard_tpu_torch.protocol.stamount import STAmount
+    from stellard_tpu_torch.protocol.sttx import SerializedTransaction
+
+    rng = np.random.default_rng(seed)
+    master = KeyPair.from_passphrase("masterpassphrase")
+    sender = KeyPair.from_seed(rng.bytes(32))
+    dests = [KeyPair.from_passphrase(f"bench-dest-{i}").account_id
+             for i in range(CONSENSUS_DESTS)]
+
+    def pay(key, seq: int, dst: bytes, drops: int):
+        tx = SerializedTransaction.build(
+            TxType.ttPAYMENT, key.account_id, seq, 10,
+            {sfAmount: STAmount.from_drops(drops), sfDestination: dst})
+        tx.sign(key)
+        return tx
+
+    def flipped(key, tx) -> bytes:
+        sig = bytearray(tx.signature)
+        sig[int(rng.integers(32))] ^= 1 << int(rng.integers(8))  # within R
+        require(not ed25519_ref.verify(key.public, tx.signing_hash(), bytes(sig)),
+                "a flipped signature verifies")
+        tx.obj[sfTxnSignature] = bytes(sig)
+        return tx.serialize()
+
+    fund = pay(master, 1, sender.account_id, FUND_DROPS).serialize()
+    rounds, seq = [], 2
+    for _ in range(n_rounds):
+        entries = []
+        for _p in range(per_round):
+            dst = dests[(seq - 2) % CONSENSUS_DESTS]
+            good = pay(master, seq, dst, PAYMENT_DROPS).serialize()
+            bad = flipped(master, pay(master, seq, dst, PAYMENT_DROPS)) \
+                if rng.random() < bad_share else None
+            entries.append((good, bad))
+            seq += 1
+        rounds.append(entries)
+    burst = [pay(sender, s, dests[s % CONSENSUS_DESTS], PAYMENT_DROPS).serialize()
+             for s in range(1, n_burst)]
+    bad_lane = int(rng.integers(n_burst))
+    burst.insert(bad_lane, flipped(sender, pay(
+        sender, n_burst, dests[n_burst % CONSENSUS_DESTS], PAYMENT_DROPS)))
+    flip = (int(rng.integers(32)), int(rng.integers(8)))
+    return {"fund": fund, "rounds": rounds, "burst": burst, "bad_lane": bad_lane,
+            "flip": flip}
+
+
+def port_consensus_names():
+    """The port's names that run_consensus drives (a test passes the JAX
+    package's own to run the same workload there)."""
+    from types import SimpleNamespace
+
+    from stellard_tpu_torch.consensus.consensus import LedgerConsensus
+    from stellard_tpu_torch.consensus.validation import STValidation
+    from stellard_tpu_torch.node.hashrouter import SF_BAD, SF_SIGGOOD
+    from stellard_tpu_torch.overlay import wire
+    from stellard_tpu_torch.overlay.simnet import SimNet
+    from stellard_tpu_torch.protocol.sfields import sfSignature
+    from stellard_tpu_torch.protocol.sttx import SerializedTransaction
+    from stellard_tpu_torch.protocol.ter import TER
+
+    return SimpleNamespace(SimNet=SimNet, LedgerConsensus=LedgerConsensus,
+                           STValidation=STValidation, wire=wire, sfSignature=sfSignature,
+                           SerializedTransaction=SerializedTransaction, TER=TER,
+                           SF_BAD=SF_BAD, SF_SIGGOOD=SF_SIGGOOD)
+
+
+def disputes_to_recheck(rnd) -> int:
+    """The disputed transactions LedgerConsensus.accept is about to
+    re-check with a host ``check_sign`` before re-applying them (those
+    neither in the agreed set nor in its own open ledger; the
+    reference's own behaviour, consensus/consensus.py accept)."""
+    if not rnd.disputes:
+        return 0
+    agreed = rnd.acquired.get(
+        rnd.our_position.tx_set_hash if rnd.our_position else b"", rnd.our_set)
+    skip = {tx.txid() for tx in agreed.transactions()} if agreed else set()
+    skip |= rnd._pre_close_open_ids
+    return sum(1 for d in rnd.disputes.values() if d.txid not in skip and d.blob)
+
+
+@contextlib.contextmanager
+def counting_dispute_rechecks(consensus_cls, counter: list):
+    """Count disputes_to_recheck over every accept() of `consensus_cls`
+    while the context lasts."""
+    accept = consensus_cls.accept
+
+    def counted(rnd, *args, **kwargs):
+        counter[0] += disputes_to_recheck(rnd)
+        return accept(rnd, *args, **kwargs)
+
+    consensus_cls.accept = counted
+    try:
+        yield counter
+    finally:
+        consensus_cls.accept = accept
+
+
+def forged(ns, obj, flip) -> bytes:
+    """A real validation or proposal with one bit of its signature
+    flipped, framed for the wire."""
+    byte, bit = flip
+    sig = bytearray(obj.signature)
+    sig[byte] ^= 1 << bit
+    if isinstance(obj, ns.STValidation):
+        copy = ns.STValidation.from_bytes(obj.serialize())
+        copy.obj[ns.sfSignature] = bytes(sig)
+        return ns.wire.frame(ns.wire.ValidationMessage(copy.serialize()))
+    msg = ns.wire.ProposeSet.from_proposal(obj)
+    msg.signature = bytes(sig)
+    return ns.wire.frame(msg)
+
+
+def run_consensus(ns, wl: dict, verify_many=None, hasher=None, on_start=None) -> dict:
+    """BASELINE config #4 on `ns`'s SimNet (port_consensus_names, or a
+    test's JAX names): 4 validators, all on the UNL, quorum 3, full mesh,
+    latency 1 step of 1,000 ms, idle interval 4 (the SimNet defaults
+    bench.py's bench_consensus_close runs). ``verify_many`` and
+    ``hasher``, when given, serve all four validators (their nodes'
+    ``verify_many``; ``hash_batch`` of each node, LedgerMaster and
+    InboundLedgers, wired before start as bench.py wires the plane);
+    ``on_start`` is called with the net before it starts.
+
+    - warm-up: the sender's funding at validator 0, then until every
+      validator has validated seq 2;
+    - measured rounds: each round's payments at validator 0 through
+      ``submit_client_tx``, a bad copy first through the node's own
+      ``submit`` (the door refuses it, so it is never relayed), then
+      until all four have validated the next seq;
+    - the relay burst: one delivery of all its TxMessages to each
+      validator (from the next validator), then until the burst's good
+      payments are in a validated ledger on all four;
+    - a forged validation and a forged proposal (validator 3's latest,
+      one signature bit flipped) from validator 3 to validator 0, then
+      two steps.
+
+    Returns every validated hash from seq 2 (the same on all four), the
+    closed results' digests, the counters, the verdicts of the planted
+    traffic and the wall ms of each measured round."""
+    net = ns.SimNet(4)
+    accepted = {}  # (nid, seq) -> (hash, closed results digest)
+    note = net.on_ledger_accepted
+
+    def on_accepted(nid, ledger):
+        note(nid, ledger)
+        accepted[(nid, ledger.seq)] = (ledger.hash().hex(),
+                                       close_results_digest(ledger.apply_results))
+
+    net.on_ledger_accepted = on_accepted
+    frames = hashlib.sha256()  # every frame sent, with its ends
+    send = net.send
+
+    def sent_frame(src, dst, data):
+        frames.update(b"%d>%d:%d:" % (src, dst, len(data)) + data)
+        return send(src, dst, data)
+
+    net.send = sent_frame
+    latest = {}  # validator 3's last validation and proposal
+
+    def keep(kind, send):
+        def sent(obj):
+            latest[kind] = obj
+            return send(obj)
+        return sent
+
+    v0, v3 = net.validators[0], net.validators[3]
+    v3.send_validation = keep("validation", v3.send_validation)
+    v3.propose = keep("proposal", v3.propose)
+    for v in net.validators:
+        if verify_many is not None:
+            v.node.verify_many = verify_many
+        if hasher is not None:
+            v.node.hash_batch = v.node.lm.hash_batch = v.node.inbound.hash_batch = hasher
+    if on_start is not None:
+        on_start(net)
+    parse = ns.SerializedTransaction.from_bytes
+    rechecks = [0]
+    out = {"round_ms": [], "submit_ms": [], "bad_copy_ters": [], "steps": {}}
+    try:
+        with counting_dispute_rechecks(ns.LedgerConsensus, rechecks):
+            net.start()
+            v0.submit_client_tx(parse(wl["fund"]))
+            require(net.run_until(lambda: net.all_validated_at_least(2), 30),
+                    "the warm-up did not validate seq 2")
+            out["steps"]["warmup"] = net.time_ms // net.step_ms
+            base = v0.node.lm.validated.seq
+            for r, entries in enumerate(wl["rounds"]):
+                t0 = time.perf_counter()
+                for good, bad in entries:
+                    if bad is not None:
+                        sent = net.net_stats["sent"]
+                        ter, _ = v0.node.submit(parse(bad))
+                        require(net.net_stats["sent"] == sent, "a bad copy was relayed")
+                        out["bad_copy_ters"].append(int(ter))
+                    v0.submit_client_tx(parse(good))
+                t1 = time.perf_counter()
+                target = base + r + 1
+                require(net.run_until(lambda: net.all_validated_at_least(target), 120),
+                        f"round {r}: seq {target} was not validated by all four")
+                out["round_ms"].append((time.perf_counter() - t0) * 1e3)
+                out["submit_ms"].append((t1 - t0) * 1e3)
+            # the relay burst: every validator gets it in one delivery
+            data = b"".join(ns.wire.frame(ns.wire.TxMessage(b)) for b in wl["burst"])
+            for v in net.validators:
+                net.send(net.validators[(v.nid + 1) % 4].nid, v.nid, data)
+            burst_ids = [parse(b).txid() for b in wl["burst"]]
+            good_ids = [t for i, t in enumerate(burst_ids) if i != wl["bad_lane"]]
+
+            def burst_validated():
+                for v in net.validators:
+                    lm = v.node.lm
+                    if lm.validated is None:
+                        return False
+                    closed = set()
+                    for seq in range(base + 1, lm.validated.seq + 1):
+                        led = lm.get_ledger_by_seq(seq)
+                        closed |= set(getattr(led, "apply_results", {}) or {})
+                    if not set(good_ids) <= closed:
+                        return False
+                return True
+
+            require(net.run_until(burst_validated, 60), "the burst was not validated")
+            out["burst_verdicts"] = [
+                ["good" if f & ns.SF_SIGGOOD else "bad" if f & ns.SF_BAD else None
+                 for f in map(v.node.router.get_flags, burst_ids)]
+                for v in net.validators]
+            # forged validation and proposal from validator 3 to validator 0
+            net.send(v3.nid, v0.nid, forged(ns, latest["validation"], wl["flip"]))
+            net.send(v3.nid, v0.nid, forged(ns, latest["proposal"], wl["flip"]))
+            net.step(2)
+            out["steps"]["end"] = net.time_ms // net.step_ms
+    finally:
+        for v in net.validators:
+            v.node.lm.stop_seal_drainer()
+    final = min(net.validated_seqs())
+    hashes, results = [], []
+    for seq in range(2, final + 1):
+        got = {v.node.lm.ledger_history.get(seq) for v in net.validators}
+        require(len(got) == 1 and None not in got,
+                f"seq {seq}: the validators' validated hashes differ")
+        h = got.pop().hex()
+        digests = {accepted[(v.nid, seq)][1] for v in net.validators
+                   if accepted.get((v.nid, seq), (None,))[0] == h}
+        require(len(digests) == 1, f"seq {seq}: the closed results differ")
+        hashes.append(h)
+        results.append(digests.pop())
+    out.update(
+        net=net, hashes=hashes, results=results, base=base,
+        counters={
+            "rounds_completed": [v.node.rounds_completed for v in net.validators],
+            "defense": [{k: n for k, n in v.node.defense.snapshot().items() if n}
+                        for v in net.validators],
+            "net_stats": dict(net.net_stats),
+            "dispute_rechecks": rechecks[0],
+            "frames": frames.hexdigest(),
+        })
+    return out
+
+
+def consensus_phase(dev, name_power: str, int32_rate: float) -> dict:
+    """BASELINE config #4 on the card: run_consensus on the port's SimNet
+    (CONSENSUS_SIZES) with one VerifyPlane("cuda", routing="device",
+    min_device_batch=1), prewarmed, and one WatchdogHasher over a
+    CudaHasher serving all four validators: every submitted and relayed
+    transaction, every proposal and every validation verified by K1
+    (batch 1, and the relay burst's batch through prefetch_tx_sigs),
+    every tx set and every validator's ledgers sealed by K2/K3. Checked:
+    every validated hash, closed results digest, counter and the digest
+    of every frame sent equal to the JAX package's (CONSENSUS_*); the bad
+    copies, the burst's bad lane and the two forgeries rejected; device
+    share 1.0 and no host signature check but the disputes accept()
+    re-checks (none in the constants); one readback a tree; then every
+    request the plane was given, in one batch, through K1's plain version
+    on the card: the same verdict on every lane. The launch counts are
+    this phase's alone."""
+    import numpy as np
+
+    from stellard_tpu_torch.crypto.backend import make_watched_hasher
+    from stellard_tpu_torch.node.verifyplane import VerifyPlane
+    from stellard_tpu_torch.ops import ed25519_cuda, treehash
+    from stellard_tpu_torch.ops.ed25519 import prepare_batch, to_tensors, verify_kernel_ref
+    from stellard_tpu_torch.protocol import keys
+    from stellard_tpu_torch.protocol.ter import TER
+
+    t0 = time.perf_counter()
+    wl = consensus_workload(**CONSENSUS_SIZES)
+    inputs_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plane = VerifyPlane(backend="cuda", routing="device", min_device_batch=1, max_batch=256,
+                        backend_opts={"device": dev})
+    plane.start_prewarm().join()
+    require(plane.prewarm_error is None, f"the K1 prewarm failed: {plane.prewarm_error}")
+    plane.device_sigs = plane.cpu_sigs = plane.verified = 0
+    hasher = make_watched_hasher("cuda", routing="device", min_device_nodes=0, device=dev)
+    cuda_hasher = hasher.inner
+    prewarm_ms = (time.perf_counter() - t0) * 1e3
+    record = []  # every request the plane was given, with its verdict
+
+    def verify_many(reqs):
+        out = plane.verify_many(reqs)
+        record.append((list(reqs), np.asarray(out, bool).copy()))
+        return out
+
+    verified = {"LedgerProposal": 0, "STValidation": 0}
+
+    def on_start(net):
+        for v in net.validators:
+            def counted(objs, _verify=v.node._verify):
+                for o in objs:
+                    verified[type(o).__name__] += 1
+                return _verify(objs)
+            v.node._verify = counted
+
+    gc.collect()
+    gc_clock = GcClock()
+    ed25519_cuda.launches = 0
+    ed25519_cuda.launches_by_batch.clear()
+    treehash.reset_launches()
+    keys.host_verifies = 0
+    gc.callbacks.append(gc_clock)
+    t_run = time.perf_counter()
+    try:
+        out = run_consensus(port_consensus_names(), wl, verify_many=verify_many,
+                            hasher=hasher, on_start=on_start)
+    finally:
+        gc.callbacks.remove(gc_clock)
+        plane.stop()
+    phase_s = time.perf_counter() - t_run
+    launches = {"ed25519_verify": ed25519_cuda.launches, **treehash.launches}
+    by_batch = dict(ed25519_cuda.launches_by_batch)
+    by_thread = {k: dict(v) for k, v in treehash.launches_by_thread.items()}
+    host_verifies = keys.host_verifies
+    pj = plane.get_json()
+
+    n_bad = sum(bad is not None for entries in wl["rounds"] for _g, bad in entries)
+    want_burst = ["bad" if i == wl["bad_lane"] else "good" for i in range(len(wl["burst"]))]
+    require(out["hashes"] == CONSENSUS_HASHES,
+            f"validated hashes {out['hashes']} differ from the JAX package's")
+    require(out["results"] == CONSENSUS_RESULTS, "closed results differ from the JAX package's")
+    require(out["counters"] == CONSENSUS_COUNTERS,
+            f"counters {out['counters']} differ from the JAX package's {CONSENSUS_COUNTERS}")
+    require(out["bad_copy_ters"] == [int(TER.temINVALID)] * n_bad,
+            f"bad copies answered {out['bad_copy_ters']}")
+    require(out["burst_verdicts"] == [want_burst] * 4, "the relay burst's verdicts are wrong")
+    require(pj["device_share"] == 1.0 and pj["cpu_sigs"] == 0,
+            f"consensus device share {pj['device_share']}")
+    require(not pj["device_wedged"] and not hasher.device_wedged, "a device plane wedged")
+    require(host_verifies == out["counters"]["dispute_rechecks"],
+            f"{host_verifies} host signature verifications on the consensus path")
+    tt = cuda_hasher.tree_transfers
+    require(tt.readbacks == cuda_hasher.tree_calls,
+            f"readbacks {tt.readbacks} != tree calls {cuda_hasher.tree_calls}")
+    require(launches["ed25519_verify"] == len(record),
+            f"{launches['ed25519_verify']} K1 launches for {len(record)} plane calls")
+    require(launches["sha512_masked"] > 0 and launches["tree_inner_level"] > 0,
+            "K2 or K3 never launched in the consensus phase")
+    require(by_batch.get(CONSENSUS_SIZES["n_burst"], 0) == 4,
+            "the relay burst was not verified in one K1 launch on each validator")
+
+    # every request of the phase through K1's plain version on the card,
+    # in one batch: the verdict the plane gave on every lane
+    reqs = [r for rs, _v in record for r in rs]
+    got = np.concatenate([v for _r, v in record])
+    host = prepare_batch([r.public for r in reqs], [r.signing_hash for r in reqs],
+                         [r.signature for r in reqs])
+    tens = to_tensors(host, dev)
+    plain = verify_kernel_ref(**tens).cpu().numpy().astype(bool)
+    k1_err = int(np.abs(plain.astype(np.int64) - got.astype(np.int64)).max())
+    require(k1_err == 0, "K1's verdicts in the consensus phase differ from its plain version")
+
+    round_ms = sorted(out["round_ms"])
+    n_pay = sum(len(e) for e in wl["rounds"])
+    batch1 = by_batch.get(1, 0)
+    emit("consensus", card=name_power, validators=4, quorum=3,
+         rounds=len(round_ms), payments=n_pay, bad_copies=n_bad,
+         burst=len(wl["burst"]), round_ms=out["round_ms"], submit_ms=out["submit_ms"],
+         round_p50_ms=round_ms[len(round_ms) // 2],
+         round_p90_ms=round_ms[min(len(round_ms) - 1, (len(round_ms) * 9) // 10)],
+         payments_per_s=n_pay / sum(round_ms) * 1e3, phase_s=phase_s, inputs_s=inputs_s,
+         prewarm_ms=prewarm_ms, collector_ms=gc_clock.ms, full_collections=gc_clock.full,
+         validated_seqs=len(out["hashes"]) + 1, steps=out["steps"],
+         hashes_equal_jax=True, counters=out["counters"],
+         k1_launches_batch1=batch1, k1_launches_batched=launches["ed25519_verify"] - batch1,
+         k1_launches_by_batch={str(k): v for k, v in sorted(by_batch.items())},
+         k2_k3_by_role=launches_by_role(by_thread),
+         proposals_verified=verified["LedgerProposal"],
+         validations_verified=verified["STValidation"],
+         lanes_held_to_plain=len(reqs), device_share=pj["device_share"],
+         host_verifies=host_verifies, dispute_rechecks=out["counters"]["dispute_rechecks"],
+         tree_calls=cuda_hasher.tree_calls, readbacks=tt.readbacks,
+         device_nodes=cuda_hasher.device_nodes, host_nodes=cuda_hasher.host_nodes,
+         verify_device_quantiles=pj["latency_histogram_ms"]["device_quantiles"])
+    return {"launches": launches, "by_thread": by_thread, "k1_max_abs_err": k1_err}
+
+
 # the read RPCs after the close phase (read_back): the seed that picks
 # their accounts and transactions, and the digest of each kind of answer
 # as the JAX package's node gives it on the same blobs (the same slow test)
@@ -2126,7 +2637,7 @@ READ_DIGESTS = {
 # JAX node's `[paths] prune_floor` knob (its default is 64, and no search
 # of this graph reaches 64 candidates; see PERF.md)
 BOOK_SIZES = dict(n_gateways=16, n_traders=2048, n_regular=1024, per_close=4096,
-                  n_merges=16, n_requests=64, seed=31)
+                  n_merges=16, n_requests=32, seed=31)
 BOOK_PRUNE_FLOOR = 32
 # what the JAX package gives on the same blobs (recomputed by
 # tests/test_torch_close.py's slow test, with CLOSE_*)
@@ -2142,7 +2653,7 @@ BOOK_DIGESTS = [
     "68ff64f7593af429f904333b825242380210aceab6dd55417e1a20ee39dc995f",
     "4fc5989d720f705e3d7440daf7d978391ee301dc106e047a2dfcecd419f721bc",
 ]
-PATHS_DIGEST = "ce09b9dbd40e98226cd326b620dac943c828fb4d9c34e7a83362750e09dec1c4"
+PATHS_DIGEST = "9552a096365238c439e6175295c0b4b03a5168ff60dc9226cd766beb97066536"
 
 # the replay phase: per closed ledger the close half of results_digest
 # (the closed transactions' TERs, which a replay must reproduce), the
@@ -2482,13 +2993,14 @@ def book_phase(dev, name_power: str, close: dict, saver) -> dict:
 
 # the replay phase (BASELINE config #5): the on-disk store the chain is
 # saved to (git-ignored, removed at the end); the span replayed, the book
-# phase's first 3 ledgers (1005-1007: every transactor), cut from the 8
-# ledgers saved to fit the smoke's time limit (PERF.md §4); and the
-# ledger forged with a bad signature, a copy of 1006 (the issuance
-# close) replayed in the same span right after the real one
+# phase's first 2 ledgers (1005-1006: trust lines, regular keys and the
+# issuance), cut from the 8 ledgers saved to fit the smoke's time limit
+# (PERF.md §4); and the ledger forged with a bad signature, a copy of
+# 1006 (the issuance close) replayed in the same span right after the
+# real one
 STORE_DIR = HERE / "build" / "chip_smoke_store"
 REPLAY_FIRST = len(CLOSE_HASHES)  # index of 1005 among the closed ledgers
-REPLAY_LEDGERS = 3
+REPLAY_LEDGERS = 2
 FORGE_SEQ = START_SEQ + REPLAY_FIRST + 2
 
 
@@ -2588,7 +3100,7 @@ def replay_phase(dev, name_power: str, saver: ChainSaver, close_digests: list) -
     forged copy of 1006 (one signature bit flipped) is saved beside the
     chain, and the store is closed and reopened from disk, as a
     restarting node does. Then node/ledgertools.replay_range over 1005,
-    1006, the forged 1006 and 1007: one verify_many for the whole span on
+    1006 and the forged 1006: one verify_many for the whole span on
     the card (K1), each ledger loaded eagerly with its parent,
     re-applied by the transactors and sealed by CudaHasher (K2, K3).
     Every real ledger replays to its hash, with its close's results and
@@ -2682,6 +3194,7 @@ def replay_phase(dev, name_power: str, saver: ChainSaver, close_digests: list) -
         keys.host_verifies = 0
         rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
         gc.collect()
+        heap_objects = len(gc.get_objects())  # what the collector scans at the start
         gc.callbacks.append(gc_clock)
         try:
             stats = replay_range(db, span, hash_batch=hasher, verify_many=verify_many)
@@ -2745,6 +3258,7 @@ def replay_phase(dev, name_power: str, saver: ChainSaver, close_digests: list) -
         "seal_ms": [s["seal_s"] * 1e3 for s in per],
         "node_fetches": fetched["cache_hits"] + fetched["backend_fetches"],
         "k1_batch": n_span, "gc_ms": gc_clock.ms, "gc_full_collections": gc_clock.full,
+        "heap_objects_at_start": heap_objects,
         "peak_rss_mb": [rss0 / 1024, rss1 / 1024],
         "saves": [{k: s[k] for k in ("seq", "nodes", "bytes", "ms")} for s in saves],
         "store_digest_ms": digest_ms, "store_bytes": store["disk_bytes"],

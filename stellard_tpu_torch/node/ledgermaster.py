@@ -3,7 +3,9 @@
 Reference: src/ripple_app/ledger/LedgerMaster.cpp (1469 LoC) — tracks the
 current open ledger, last closed ledger and last validated ledger
 (LedgerHolder triples), holds transactions that can't apply yet
-(terPRE_SEQ et al.) for retry on the next ledger. Also CanonicalTXSet
+(terPRE_SEQ et al.) for retry on the next ledger, and accepts a ledger as
+validated once a quorum of trusted validations arrives (checkAccept,
+:705-750). Also CanonicalTXSet
 (misc/CanonicalTXSet.cpp): the salted canonical application order used
 when a closed ledger's tx set is applied.
 
@@ -30,9 +32,11 @@ error a helper thread absorbs is counted in ``tree_stats``, and one that
 came from the card is raised again by the next close. The node wires
 its admission queue (``txq``, node/txq.py) in: held transactions are
 absorbed into it and its queued ones promoted at each close. The
-parallel speculation executor and the consensus paths
-(``close_with_txset``, ``switch_lcl``, ``check_accept``) are not part of
-this package yet.
+consensus paths (``close_with_txset``, ``switch_lcl``,
+``set_validated``, ``check_accept``) serve a validator's rounds
+(node/validator.py); with ``min_validations`` at 0, the standalone
+default, every close is its own validation. The parallel speculation
+executor is not part of this package yet.
 """
 
 from __future__ import annotations
@@ -123,11 +127,19 @@ class LedgerMaster:
         # a sequence-gap flood cannot pin memory forever
         self.held: dict[tuple[bytes, int], tuple[SerializedTransaction, int]] = {}
         self.held_stats = {"evicted": 0, "expired": 0}
-        # optional loader for cache misses (Node wires the NodeStore in)
+        # optional loader for cache misses (Node wires the NodeStore in;
+        # overlay validators are memory-resident and leave it unset)
         self.fetch_fallback: Optional[Callable[[bytes], Optional[Ledger]]] = None
+        # optional LIGHT resolver: ledger hash -> (seq, parent_hash)
+        # from the stored header alone (no tree loads) — used by the
+        # LCL-switch reindex walk
+        self.header_fetch: Optional[
+            Callable[[bytes], Optional[tuple[int, bytes]]]
+        ] = None
         # admission-control plane ([txq]): wired by Node; promotion of
         # queued txs into each new open ledger happens at _open_next
         self.txq = None
+        self.min_validations = 0  # quorum for checkAccept
         # the validated-ledger hook (Node wires the read plane's
         # note_validated); standalone closes are their own validation
         self.on_validated: Optional[Callable[[Ledger], None]] = None
@@ -633,24 +645,88 @@ class LedgerMaster:
             self._open_next(new_lcl, (t_apply - t0) * 1000.0)
 
             # standalone trusts its own closes (reference: standalone mode
-            # skips validations)
-            self.validated = new_lcl
-            if self.on_validated:
-                self.on_validated(new_lcl)
+            # skips validations; checkAccept quorum handles the net case)
+            if self.min_validations == 0:
+                self.validated = new_lcl
+                if self.on_validated:
+                    self.on_validated(new_lcl)
 
             self._note_close_stages(t0, t_apply, t_seal, new_lcl.seq)
             return new_lcl, results
 
-    def _open_next(self, new_lcl: Ledger, apply_ms: float) -> None:
-        """Open the successor ledger and replenish it from the held pile
-        or the admission queue. With the TxQ enabled this is the
-        promotion site — held terPRE_SEQ txs are absorbed into the
-        fee-ordered queue and the best-paying eligible queued txs fill
-        the new open ledger up to the soft cap, sized from ``apply_ms``
-        (this close's apply pass); without it (no TxQ, or [txq]
-        enabled=0) the held pile is re-applied as it is. Caller holds
-        the lock."""
+    def close_with_txset(
+        self,
+        txs: list[SerializedTransaction],
+        close_time: int,
+        close_resolution: int,
+        correct_close_time: bool = True,
+    ) -> tuple[Ledger, dict[bytes, TER]]:
+        """Consensus-accept path (reference: LedgerConsensus::accept,
+        :931-1127): close the chain with the *agreed* tx set — which may
+        differ from our open ledger's — then re-apply to the new open
+        ledger anything we had locally that didn't make the consensus set
+        (reference: reapply of local/disputed txns :1050-1127). Raises
+        first an error from the card that a helper thread absorbed since
+        the last close."""
+        with self._lock:
+            self._raise_device_error()
+            t0 = time.perf_counter()
+            prev = self.closed_ledger()
+            open_ledger = self.current_ledger()
+
+            txset = CanonicalTXSet(prev.hash())
+            for tx in txs:
+                txset.insert(tx)
+
+            new_lcl = prev.open_successor()
+            spec = (
+                getattr(open_ledger, "_spec_state", None)
+                if self.delta_replay else None
+            )
+            self._drain_spec(spec)
+            results = self._apply_transactions(new_lcl, txset, spec=spec)
+            t_apply = time.perf_counter()
+
+            new_lcl.close(close_time, close_resolution, correct_close_time)
+            new_lcl.accepted = True
+            for tx in txset.values():
+                new_lcl.parsed_txs[tx.txid()] = tx
+            self._seal(new_lcl, results)
+            t_seal = time.perf_counter()
+            self._push_closed(new_lcl)
+
+            # re-apply: our open-ledger txns that missed consensus first
+            # (they are the lower sequences), then held/queued;
+            # SF_SIGGOOD verdicts from submit time carry over so the
+            # re-apply never host-re-verifies
+            consensus_ids = {tx.txid() for tx in txs}
+            leftovers = [
+                self._parse_with_verdict(open_ledger, txid, blob)
+                for txid, blob, _meta in open_ledger.tx_entries()
+                if txid not in consensus_ids
+            ]
+            self._open_next(new_lcl, (t_apply - t0) * 1000.0,
+                            leftovers=leftovers)
+            self._note_close_stages(t0, t_apply, t_seal, new_lcl.seq)
+            return new_lcl, results
+
+    def _open_next(self, new_lcl: Ledger, apply_ms: float,
+                   leftovers: list = ()) -> None:
+        """Open the successor ledger and replenish it: consensus
+        leftovers first, then the held pile or the admission queue. With
+        the TxQ enabled this is the promotion site — held terPRE_SEQ txs
+        are absorbed into the fee-ordered queue and the best-paying
+        eligible queued txs fill the new open ledger up to the soft cap,
+        sized from ``apply_ms`` (this close's apply pass); without it (no
+        TxQ, or [txq] enabled=0) the held pile is re-applied as it is.
+        Caller holds the lock."""
         self.current = new_lcl.open_successor()
+        for tx in leftovers:
+            ter, _applied = self._open_apply(
+                tx, TxParams.OPEN_LEDGER | TxParams.RETRY
+            )
+            if ter == TER.terPRE_SEQ:
+                self._hold_or_queue(tx)
         txq = self.txq
         if txq is not None and txq.enabled:
             for tx, expire in self._drain_held():
@@ -678,6 +754,145 @@ class LedgerMaster:
         self.tracer.complete("spec.drain", "close", t0,
                              time.perf_counter(),
                              dispatched=len(session.tasks))
+
+    def _hold_or_queue(self, tx: SerializedTransaction) -> None:
+        """terPRE_SEQ disposition: the fee-ordered queue when the TxQ is
+        enabled, the (bounded) held pile otherwise."""
+        if self.txq is not None and self.txq.enabled:
+            self.txq.absorb_held(tx, self)
+        else:
+            self.add_held_transaction(tx)
+
+    def switch_lcl(self, ledger: Ledger) -> None:
+        """Adopt a different (acquired) last-closed ledger — the network
+        moved on without us (reference: switchLastClosedLedger,
+        NetworkOPs.cpp:930). Our open-ledger txns are NOT carried over;
+        anything still valid will be re-relayed by peers."""
+        with self._lock:
+            ledger.accepted = True
+            self._push_closed(ledger)
+            self.current = ledger.open_successor()
+            self._reindex_chain(ledger)
+
+    def _reindex_chain(self, ledger: Ledger) -> None:
+        """Repoint the seq->hash index at the adopted chain's ancestry.
+        Closes we made ourselves before the switch are ORPHANS: leaving
+        them indexed would make get_ledger_by_seq (and the `ledger` RPC)
+        serve a ledger the network never validated at that index — the
+        mismatch the reference's LedgerHistory::handleMismatch repairs.
+        Repoints every resolvable ancestor; index entries between the
+        last VALIDATED seq and the deepest confirmed ancestor that
+        cannot be confirmed are DROPPED — after a switch they are
+        orphan-branch closes, and serving nothing (the caller falls
+        back to stored history, whose own divergence is LedgerCleaner
+        repair territory) beats serving a ledger the network never
+        validated. The tip itself was just indexed by _push_closed; the
+        walk starts at its parent. Ancestry resolves from the in-memory
+        cache or the LIGHT header fetch (seq + parent only) — never a
+        full two-tree Ledger.load under the master lock — and stops at
+        the validated floor, which no switch may rewrite."""
+        floor = self.validated.seq if self.validated is not None else 0
+        resolve = self._resolve_header
+        cur_hash = ledger.parent_hash
+        confirmed_down_to = ledger.seq
+        while True:
+            info = resolve(cur_hash)
+            if info is None:
+                break
+            seq, parent_hash = info
+            if seq <= floor:
+                break  # never rewrite the validated chain's entries
+            if self.ledger_history.get(seq) == cur_hash:
+                confirmed_down_to = seq
+                break
+            self.ledger_history[seq] = cur_hash
+            confirmed_down_to = seq
+            cur_hash = parent_hash
+        # one pass: (a) unconfirmable entries between the floor and the
+        # deepest confirmed ancestor are orphan-branch closes; (b)
+        # entries ABOVE the adopted tip are our own solo closes on an
+        # abandoned fork (backward adoption repairs a runaway node) —
+        # the network validated neither
+        for seq in [
+            s for s in self.ledger_history
+            if floor < s < confirmed_down_to or s > ledger.seq
+        ]:
+            del self.ledger_history[seq]
+        while len(self.ledger_history) > 8192:
+            del self.ledger_history[min(self.ledger_history)]
+
+    def _resolve_header(self, h: bytes) -> Optional[tuple[int, bytes]]:
+        """(seq, parent_hash) for a ledger hash, from the in-memory
+        cache or the LIGHT header fetch — never a full two-tree load
+        under the master lock."""
+        led = self.ledgers_by_hash.get(h)
+        if led is not None:
+            return led.seq, led.parent_hash
+        if self.header_fetch is not None:
+            return self.header_fetch(h)
+        return None
+
+    def set_validated(self, ledger: Ledger) -> None:
+        """A quorum of trusted validations arrived for this ledger
+        (reference: LedgerMaster::checkAccept tail, :705-750)."""
+        with self._lock:
+            if self.validated is not None and ledger.seq <= self.validated.seq:
+                return
+            prev_floor = (
+                self.validated.seq if self.validated is not None else 0
+            )
+            self.validated = ledger
+            # a quorum-validated ledger is the strongest possible signal
+            # for its index slot: repair any orphan entry left by a fork
+            # healed without an LCL switch (LedgerHistory mismatch role)
+            self.ledger_history[ledger.seq] = ledger.hash()
+            self.ledgers_by_hash.put(ledger.hash(), ledger)
+            # and for every slot it SKIPPED: when validation jumps a
+            # seq range (contested rounds, a revived node), the new
+            # tip's ancestry is authoritative for the gap — without
+            # this, a node that closed an orphan inside the gap served
+            # that orphan from its history forever (scenario-fuzzer
+            # find: honest histories permanently disagreed at a seq
+            # below the validated floor)
+            # bounded: never walk (or grow the index) past the 8192
+            # history bound — a cold node whose first validation lands
+            # at a high seq must not do seq-many header reads under
+            # the master lock
+            prev_floor = max(prev_floor, ledger.seq - 256)
+            cur_hash = ledger.parent_hash
+            seq = ledger.seq - 1
+            while seq > prev_floor:
+                self.ledger_history[seq] = cur_hash
+                info = self._resolve_header(cur_hash)
+                if info is None:
+                    # deeper ancestry unresolvable from memory/headers:
+                    # any remaining gap entries are unconfirmable —
+                    # probably this node's own orphan-branch closes from
+                    # before the jump. Same policy as the switch_lcl
+                    # repair: serving NOTHING beats serving a hash the
+                    # network never validated (re-resolvable later via
+                    # stored history / LedgerCleaner).
+                    for s in range(prev_floor + 1, seq):
+                        self.ledger_history.pop(s, None)
+                    break
+                _seq, cur_hash = info
+                seq -= 1
+            while len(self.ledger_history) > 8192:
+                del self.ledger_history[min(self.ledger_history)]
+        if self.on_validated:
+            self.on_validated(ledger)
+
+    def check_accept(self, ledger_hash: bytes, trusted_count: int) -> bool:
+        """Quorum test for a closed ledger we know about (reference:
+        checkAccept) — promotes it to validated when `trusted_count`
+        meets `min_validations`."""
+        if trusted_count < max(self.min_validations, 1):
+            return False
+        ledger = self.get_ledger_by_hash(ledger_hash)
+        if ledger is None:
+            return False
+        self.set_validated(ledger)
+        return True
 
     def _apply_transactions(
         self, ledger: Ledger, txset: CanonicalTXSet, spec=None

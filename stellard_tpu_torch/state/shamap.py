@@ -40,6 +40,7 @@ from ..utils.hashes import (
 __all__ = [
     "TNType", "SHAMapItem", "SHAMap", "Leaf", "Inner", "MissingNodeError",
     "encode_nodes", "compute_hashes", "inner_node_cache", "configure_inner_cache",
+    "resolve_node",
 ]
 
 
@@ -140,6 +141,15 @@ class Inner:
 
 
 EMPTY_INNER = Inner((None,) * 16, hash=ZERO256)
+
+
+def resolve_node(node):
+    """The accessor every traversal outside this module uses before
+    type-dispatching on Leaf/Inner (state/shamapsync.py walks,
+    node/inbound.py serving). In the JAX package it faults a lazy
+    ``Stub``; this package's trees are eager (no ``Stub`` until the
+    out-of-core state is ported), so it returns `node` as it is."""
+    return node
 
 
 def _nibble(key: bytes, depth: int) -> int:

@@ -54,6 +54,9 @@ def test_every_module_imports_without_jax():
     assert set(CLOSE_SLICE) <= set(mods)
     # and so is the standalone node's: config, node, brain, queues, doors
     assert set(NODE_SLICE) <= set(mods)
+    # and so is consensus's: the round, the wire, the simulated overlay,
+    # the validator, catch-up and tree sync
+    assert set(CONSENSUS_SLICE) <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"
@@ -78,6 +81,42 @@ NODE_SLICE = tuple(f"stellard_tpu_torch.{m}" for m in (
     "node.unl", "overlay", "overlay.resource", "rpc", "rpc.errors", "rpc.txsign",
     "rpc.infosub", "rpc.readplane", "rpc.handlers", "rpc.http_server", "rpc.ws_server",
     "__main__"))
+
+
+# the modules the consensus slice added
+CONSENSUS_SLICE = tuple(f"stellard_tpu_torch.{m}" for m in (
+    "consensus", "consensus.consensus", "consensus.disputed", "consensus.proposal",
+    "consensus.timing", "consensus.txset", "consensus.validation",
+    "consensus.validations", "consensus.voting", "overlay.proto", "overlay.wire",
+    "overlay.squelch", "overlay.followertree", "overlay.simnet", "node.validator",
+    "node.inbound", "state.shamapsync"))
+
+
+def test_the_consensus_slice_imports_neither_jax_nor_the_jax_package():
+    """Importing the consensus slice's modules alone (the SimNet and the
+    validator pull in the ledger, engine and node modules they run on)
+    leaves jax and the JAX package out of sys.modules, and no source of
+    the slice names either."""
+    code = (
+        "import importlib, json, sys\n"
+        f"sys.path.insert(0, {str(REPO)!r})\n"
+        f"for m in {list(CONSENSUS_SLICE)!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'stellard_tpu.'))\n"
+        "             or m == 'stellard_tpu')\n"
+        "print(json.dumps(bad))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, env=env, cwd=str(REPO))
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == []
+    for mod in CONSENSUS_SLICE:
+        path = REPO / mod.replace(".", "/")
+        path = path / "__init__.py" if path.is_dir() else path.with_suffix(".py")
+        roots = {n.split(".")[0] for n in _imported_names(ast.parse(path.read_text()))}
+        assert not roots & {"jax", "jaxlib", "stellard_tpu"}, mod
 
 
 def test_the_cli_imports_neither_jax_nor_the_jax_package():

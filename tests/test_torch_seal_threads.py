@@ -241,6 +241,44 @@ def test_the_close_hashes_on_the_drainer_and_two_seal_threads():
     assert hasher.tree_transfers.readbacks == hasher.tree_calls
 
 
+def test_four_chains_close_at_once_on_one_hasher():
+    """The consensus phase's concurrency, and more: four validators'
+    LedgerMasters on one CudaHasher, each with its drainer and its two
+    seal threads, closing at the same time (up to twelve threads hashing
+    at once): every ledger equal to the JAX close's, one readback a
+    tree."""
+    rounds = [payments(12), payments(12, start=13)]
+    hasher = ThreadLog()
+    lms = [chain(hasher) for _ in range(4)]
+    got = [[] for _ in lms]
+    errors = []
+    gate = threading.Barrier(len(lms))
+
+    def run(lm, out):
+        try:
+            for k, blobs in enumerate(rounds):
+                submit(lm, blobs)
+                gate.wait()
+                out.append(lm.close_and_advance(2000 + 30 * k, 30)[0].hash())
+        except Exception as exc:  # noqa: BLE001 — reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(lm, out)) for lm, out in zip(lms, got)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+        assert not t.is_alive()
+    for lm in lms:
+        lm.stop_seal_drainer()
+    assert errors == []
+    assert got == [jax_hashes(rounds)] * 4
+    assert {"seal-drain", "seal-hash-tx", "seal-hash-state"} <= set(hasher.threads)
+    assert hasher.tree_transfers.readbacks == hasher.tree_calls
+    assert all(lm.tree_json()[k] == 0 for lm in lms
+               for k in ("drain_errors", "seal_thread_errors", "adopt_errors"))
+
+
 @pytest.mark.parametrize("thread", ["seal-drain", "seal-hash-tx", "seal-hash-state"])
 def test_an_error_from_the_card_fails_the_next_close(thread):
     """A kernel that fails on a helper thread is not hidden behind the

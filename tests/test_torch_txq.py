@@ -86,11 +86,12 @@ def recording(make_node, log: list):
     return make
 
 
-def run_method(module, cls, name: str, tmp_path=None) -> None:
-    """One test method of a test module's class, with the fixtures it
-    asks for resolved by name as pytest would (the class's or the
-    module's fixture functions, ``monkeypatch``, ``tmp_path``), each
-    made fresh for this run and torn down after it."""
+def run_method(module, cls, name: str, tmp_path=None, kwargs=None) -> None:
+    """One test method of a test module's class, called with `kwargs`
+    (a parametrized case's arguments) and the fixtures it asks for
+    resolved by name as pytest would (the class's or the module's
+    fixture functions, ``monkeypatch``, ``tmp_path``), each made fresh
+    for this run and torn down after it."""
     inst = cls()
     made, gens = {}, []
 
@@ -116,9 +117,12 @@ def run_method(module, cls, name: str, tmp_path=None) -> None:
 
     fn = getattr(inst, name)
     with pytest.MonkeyPatch.context() as mp:
-        kwargs = {q: resolve(q, mp) for q in inspect.signature(fn).parameters}
+        call = dict(kwargs or {})
+        for q in inspect.signature(fn).parameters:
+            if q not in call:
+                call[q] = resolve(q, mp)
         try:
-            fn(**kwargs)
+            fn(**call)
         finally:
             for gen in reversed(gens):
                 next(gen, None)
