@@ -4,10 +4,10 @@
     python3 chip_smoke.py
 
 Drives the ledger close's device plane, then a 4-validator consensus
-net, then a standalone node's closes and its order book and path
-searches, then the catch-up replay of the chain it saved, through the
-entry points a node calls, at the sizes a close really has, and checks
-every result:
+net in process and a 4-validator private net over TCP, then a
+standalone node's closes and its order book and path searches, then the
+catch-up replay of the chain it saved, through the entry points a node
+calls, at the sizes a close really has, and checks every result:
 
 1. device   — the card's name and power limit; builds the four CUDA
               kernels (one nvcc a source, started together) and prints
@@ -36,7 +36,7 @@ every result:
               min_device_batch=1), prewarmed, and one WatchdogHasher over
               a CudaHasher serve all four (each node's verify_many and
               hash_batch, its LedgerMaster's and its InboundLedgers').
-              A warm-up to seq 2 (funding a second sender), 8 rounds of
+              A warm-up to seq 2 (funding a second sender), 4 rounds of
               512 payments of 250 STR from the master account to 16
               destinations submitted at validator 0 (~1% preceded by a
               copy with one signature bit flipped, refused by the door
@@ -59,7 +59,33 @@ every result:
               plain version on the card in one batch: the same verdicts.
               The consensus line gives each round's wall ms (p50, p90),
               payments/s and K1's launches by batch.
-6. close    — the port's standalone Node under a payment flood
+6. tcp      — BASELINE config #4 as operators run it (TCP_SIZES): four
+              validators over localhost TCP with [peer_ssl] require, each
+              from testkit.tcpnet.validator_config's private-net INI
+              (quorum 3, UNL and [ips] of the other three) with type=cuda
+              planes, clock speed 1 and admission caps that never bind;
+              validator 0 a Node in this process, validators 1-3
+              `python -m stellard_tpu_torch --start` children spawned
+              first (the kernels built here before). A warm-up funds a
+              second sender, validated on all four; then 4 rounds of 250
+              STR payments: 512 of the master account's consecutive
+              sequences at validator 0's HTTP `submit` (~1% preceded by a
+              badly signed copy the door refuses) and 256 of the second
+              sender's at validator 2's, from two client threads; the
+              latter reach validators 0, 1 and 3 as relayed frames,
+              verified a socket read at a time (K1 at the read's batch).
+              Each round until every destination's balance is its due on
+              all four. Every validated hash the same on every validator
+              holding it; every good payment tesSUCCESS through `tx` on
+              the children, every bad copy temINVALID and never found;
+              the balances and sequences of every account equal on all
+              four and to the JAX package's (TCP_BALANCES_DIGEST, from
+              tests/test_torch_tcp_workload.py); device share 1.0 on all
+              four, and no host signature check but the hellos'; on
+              validator 0 one readback a tree, and every K1 request it
+              made equal to K1's plain version. `--only tcp` runs this phase
+              alone.
+7. close    — the port's standalone Node under a payment flood
               (CLOSE_SIZES), built from a config beside the chain's store
               (NODE_CONFIG with PORT_NODE_DEVICE: both crypto planes on
               the card, K1 for a single signature, admission caps that
@@ -100,7 +126,7 @@ every result:
               Then K1 against its plain version on a close's batch and
               at batch sizes 1-33 (good, bad S, non-canonical S,
               undecodable key), and timed at batch 1.
-7. book     — the order book on the same chain (BOOK_SIZES, BASELINE
+8. book     — the order book on the same chain (BOOK_SIZES, BASELINE
               configs #2 and #3): 16 gateways issuing 32 IOUs (four set a
               TransferRate), 2,048 traders with two trust lines each,
               1,024 of them with a regular key; then 4,096 issuing
@@ -129,7 +155,7 @@ every result:
               close, each of the 8 closed ledgers by the close
               pipeline's node-store stage; the close_pipeline line gives
               each ledger's stage times.
-8. times    — K1 and K4 against their plain versions again, exactly, at
+9. times    — K1 and K4 against their plain versions again, exactly, at
               the shapes the main path gave them: K1 on both flood
               chunks, K4 on a 1,048,576 x 8 rate matrix (identity
               and saturating rows among rates near 1.0, also held to the
@@ -141,7 +167,7 @@ every result:
               every S non-canonical and with every key undecodable,
               which stop each lane before and after the decode: the
               split of its time by phase.
-9. replay   — catch-up replay (BASELINE config #5) of that chain: the
+10. replay  — catch-up replay (BASELINE config #5) of that chain: the
               store's records and each save's node count equal to the
               JAX package's (STORE_DIGEST, SAVE_NODES, from the same slow
               test); a forged copy of 1006 (one signature bit flipped in
@@ -161,10 +187,10 @@ every result:
               limit (PERF.md §4). The store is removed at the end.
 
 Launch counts are zeroed just before phases 3-4 and read just after, and
-again around phase 5, around phase 6, around phase 7 and around phase
-9's replay; the kernels line shows the sum, the launches of the main
-path alone, and for K2 and K3 the consensus, close and book phases'
-launches by who made them (the seal drainer, the two seal threads, the
+again around phases 5, 6 (validator 0's launches), 7, 8 and 10's replay;
+the kernels line shows the sum, the launches of the main path alone,
+and for K2 and K3 the consensus, tcp, close and book phases' launches by
+who made them (the seal drainer, the two seal threads, the
 closing or consensus thread). Any
 failed check exits non-zero without the final line. Without a CUDA device, or without the package
 beside it, the script exits non-zero at once.
@@ -244,8 +270,14 @@ def fe_ops(muls_sqs) -> int:
     return muls * FE_MUL_OPS + sqs * FE_SQ_OPS
 
 
+T_IMPORT = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line of a phase, with ``at_s``: seconds since the script
+    started, so the lines give the phases' walls."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": time.perf_counter() - T_IMPORT}), flush=True)
 
 
 class SmokeFailure(RuntimeError):
@@ -1056,10 +1088,10 @@ def node_config_text(store: Path, extra: str) -> str:
 class HttpRpc:
     """One keep-alive HTTP connection to a node's JSON-RPC door."""
 
-    def __init__(self, port: int):
+    def __init__(self, port: int, timeout: float = 3600):
         import http.client
 
-        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=3600)
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
 
     def call(self, method: str, **params) -> dict:
         body = json.dumps({"method": method, "params": [params]})
@@ -1782,20 +1814,23 @@ def run(dev) -> None:
     # 5. the consensus phase (BASELINE config #4), counted on its own ---------
     consensus = consensus_phase(dev, name_power, int32_rate)
 
+    # 6. the tcp phase (config #4 over TCP), counted on its own ---------------
+    tcp = tcp_phase(dev, name_power, int32_rate)
 
-    # 6. the close phase, counted on its own; the chain saved as it closes ---
+    # 7. the close phase, counted on its own; the chain saved as it closes ---
     saver = ChainSaver(STORE_DIR)
     close = close_phase(dev, name_power, saver, int32_rate)
 
-    # 7. the book phase on the same chain, counted on its own -----------------
+    # 8. the book phase on the same chain, counted on its own -----------------
     book = book_phase(dev, name_power, close, saver)
     close_launches, close_k1_err = close["launches"], close["k1_max_abs_err"]
     k1_batch1 = close["k1_batch1"]
-    roles = launches_by_role(consensus["by_thread"], close["by_thread"], book["by_thread"])
+    roles = launches_by_role(consensus["by_thread"], tcp["by_thread"], close["by_thread"],
+                             book["by_thread"])
     close_digests = close["close_digests"] + book["close_digests"]
     del close
 
-    # 8. K1 and K4 against plain, and times -----------------------------------
+    # 9. K1 and K4 against plain, and times -----------------------------------
     # K1 against its plain version on the flood's chunks, the shapes the
     # main path launched it at (the first chunk's calls are the timed ones)
     prep_ms, k1_main_err = [], 0
@@ -1818,7 +1853,8 @@ def run(dev) -> None:
         k1_main_err = max(k1_main_err, err)
         emit("k1_vs_plain_main", chunk_start=lo, lanes=int(got.numel()),
              max_abs_err=err, equal=True)
-    k1_err = max(k1_err, k1_main_err, close_k1_err, consensus["k1_max_abs_err"])
+    k1_err = max(k1_err, k1_main_err, close_k1_err, consensus["k1_max_abs_err"],
+                 tcp["k1_max_abs_err"])
     k1_b, k1_by = bound_ms(k1_ops(chunk_host), 130 * CHUNK, int32_rate)
 
     # K1's phases: the same chunk with every S non-canonical (each lane
@@ -1872,7 +1908,7 @@ def run(dev) -> None:
          rotated_mb=sum(m.numel() * 4 for m in mats) / 1e6)
     del k4_t, k4_got, k4_plain, mats, outs
 
-    # 9. catch-up replay of the saved chain, counted on its own
+    # 10. catch-up replay of the saved chain, counted on its own
     replay = replay_phase(dev, name_power, saver, close_digests)
     del saver
 
@@ -1882,8 +1918,8 @@ def run(dev) -> None:
          hashlib_seal_ms={k: v["hashlib_seal_ms"] for k, v in seals.items()},
          k1_shape=[CHUNK], k2_shape=k2_shape, k3_nodes=n3, k4_shape=[rows, hops],
          int32_ops_per_s=int32_rate, total_s=time.perf_counter() - t_start)
-    phases = (launches, consensus["launches"], close_launches, book["launches"],
-              replay["launches"])
+    phases = (launches, consensus["launches"], tcp["launches"], close_launches,
+              book["launches"], replay["launches"])
     main_launches = lambda name: sum(ph.get(name, 0) for ph in phases)  # noqa: E731
     kernels = [
         dict(name="ed25519_verify", route="cuda",
@@ -1938,7 +1974,9 @@ def close_phase(dev, name_power: str, saver, int32_rate: float) -> dict:
     card, admission caps that never bind), which starts its verify
     plane's K1 prewarm; the 1,000,000 AccountRoots are resumed through
     its LedgerMaster.load_ledger and saved to its store; serve() waits
-    for the prewarm and opens the HTTP and WebSocket doors. Then 4 closes
+    for the prewarm, opens the HTTP and WebSocket doors and freezes the
+    heap so far out of the collector's scans (the node's collector
+    policy, utils/gcpolicy.py). Then 4 closes
     of 4,096 signed Payments, each payment a `submit` through HTTP (its
     signature verified by K1 at batch 1, admitted by the TxQ, applied to
     the open ledger and speculated), each close a `ledger_accept` (the
@@ -1986,8 +2024,9 @@ def close_phase(dev, name_power: str, saver, int32_rate: float) -> dict:
     t3 = time.perf_counter()
     saver.attach_node(node)
     saver.save(start)
-    node.serve()  # waits for the prewarm
+    node.serve()  # waits for the prewarm; freezes the start-up heap
     t4 = time.perf_counter()
+    frozen = gc.get_freeze_count()
     prewarm_k1 = dict(ed25519_cuda.launches_by_batch)
     res = drive_node_closes(node, wl, profile_close=len(wl["closes"]) - 1)
     closes_s = time.perf_counter() - t4
@@ -2076,7 +2115,8 @@ def close_phase(dev, name_power: str, saver, int32_rate: float) -> dict:
         "senders": CLOSE_SIZES["n_senders"], "closes": len(closes), "payments": n_pay,
         "payments_per_s": n_pay / sum(c["wall_ms"] for c in closes) * 1e3,
         "inputs_s": inputs_s, "node_ms": (t1 - t_node) * 1e3, "build_state_ms": (t2 - t1) * 1e3,
-        "load_ms": (t3 - t2) * 1e3, "serve_ms": (t4 - t3) * 1e3, "phase_s": closes_s,
+        "load_ms": (t3 - t2) * 1e3, "serve_ms": (t4 - t3) * 1e3,
+        "frozen_objects": frozen, "phase_s": closes_s,
         "pipeline_flush_ms": flush_ms, "per_close": per_close,
         "kinds": {kd: sum(kind == kd for c in wl["closes"] for _b, kind, _g in c)
                   for kd in ("existing", "new_account", "bad_sig")},
@@ -2154,9 +2194,10 @@ def k1_small_batches(dev) -> dict:
 # the consensus phase: BASELINE config #4, a 4-validator UNL net
 
 
-# 8 measured rounds of 512 payments (one close phase close's worth in
-# all), a relay burst of 64 transactions in one delivery
-CONSENSUS_SIZES = dict(n_rounds=8, per_round=512, n_burst=64, bad_share=0.01, seed=37)
+# 4 measured rounds of 512 payments (8 until the tcp phase took over the
+# 4-validator measurement; PERF.md §4), a relay burst of 64 transactions
+# in one delivery
+CONSENSUS_SIZES = dict(n_rounds=4, per_round=512, n_burst=64, bad_share=0.01, seed=37)
 CONSENSUS_DESTS = 16
 PAYMENT_DROPS = 250_000_000  # 250 STR: the first payment to a destination creates it
 FUND_DROPS = 100_000 * 1_000_000  # the relay burst's sender
@@ -2171,11 +2212,7 @@ CONSENSUS_HASHES = [
     "6fba4dd20f5416ffa52e61bed787d9265fc06925cb3eaeb40b288de433c193b2",
     "cef416c0ef9d8feb96a868bd97485e9dbe769ad2959e0e242b718d786fa204cc",
     "bb8e6f40d118f6280467ac1936de9e506f6ad4e07cc58c2b0d5c6468afce831a",
-    "6b3e0072a3eaaf35b52575d611af77b6044672634c7b1d2e881d3fb2544afe57",
-    "9b453292daf4f2ef8e9664ecdd48b65aa4849be7362d78b97eaefade77024f14",
-    "988d55e49e4dd42650e296408aad7ab43a1316f4c275f1b6a74a8763e4ab68af",
-    "1533c02697f6502d4932d0bdef0593d35f019e1cbb3fc24f3048961250f3a1f9",
-    "e014aa4df9d2e1a02aa776959be9c160f937cb75a83e3e5ce84f690f9e4ec7b0",
+    "4ecfcc70338f996a34a0d9391ec43c0fff8e4a7e23382de98d5454ae97cdaa8b",
 ]
 CONSENSUS_RESULTS = [
     "2eabfade20812835ec436dd68ae5c609c852dabedd31d01131e8e4840d64993e",
@@ -2183,20 +2220,45 @@ CONSENSUS_RESULTS = [
     "dc07709cb39fd7243457ec582e6c5ce9223f7d0c441cb6c4040f66b5caa8c2ee",
     "7e2de966096783aa4983c9883f8c6aa0f2ac1a1464f7c4df421531ffbeff25f4",
     "0a6a47e071136b1125bcf23648d2922e59640cf58089ed649065848a94878bac",
-    "3aaa97ba502d187af5e4d26e81dd49a4914a2cab600b8cbb8239433cf6db5a2c",
-    "b8542b13d5df24e01ee2aed342825cbd82db391db7437c8139c84feeb2ec19a4",
-    "5a1f2dd53833181e72220a04ab8c2341e1b7ca52856a99498ba2fdfb9f482247",
-    "9fe146493f8df0d9d2db9eb4d863bbaa9d06e632e839923383a333d53d866277",
     "b90e3e86e3708c37dc23890db5eaad2c48ce92e37c63f23b05c97365e6ab84c7",
 ]
 CONSENSUS_COUNTERS = {
-    "rounds_completed": [10, 10, 10, 10],
+    "rounds_completed": [6, 6, 6, 6],
     "defense": [{"bad_proposal_sig": 1, "bad_validation_sig": 1}, {}, {}, {}],
-    "net_stats": {"sent": 12657, "dropped_link": 0, "dropped_fault": 0, "dropped_down": 0,
+    "net_stats": {"sent": 6369, "dropped_link": 0, "dropped_fault": 0, "dropped_down": 0,
                   "duplicated": 0, "delayed": 0},
     "dispute_rechecks": 0,
-    "frames": "d121353228c1795811ca3a34f5e6b3d51c1cad9bac03adc9484a625743cce523",
+    "frames": "eab570af7745cc8649a3affea7562e0e4c4d11571a85ad05aa068ee34ce855cf",
 }
+
+
+def signed_payment(key, seq: int, dst: bytes, drops: int):
+    """A Payment of ``drops`` from ``key``'s account at sequence ``seq``,
+    fee 10, signed with the port's protocol/keys.py."""
+    from stellard_tpu_torch.protocol.formats import TxType
+    from stellard_tpu_torch.protocol.sfields import sfAmount, sfDestination
+    from stellard_tpu_torch.protocol.stamount import STAmount
+    from stellard_tpu_torch.protocol.sttx import SerializedTransaction
+
+    tx = SerializedTransaction.build(
+        TxType.ttPAYMENT, key.account_id, seq, 10,
+        {sfAmount: STAmount.from_drops(drops), sfDestination: dst})
+    tx.sign(key)
+    return tx
+
+
+def flipped_blob(key, tx, rng) -> bytes:
+    """``tx`` with one bit of its signature's R flipped (the byte and bit
+    drawn from ``rng``), serialized; bad by the RFC 8032 oracle."""
+    from stellard_tpu_torch.ops import ed25519_ref
+    from stellard_tpu_torch.protocol.sfields import sfTxnSignature
+
+    sig = bytearray(tx.signature)
+    sig[int(rng.integers(32))] ^= 1 << int(rng.integers(8))  # within R
+    require(not ed25519_ref.verify(key.public, tx.signing_hash(), bytes(sig)),
+            "a flipped signature verifies")
+    tx.obj[sfTxnSignature] = bytes(sig)
+    return tx.serialize()
 
 
 def consensus_workload(n_rounds: int, per_round: int, n_burst: int, bad_share: float,
@@ -2223,33 +2285,17 @@ def consensus_workload(n_rounds: int, per_round: int, n_burst: int, bad_share: f
     the RFC 8032 oracle."""
     import numpy as np
 
-    from stellard_tpu_torch.ops import ed25519_ref
-    from stellard_tpu_torch.protocol.formats import TxType
     from stellard_tpu_torch.protocol.keys import KeyPair
-    from stellard_tpu_torch.protocol.sfields import sfAmount, sfDestination, sfTxnSignature
-    from stellard_tpu_torch.protocol.stamount import STAmount
-    from stellard_tpu_torch.protocol.sttx import SerializedTransaction
 
     rng = np.random.default_rng(seed)
     master = KeyPair.from_passphrase("masterpassphrase")
     sender = KeyPair.from_seed(rng.bytes(32))
     dests = [KeyPair.from_passphrase(f"bench-dest-{i}").account_id
              for i in range(CONSENSUS_DESTS)]
-
-    def pay(key, seq: int, dst: bytes, drops: int):
-        tx = SerializedTransaction.build(
-            TxType.ttPAYMENT, key.account_id, seq, 10,
-            {sfAmount: STAmount.from_drops(drops), sfDestination: dst})
-        tx.sign(key)
-        return tx
+    pay = signed_payment
 
     def flipped(key, tx) -> bytes:
-        sig = bytearray(tx.signature)
-        sig[int(rng.integers(32))] ^= 1 << int(rng.integers(8))  # within R
-        require(not ed25519_ref.verify(key.public, tx.signing_hash(), bytes(sig)),
-                "a flipped signature verifies")
-        tx.obj[sfTxnSignature] = bytes(sig)
-        return tx.serialize()
+        return flipped_blob(key, tx, rng)
 
     fund = pay(master, 1, sender.account_id, FUND_DROPS).serialize()
     rounds, seq = [], 2
@@ -2496,8 +2542,9 @@ def consensus_phase(dev, name_power: str, int32_rate: float) -> dict:
     every validated hash, closed results digest, counter and the digest
     of every frame sent equal to the JAX package's (CONSENSUS_*); the bad
     copies, the burst's bad lane and the two forgeries rejected; device
-    share 1.0 and no host signature check but the disputes accept()
-    re-checks (none in the constants); one readback a tree; then every
+    share 1.0 and no host signature check (the disputes accept()
+    re-checks, none in the constants, go to the plane); one readback a
+    tree; then every
     request the plane was given, in one batch, through K1's plain version
     on the card: the same verdict on every lane. The launch counts are
     this phase's alone."""
@@ -2573,7 +2620,7 @@ def consensus_phase(dev, name_power: str, int32_rate: float) -> dict:
     require(pj["device_share"] == 1.0 and pj["cpu_sigs"] == 0,
             f"consensus device share {pj['device_share']}")
     require(not pj["device_wedged"] and not hasher.device_wedged, "a device plane wedged")
-    require(host_verifies == out["counters"]["dispute_rechecks"],
+    require(host_verifies == 0,
             f"{host_verifies} host signature verifications on the consensus path")
     tt = cuda_hasher.tree_transfers
     require(tt.readbacks == cuda_hasher.tree_calls,
@@ -2618,6 +2665,584 @@ def consensus_phase(dev, name_power: str, int32_rate: float) -> dict:
          tree_calls=cuda_hasher.tree_calls, readbacks=tt.readbacks,
          device_nodes=cuda_hasher.device_nodes, host_nodes=cuda_hasher.host_nodes,
          verify_device_quantiles=pj["latency_histogram_ms"]["device_quantiles"])
+    return {"launches": launches, "by_thread": by_thread, "k1_max_abs_err": k1_err}
+
+
+# --------------------------------------------------------------------------
+# the tcp phase: BASELINE config #4 as operators run it, a 4-validator
+# private net over localhost TCP
+
+
+# 4 rounds, each of 512 payments from the master account at validator
+# 0's door and 256 from a second sender at validator 2's, submitted
+# together (consensus_workload's shape, bench.py's ``_payments``)
+TCP_SIZES = dict(n_rounds=4, per_round=512, per_relay=256, bad_share=0.01, seed=53)
+TX_FEE = 10  # drops, every payment's fee
+# the balances and sequences of the master account, the 16 destinations
+# and the second sender after every good payment of TCP_SIZES, as the
+# JAX package's node gives them (tests/test_torch_tcp_workload.py);
+# which ledger a payment lands in does not move them
+TCP_BALANCES_DIGEST = "3bb0b2a110af3dbb3b88ec929c9652b0861d1ad9c14a3b94d3ab50390f57a63e"
+TCP_DIR = HERE / "build" / "chip_smoke_tcp"
+# what the phase adds to testkit.tcpnet.validator_config's INI (beside
+# type=cuda and clock speed 1, its arguments): admission caps that never
+# bind, as in the close phase (the default soft cap of 256 a ledger would
+# queue, then shed, part of a round's 768 payments)
+TCP_INI_EXTRA = """
+[txq]
+min_cap=1000000
+max_cap=1000000
+"""
+TCP_START_S = 300  # the children's start: torch, CUDA, the built kernels, K1's prewarm
+TCP_ROUND_S = 180
+TCP_SLOW_S = 40  # a wait this long prints the net's state (a `tcp_slow` line)
+TCP_CHILDREN = (1, 2, 3)
+
+
+def tcp_workload(n_rounds: int, per_round: int, per_relay: int, bad_share: float,
+                 seed: int) -> dict:
+    """Seeded inputs of the tcp phase, as bytes, in consensus_workload's
+    shape: Payments of 250 STR to its 16 destinations, each account's
+    sequences consecutive, the first payment to each destination
+    creating it.
+
+    - ``fund``: the master's sequence 1, funding the second sender with
+      what its payments spend (the warm-up);
+    - ``rounds``: per round, ``door``: per_round (blob, bad) pairs of the
+      master's next sequences, ``bad`` None or, for a share ``bad_share``,
+      a copy with one bit of the signature's R flipped, submitted just
+      before the good one; ``relay``: per_relay payments of the second
+      sender's next sequences; ``dest_drops``: each destination's
+      balance once the round is validated;
+    - ``accounts``: the master account, the destinations and the second
+      sender, whose balances and sequences the phase holds to
+      TCP_BALANCES_DIGEST.
+
+    A close often cuts a round's burst of one account's sequences; the
+    rest is re-applied to the next open ledger in sequence order.
+
+    Signed with the port's protocol/keys.py; every flipped copy is bad by
+    the RFC 8032 oracle."""
+    import numpy as np
+
+    from stellard_tpu_torch.protocol.keys import KeyPair
+
+    rng = np.random.default_rng(seed)
+    master = KeyPair.from_passphrase("masterpassphrase")
+    sender = KeyPair.from_seed(rng.bytes(32))
+    dests = [KeyPair.from_passphrase(f"bench-dest-{i}").account_id
+             for i in range(CONSENSUS_DESTS)]
+    # the second sender's spend, and the reserve with room
+    need = n_rounds * per_relay * (PAYMENT_DROPS + TX_FEE) + 300 * 1_000_000
+    fund = signed_payment(master, 1, sender.account_id, need).serialize()
+    rounds, seq, sender_seq = [], 2, 1
+    received = [0] * CONSENSUS_DESTS
+    for _ in range(n_rounds):
+        door = []
+        for _p in range(per_round):
+            d = (seq - 2) % CONSENSUS_DESTS
+            good = signed_payment(master, seq, dests[d], PAYMENT_DROPS).serialize()
+            bad = flipped_blob(master, signed_payment(master, seq, dests[d], PAYMENT_DROPS),
+                               rng) if rng.random() < bad_share else None
+            door.append((good, bad))
+            received[d] += 1
+            seq += 1
+        relay = []
+        for _p in range(per_relay):
+            d = sender_seq % CONSENSUS_DESTS
+            relay.append(signed_payment(sender, sender_seq, dests[d], PAYMENT_DROPS).serialize())
+            received[d] += 1
+            sender_seq += 1
+        rounds.append({"door": door, "relay": relay, "dest_drops": dict(zip(
+            dests, (n * PAYMENT_DROPS for n in received)))})
+    return {"fund": fund, "sender": sender.account_id, "rounds": rounds,
+            "accounts": [master.account_id, *dests, sender.account_id]}
+
+
+def balances_digest(rows) -> str:
+    """SHA-256 over (account id, balance in drops, sequence) rows, in the
+    order given."""
+    h = hashlib.sha256()
+    for account, balance, sequence in rows:
+        h.update(account + int(balance).to_bytes(8, "big") + int(sequence).to_bytes(4, "big"))
+    return h.hexdigest()
+
+
+def tcp_account(rpc, account):
+    """An account's root in a validator's last validated ledger (its
+    `account_info` door), None while the ledger holds none."""
+    from stellard_tpu_torch.protocol.keys import encode_account_id
+
+    info = rpc.call("account_info", account=encode_account_id(account),
+                    ledger_index="validated")
+    require("account_data" in info or info.get("error") == "actNotFound",
+            f"account_info answered {info}")
+    return info.get("account_data")
+
+
+def tcp_balances(rpc, accounts) -> list:
+    """(account id, balance, sequence) of each account in a validator's
+    last validated ledger; (0, 0) for an account it does not hold."""
+    rows = []
+    for account in accounts:
+        data = tcp_account(rpc, account) or {}
+        rows.append((account, int(data.get("Balance", 0)), int(data.get("Sequence", 0))))
+    return rows
+
+
+class TcpNet:
+    """Validators 1-3 of the tcp phase: ``python -m stellard_tpu_torch
+    --conf <ini> --start`` children, each logging to TCP_DIR; ``check``
+    fails the smoke, with the tail of every log, once one has exited."""
+
+    def __init__(self, inis: list):
+        from stellard_tpu_torch.testkit import tcpnet
+
+        self.logs = {i: TCP_DIR / f"validator-{i}.log" for i in TCP_CHILDREN}
+        self.procs = {i: tcpnet.spawn_validator(str(inis[i]), stdout=self.logs[i].open("w"))
+                      for i in TCP_CHILDREN}
+
+    def tails(self) -> str:
+        return "\n".join(f"--- validator {i} ---\n{self.logs[i].read_text()[-3000:]}"
+                         for i in TCP_CHILDREN)
+
+    def check(self) -> None:
+        dead = {i: p.poll() for i, p in self.procs.items() if p.poll() is not None}
+        if dead:
+            print(self.tails(), flush=True)
+            raise SmokeFailure(f"tcp validators exited: {dead}")
+
+    def stop(self) -> dict:
+        """SIGTERM each child (the node drains and stops), SIGKILL one
+        that has not ended in 60 s; returns their exit codes."""
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.terminate()
+        codes = {}
+        for i, p in self.procs.items():
+            try:
+                codes[i] = p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                codes[i] = p.wait()
+        return codes
+
+
+class ValidatedView:
+    """What each validator has validated, read through its doors."""
+
+    def __init__(self, rpcs: dict):
+        self.rpcs = rpcs
+        self.funded = {i: set() for i in rpcs}
+        self.top = dict.fromkeys(rpcs, 0)
+
+    def tip(self, i) -> tuple:
+        """(seq, hash) of validator i's last validated ledger."""
+        v = self.rpcs[i].call("server_info")["info"].get("validated_ledger", {})
+        self.top[i] = v.get("seq", 0)
+        return self.top[i], v.get("hash")
+
+    def funded_all(self, accounts) -> bool:
+        """Whether every one of ``accounts`` exists in every validator's
+        last validated ledger (each validator asked from the first
+        account not yet seen there)."""
+        for i, rpc in self.rpcs.items():
+            for account in accounts:
+                if account in self.funded[i]:
+                    continue
+                if tcp_account(rpc, account) is None:
+                    return False
+                self.funded[i].add(account)
+        return True
+
+    def balances_are(self, want: dict) -> bool:
+        """Whether every validator's last validated ledger holds each
+        account of ``want`` at its balance in drops."""
+        for rpc in self.rpcs.values():
+            for account, drops in want.items():
+                data = tcp_account(rpc, account)
+                if data is None or int(data["Balance"]) != drops:
+                    return False
+        return True
+
+    def ledger_hash(self, i, seq: int):
+        """Validator i's hash at ``seq``, None where it holds no such
+        ledger (a catch-up adopts the tip, not every ledger before it)."""
+        answer = self.rpcs[i].call("ledger", ledger_index=seq)
+        return answer["ledger"]["hash"] if "ledger" in answer else None
+
+
+def tcp_phase(dev, name_power: str, int32_rate: float) -> dict:
+    """BASELINE config #4 as operators run it: four validators over
+    localhost TCP on one card, each from testkit.tcpnet.validator_config's
+    INI (quorum 3, UNL and [ips] of the other three, [peer_ssl] require,
+    a memory node store) with type=cuda planes, clock speed 1 and
+    TCP_INI_EXTRA. Validator 0 is a Node in this process (its K1, K2 and
+    K3 launches counted here, every K1 request it makes recorded);
+    validators 1-3 are `python -m stellard_tpu_torch --start` children,
+    spawned first. The warm-up funds tcp_workload's second sender at
+    validator 0's HTTP `submit`; then each round submits the master
+    account's payments at validator 0 (a bad copy before ~1% of them,
+    which the door refuses) and the second sender's at validator 2, from
+    two client threads at once — the second sender's payments reach
+    validators 0, 1 and 3 as relayed TCP frames, verified a socket read
+    at a time — until all four have validated all of them.
+
+    Checked: the same validated hash on all four at every seq from 2;
+    every good payment validated tesSUCCESS, read through `tx` on the
+    children; every bad copy answered temINVALID at the door, never
+    relayed by validator 0 and never found; the balances and sequences of
+    every account the same on all four and equal to the JAX package's
+    (TCP_BALANCES_DIGEST); device share 1.0 and no host signature check
+    but the hellos' session signatures on every validator (the disputes
+    accept() re-checks go to the plane in one batch); on validator 0 one
+    readback a tree, no error absorbed by the close, K1, K2 and K3
+    launched, and every K1
+    request it made through K1's plain version on the card: the same
+    verdict on every lane. A child that exits, or a net that does not
+    form or validate in time, fails the smoke."""
+    import http.client
+
+    import numpy as np
+
+    from stellard_tpu_torch.consensus.consensus import LedgerConsensus
+    from stellard_tpu_torch.node.config import Config
+    from stellard_tpu_torch.node.node import Node
+    from stellard_tpu_torch.ops import ed25519_cuda, treehash
+    from stellard_tpu_torch.ops.ed25519 import prepare_batch, to_tensors, verify_kernel_ref
+    from stellard_tpu_torch.protocol import keys
+    from stellard_tpu_torch.protocol.keys import KeyPair
+    from stellard_tpu_torch.protocol.sttx import SerializedTransaction
+    from stellard_tpu_torch.protocol.ter import TER
+    from stellard_tpu_torch.testkit import tcpnet
+
+    t_phase = time.perf_counter()
+    wl = tcp_workload(**TCP_SIZES)
+    inputs_s = time.perf_counter() - t_phase
+    shutil.rmtree(TCP_DIR, ignore_errors=True)
+    TCP_DIR.mkdir(parents=True)
+    ports = tcpnet.free_ports(12)
+    peer_ports, rpc_ports, ws_ports = ports[:4], ports[4:8], ports[8:]
+    vkeys = [KeyPair.from_passphrase(f"tcp-val-{i}") for i in range(4)]
+    inis = []
+    for i in range(4):
+        path = TCP_DIR / f"validator-{i}.cfg"
+        path.write_text(tcpnet.validator_config(
+            i, vkeys, peer_ports, rpc_ports[i], ws_ports[i], quorum=3, speed=1.0,
+            backend="cuda") + TCP_INI_EXTRA)
+        inis.append(path)
+    parse = SerializedTransaction.from_bytes
+
+    t0 = time.perf_counter()
+    net = TcpNet(inis)
+    node = None
+    rpcs: dict = {}
+    run_errors: list = []
+    try:
+        node = Node(Config.from_ini(inis[0].read_text())).setup().serve()
+        v0_start_s = time.perf_counter() - t0
+        plane, overlay = node.verify_plane, node.overlay
+        record = []  # every request validator 0 gave its plane, with the verdicts
+        plane_verify = plane.verify_many
+
+        def verify_many(reqs):
+            out = plane_verify(reqs)
+            if len(reqs):
+                record.append((list(reqs), np.asarray(out, bool).copy()))
+            return out
+
+        plane.verify_many = verify_many  # the door's plane checks
+        overlay.node.verify_many = verify_many  # relayed txs, proposals, validations
+        relayed = set()  # txids validator 0 relayed from its door
+        broadcast = overlay.broadcast_tx
+
+        def broadcast_tx(tx, except_ids=None):
+            relayed.add(tx.txid())
+            return broadcast(tx, except_ids)
+
+        node.ops.relay_tx = broadcast_tx
+
+        def run_node():
+            try:
+                node.run()
+            except BaseException as exc:  # noqa: BLE001 — the phase raises it
+                run_errors.append(exc)
+
+        threading.Thread(target=run_node, name="tcp-validator-0", daemon=True).start()
+        rpcs.update({i: HttpRpc(rpc_ports[i], timeout=120) for i in range(4)})
+        seen = ValidatedView(rpcs)
+        answers, bad_ters = [], []  # the doors' engine_result for each submit
+
+        def alive() -> None:
+            net.check()
+            require(not run_errors, f"validator 0 failed: {run_errors!r}")
+            require(overlay.device_error is None,
+                    f"the card failed under validator 0's overlay: {overlay.device_error!r}")
+
+        def wait(pred, timeout: float, what: str) -> None:
+            t_wait = time.monotonic()
+            deadline, slow = t_wait + timeout, t_wait + TCP_SLOW_S
+            while True:
+                alive()
+                try:
+                    if pred():
+                        return
+                    if slow is not None and time.monotonic() > slow:
+                        # a wait this long is a stall of the net: its
+                        # state, once, for the report
+                        slow = None
+                        for i in rpcs:
+                            seen.tip(i)
+                        emit("tcp_slow", waiting_for=what, after_s=time.monotonic() - t_wait,
+                             **tcp_diagnostics())
+                except (OSError, http.client.HTTPException):
+                    # a door not up yet: new connections
+                    for i in range(4):
+                        rpcs[i].close()
+                        rpcs[i] = HttpRpc(rpc_ports[i], timeout=120)
+                if time.monotonic() > deadline:
+                    print(net.tails(), flush=True)
+                    emit("tcp_stalled", **tcp_diagnostics())
+                    got = {t: answers.count(t) for t in set(answers)}
+                    raise SmokeFailure(f"tcp phase: no {what} within {timeout} s; validated "
+                                       f"seqs {seen.top}, submits answered {got}")
+                time.sleep(0.05)
+
+        def tcp_diagnostics() -> dict:
+            """Each validator's overlay, admission and consensus state,
+            and the first seq whose validated hashes differ, for a
+            failure's report."""
+            out = {}
+            for i in range(4):
+                try:
+                    c = rpcs[i].call("get_counts")
+                    ci = rpcs[i].call("consensus_info")
+                    out[str(i)] = {
+                        "peers": c.get("peers"),
+                        "squelch": {k: v for k, v in c.get("squelch", {}).items()
+                                    if not isinstance(v, dict)},
+                        "resource": {k: v for k, v in c.get("resource", {}).get(
+                            "peers", {}).items() if k != "entries"},
+                        "txq": {k: v for k, v in c.get("txq", {}).items()
+                                if isinstance(v, int)},
+                        "byzantine": {k: v for k, v in c.get("byzantine", {}).items() if v},
+                        "consensus": {k: v for k, v in ci.get("info", ci).items()
+                                      if k not in ("peer_positions", "disputes")},
+                        "validated_top": seen.top.get(i)}
+                except (OSError, KeyError, ValueError) as exc:
+                    out[str(i)] = repr(exc)
+            return out
+
+        def submit_all(port: int, entries, out: list, bad_out: list) -> None:
+            """Submit (good, bad) pairs in order at the door on ``port``
+            (the bad copy first), keeping the answers."""
+            client = HttpRpc(port, timeout=120)
+            try:
+                for good, bad in entries:
+                    if bad is not None:
+                        bad_out.append(client.call("submit", tx_blob=bad.hex())
+                                       .get("engine_result"))
+                    out.append(client.call("submit", tx_blob=good.hex()).get("engine_result"))
+            finally:
+                client.close()
+
+        # the net forms: every validator has its three peers
+        wait(lambda: overlay.peer_count() == 3 and all(
+            rpcs[i].call("server_info")["info"]["peers"] == 3 for i in TCP_CHILDREN),
+            TCP_START_S, "net of four validators")
+        join_s = time.perf_counter() - t0
+
+        gc.collect()
+        gc_clock = GcClock()
+        ed25519_cuda.launches = 0
+        ed25519_cuda.launches_by_batch.clear()
+        treehash.reset_launches()
+        keys.host_verifies = 0
+        handshakes0 = overlay.handshake_verifies
+        rechecks = [0]
+        round_ms, submit_ms = [], []
+        gc.callbacks.append(gc_clock)
+        t_run = time.perf_counter()
+        try:
+            with counting_dispute_rechecks(LedgerConsensus, rechecks):
+                # the warm-up: the second sender funded, validated on all four
+                submit_all(rpc_ports[0], [(wl["fund"], None)], answers, bad_ters)
+                wait(lambda: seen.funded_all([wl["sender"]]), TCP_ROUND_S,
+                     "the second sender's funding validated")
+                warmup_s = time.perf_counter() - t_run
+                for r_i, rnd in enumerate(wl["rounds"]):
+                    t_round = time.perf_counter()
+                    threads = [
+                        threading.Thread(target=submit_all, name="tcp-client-0", args=(
+                            rpc_ports[0], rnd["door"], answers, bad_ters)),
+                        threading.Thread(target=submit_all, name="tcp-client-2", args=(
+                            rpc_ports[2], [(b, None) for b in rnd["relay"]], answers, [])),
+                    ]
+                    for t in threads:
+                        t.start()
+                    for t in threads:
+                        t.join()
+                    submit_ms.append((time.perf_counter() - t_round) * 1e3)
+                    wait(lambda: seen.balances_are(rnd["dest_drops"]), TCP_ROUND_S,
+                         f"round {r_i} validated")
+                    round_ms.append((time.perf_counter() - t_round) * 1e3)
+        finally:
+            gc.callbacks.remove(gc_clock)
+        run_s = time.perf_counter() - t_run
+        launches = {"ed25519_verify": ed25519_cuda.launches, **treehash.launches}
+        by_batch = dict(ed25519_cuda.launches_by_batch)
+        by_thread = {k: dict(v) for k, v in treehash.launches_by_thread.items()}
+        host_verifies = keys.host_verifies
+        handshakes = overlay.handshake_verifies - handshakes0
+
+        # the same validated tip on all four, and every validated hash
+        # from seq 2 the same on every validator that holds that ledger
+        wait(lambda: len({seen.tip(i) for i in rpcs}) == 1, TCP_ROUND_S,
+             "common validated tip")
+        common, _tip_hash = seen.tip(0)
+        not_held = 0
+        for seq in range(2, common + 1):
+            got = [seen.ledger_hash(i, seq) for i in rpcs]
+            not_held += got.count(None)
+            held = set(got) - {None}
+            require(len(held) == 1, f"seq {seq}: the validators' validated hashes differ: {got}")
+        # every good payment validated tesSUCCESS, read through `tx` on the
+        # children (each a third of them, the three at once)
+        good_ids = [parse(wl["fund"]).txid()] + [
+            parse(b).txid() for rnd in wl["rounds"]
+            for b in [g for g, _b in rnd["door"]] + rnd["relay"]]
+        bad_ids = [parse(b).txid() for rnd in wl["rounds"] for _g, b in rnd["door"]
+                   if b is not None]
+        found: dict = {}
+
+        def read_txs(i, ids):
+            client = HttpRpc(rpc_ports[i], timeout=120)
+            try:
+                for txid in ids:
+                    res = client.call("tx", transaction=txid.hex().upper())
+                    found[txid] = (res.get("validated"),
+                                   res.get("meta", {}).get("TransactionResult"),
+                                   res.get("error"))  # the result's code
+            finally:
+                client.close()
+
+        t_read = time.perf_counter()
+        readers = [threading.Thread(target=read_txs, args=(i, good_ids[k::3] + bad_ids))
+                   for k, i in enumerate(TCP_CHILDREN)]
+        for t in readers:
+            t.start()
+        for t in readers:
+            t.join()
+        not_success = [t.hex() for t in good_ids
+                       if found.get(t, (None, None))[:2] != (True, int(TER.tesSUCCESS))]
+        require(not not_success, f"{len(not_success)} good payments not validated "
+                                 f"tesSUCCESS, e.g. {not_success[:3]}")
+        require(all(found[t][2] == "txnNotFound" for t in bad_ids), "a child knows a bad copy")
+        require(not (set(bad_ids) & relayed), "validator 0 relayed a bad copy")
+        require(bad_ters == ["temINVALID"] * len(bad_ids), f"bad copies answered {bad_ters}")
+        counts = {t: answers.count(t) for t in set(answers)}
+        require(counts == {"tesSUCCESS": len(good_ids)}, f"good submits answered {counts}")
+        # the balances and sequences, the same everywhere and the JAX package's
+        digests = [None] * 4
+
+        def read_balances(i):
+            client = HttpRpc(rpc_ports[i], timeout=120)
+            try:
+                digests[i] = balances_digest(tcp_balances(client, wl["accounts"]))
+            finally:
+                client.close()
+
+        readers = [threading.Thread(target=read_balances, args=(i,)) for i in range(4)]
+        for t in readers:
+            t.start()
+        for t in readers:
+            t.join()
+        read_s = time.perf_counter() - t_read
+        require(len(set(digests)) == 1, f"the validators' balances differ: {digests}")
+        require(digests[0] == TCP_BALANCES_DIGEST,
+                f"balances digest {digests[0]} differs from the JAX package's")
+        # device share on every validator; each child's planes
+        children = {}
+        for i in TCP_CHILDREN:
+            c = rpcs[i].call("get_counts")
+            vp = c["verify_plane"]
+            require(vp["device_share"] == 1.0 and vp["cpu_sigs"] == 0,
+                    f"validator {i}'s device share {vp['device_share']}")
+            hv = c["host_verifies"]
+            require(hv["total"] == hv["handshakes"],
+                    f"validator {i}: {hv['total']} host signature checks, "
+                    f"{hv['handshakes']} handshakes")
+            children[str(i)] = {
+                "verify_plane": {k: vp.get(k) for k in (
+                    "batches", "verified", "device_batches", "device_sigs", "cpu_sigs",
+                    "device_share", "device_wedged")},
+                "hasher": {k: v for k, v in c["crypto"]["hash"].items()
+                           if isinstance(v, (int, float, str))},
+                "host_verifies": c.get("host_verifies"), "peers": c.get("peers")}
+        pj = plane.get_json()
+        require(pj["device_share"] == 1.0 and pj["cpu_sigs"] == 0,
+                f"validator 0's device share {pj['device_share']}")
+        require(not pj["device_wedged"] and not node.hasher.device_wedged,
+                "a device plane of validator 0 wedged")
+        require(host_verifies == handshakes,
+                f"validator 0: {host_verifies} host signature checks, {handshakes} "
+                f"handshakes")
+        cuda_hasher = node.hasher.inner
+        tt = cuda_hasher.tree_transfers
+        require(tt.readbacks == cuda_hasher.tree_calls,
+                f"validator 0: readbacks {tt.readbacks} != tree calls {cuda_hasher.tree_calls}")
+        require(launches["ed25519_verify"] > 0 and launches["sha512_masked"] > 0
+                and launches["tree_inner_level"] > 0,
+                "K1, K2 or K3 never launched on validator 0 in the tcp phase")
+        require(launches["ed25519_verify"] == len(record),
+                f"{launches['ed25519_verify']} K1 launches for {len(record)} plane calls")
+        tree = node.ledger_master.tree_json()
+        absorbed = {k: tree.get(k, 0) for k in ABSORBED}
+        require(not any(absorbed.values()), f"validator 0's close absorbed errors: {absorbed}")
+    finally:
+        try:
+            for client in rpcs.values():
+                client.close()
+            if node is not None:
+                node.stop()
+        finally:
+            codes = net.stop()
+    require(not run_errors, f"validator 0 failed: {run_errors!r}")
+    require(all(c == 0 for c in codes.values()), f"tcp validators exited {codes}")
+
+    # every request validator 0 gave its plane, through K1's plain version
+    # on the card in one batch: the verdict the plane gave on every lane
+    reqs = [q for rs, _v in record for q in rs]
+    got = np.concatenate([v for _r, v in record])
+    host = prepare_batch([q.public for q in reqs], [q.signing_hash for q in reqs],
+                         [q.signature for q in reqs])
+    plain = verify_kernel_ref(**to_tensors(host, dev)).cpu().numpy().astype(bool)
+    k1_err = int(np.abs(plain.astype(np.int64) - got.astype(np.int64)).max())
+    require(k1_err == 0, "K1's verdicts on validator 0 differ from its plain version")
+
+    n_door = sum(len(rnd["door"]) for rnd in wl["rounds"])
+    n_relay = sum(len(rnd["relay"]) for rnd in wl["rounds"])
+    ordered = sorted(round_ms)
+    emit("tcp", card=name_power, validators=4, quorum=3, peer_ssl="require",
+         rounds=len(round_ms), payments=n_door + n_relay, door_payments=n_door,
+         relayed_payments=n_relay, bad_copies=len(bad_ids), senders=2,
+         round_ms=round_ms, submit_ms=submit_ms, round_p50_ms=ordered[len(ordered) // 2],
+         round_p90_ms=ordered[min(len(ordered) - 1, (len(ordered) * 9) // 10)],
+         payments_per_s=(n_door + n_relay) / sum(round_ms) * 1e3,
+         phase_s=time.perf_counter() - t_phase, inputs_s=inputs_s,
+         validator0_start_s=v0_start_s, join_s=join_s, warmup_s=warmup_s, run_s=run_s,
+         read_back_s=read_s, collector_ms=gc_clock.ms, full_collections=gc_clock.full,
+         validated_seqs=common - 1, ledgers_not_held=not_held, hashes_equal=True,
+         balances_digest=digests[0],
+         k1_launches_by_batch={str(k): v for k, v in sorted(by_batch.items())},
+         k1_launches=launches["ed25519_verify"], k2_launches=launches["sha512_masked"],
+         k3_launches=launches["tree_inner_level"], k2_k3_by_role=launches_by_role(by_thread),
+         lanes_held_to_plain=len(reqs), device_share=pj["device_share"],
+         host_verifies=host_verifies, handshake_verifies=handshakes,
+         dispute_rechecks=rechecks[0], tree_calls=cuda_hasher.tree_calls,
+         readbacks=tt.readbacks, verify_device_quantiles=pj["latency_histogram_ms"][
+             "device_quantiles"], children=children, child_exit_codes=codes)
+    shutil.rmtree(TCP_DIR, ignore_errors=True)
     return {"launches": launches, "by_thread": by_thread, "k1_max_abs_err": k1_err}
 
 
@@ -3307,6 +3932,23 @@ def leaf_blocks(m):
     require(len(oversized) == 0 and len(buckets) == 1, "leaves span ladder sizes")
     return pad_packed(buf, off[:-1], lengths, buckets[0][0])
 
+def run_tcp_alone(dev) -> None:
+    """The tcp phase alone (``--only tcp``): the card, the kernels built
+    in this process first, then tcp_phase; no final ok line."""
+    import torch
+
+    from stellard_tpu_torch.ops import build, ed25519_cuda, pathq, treehash
+
+    name_power = nvidia_smi("name,power.limit")
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    props = torch.cuda.get_device_properties(dev)
+    print(name_power, flush=True)
+    t0 = time.perf_counter()
+    build.build([ed25519_cuda.LIB, treehash.LIB, pathq.LIB])
+    emit("build", seconds=time.perf_counter() - t0)
+    tcp_phase(dev, name_power, props.multi_processor_count * INT32_PER_SM_CLOCK * clock_mhz * 1e6)
+
+
 def main() -> int:
     try:
         import torch
@@ -3328,8 +3970,15 @@ def main() -> int:
         print("chip_smoke: stellard_tpu_torch was not imported from this checkout",
               file=sys.stderr)
         return 2
+    only = sys.argv[1:] == ["--only", "tcp"]
+    if sys.argv[1:] and not only:
+        print("usage: chip_smoke.py [--only tcp]", file=sys.stderr)
+        return 2
     try:
-        run(torch.device("cuda", 0))
+        if only:
+            run_tcp_alone(torch.device("cuda", 0))
+        else:
+            run(torch.device("cuda", 0))
     except Exception as exc:  # noqa: BLE001 — report the failed phase, exit non-zero
         emit("failed", error=f"{type(exc).__name__}: {exc}")
         import traceback

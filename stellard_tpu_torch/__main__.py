@@ -4,9 +4,12 @@ Reference: src/ripple_app/main/Main.cpp:157-412 — server mode,
 `--standalone`/`-a`, `--conf`, `--start` (fresh genesis), plus an RPC
 client mode (`python -m stellard_tpu_torch ping`, Main.cpp:400-405 RPCCall).
 
-The node is the standalone one; its device backend is ``cuda``, so
-``python -m stellard_tpu_torch -a --start`` runs on the card unless the
-config's ``[signature_backend]`` and ``[hash_backend]`` say ``type=cpu``.
+The node is a standalone node, or a networked validator when its config
+has ``[peer_port]`` and ``[standalone] 0``: ``--start`` then serves its
+doors, joins the TCP net and runs until stopped. Its device backend is
+``cuda``, so ``python -m stellard_tpu_torch -a --start`` runs on the card
+unless the config's ``[signature_backend]`` and ``[hash_backend]`` say
+``type=cpu``.
 """
 
 from __future__ import annotations
@@ -101,13 +104,23 @@ def main(argv: list[str] | None = None) -> int:
                 params[k] = v
             else:
                 params.setdefault("args", []).append(arg)
-        # plain HTTP: the TLS doors are not part of this build
-        url = f"http://{cfg.rpc_ip}:{cfg.rpc_port or 5005}/"
+        scheme = "https" if cfg.rpc_secure else "http"
+        url = f"{scheme}://{cfg.rpc_ip}:{cfg.rpc_port or 5005}/"
         body = json.dumps({"method": method, "params": [params]}).encode()
         req = urllib.request.Request(
             url, data=body, headers={"Content-Type": "application/json"}
         )
-        with urllib.request.urlopen(req) as resp:
+        ssl_ctx = None
+        if cfg.rpc_secure:
+            # the server cert is a self-signed transport artifact
+            # (reference RPCCall over [rpc_secure] likewise skips
+            # verification for the loopback admin connection)
+            import ssl as _ssl
+
+            ssl_ctx = _ssl.SSLContext(_ssl.PROTOCOL_TLS_CLIENT)
+            ssl_ctx.check_hostname = False
+            ssl_ctx.verify_mode = _ssl.CERT_NONE
+        with urllib.request.urlopen(req, context=ssl_ctx) as resp:
             print(json.dumps(json.load(resp), indent=2))
         return 0
 
@@ -132,9 +145,11 @@ def main(argv: list[str] | None = None) -> int:
     if cfg.websocket_port is None:
         cfg.websocket_port = 6006
     node = Node(cfg).setup().serve()
+    rpc_scheme = "https" if cfg.rpc_secure else "http"
+    ws_scheme = "wss" if cfg.websocket_secure else "ws"
     print(
-        f"stellard-tpu-torch: rpc http://{cfg.rpc_ip}:{node.http_server.port} "
-        f"ws ws://{cfg.websocket_ip}:{node.ws_server.port} "
+        f"stellard-tpu-torch: rpc {rpc_scheme}://{cfg.rpc_ip}:{node.http_server.port} "
+        f"ws {ws_scheme}://{cfg.websocket_ip}:{node.ws_server.port} "
         f"(standalone={cfg.standalone}, "
         f"signature_backend={cfg.signature_backend})",
         file=sys.stderr,

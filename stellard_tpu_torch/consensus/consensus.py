@@ -22,7 +22,7 @@ import time as _time
 from enum import IntEnum
 from typing import Callable, Optional
 
-from ..node.ledgermaster import LedgerMaster
+from ..node.ledgermaster import CanonicalTXSet, LedgerMaster
 from ..protocol.keys import KeyPair
 from ..state.ledger import Ledger
 from .disputed import DisputedTx
@@ -104,6 +104,9 @@ class LedgerConsensus:
         idle_interval: int = LEDGER_IDLE_INTERVAL,
         voting=None,
         note_byzantine: Optional[Callable] = None,
+        *,
+        prefetch_sigs: Callable[[list], None],
+        check_sigs: Callable[[list], list],
     ):
         self.lm = ledger_master
         # consensus round events ride the chain's tracing plane (trace
@@ -122,6 +125,13 @@ class LedgerConsensus:
         # defense sink (ValidatorNode.note_byzantine): recognized hostile
         # proposals are counted, never silently dropped
         self.note_byzantine = note_byzantine or (lambda kind, **kw: None)
+        # the agreed set's signature verdicts before its close apply
+        # (ValidatorNode.prefetch_tx_sigs: what the node already knows,
+        # the rest in one batch of the verify plane)
+        self.prefetch_sigs = prefetch_sigs
+        # the disputed transactions' re-check on accept, the reference's
+        # own (ValidatorNode.check_tx_sigs: one batch of the plane)
+        self.check_sigs = check_sigs
 
         self.prev_ledger = prev_ledger
         self.prev_hash = prev_ledger.hash()
@@ -474,6 +484,11 @@ class LedgerConsensus:
             self.our_set,
         )
         txs = consensus_set.transactions() if consensus_set else []
+        # the set's blobs parse to fresh transactions: give each its
+        # verdict first, so that no transactor of the close apply checks
+        # a signature on the host (the JAX round checks every one that
+        # does not splice, a host verify each)
+        self.prefetch_sigs(txs)
         new_lcl, _results = self.lm.close_with_txset(
             txs, close_time, self.resolution, correct_close_time=ct_agree
         )
@@ -492,17 +507,27 @@ class LedgerConsensus:
         from ..protocol.ter import TER
 
         skip = {tx.txid() for tx in txs} | self._pre_close_open_ids
+        # in canonical order, each account's by sequence (reference: the
+        # retriable CanonicalTXSet); the JAX round takes the disputes'
+        # order, where a lost run of one account's sequences meets
+        # terPRE_SEQ and is held (ROADMAP Queue C)
+        retriable = CanonicalTXSet(new_lcl.hash())
         for d in self.disputes.values():
             if d.txid not in skip and d.blob:
                 tx = SerializedTransaction.from_bytes(d.blob)
                 ok, _why = tx.passes_local_checks()
-                if not ok or not tx.check_sign():
-                    continue
-                ter, _ = self.lm.do_transaction(
-                    tx, TxParams.OPEN_LEDGER | TxParams.RETRY
-                )
-                if ter == TER.terPRE_SEQ:
-                    self.lm.add_held_transaction(tx)
+                if ok:
+                    retriable.insert(tx)
+        recheck = [tx for _k, tx in retriable.items_sorted()]
+        # every signature checked again, in one batch
+        for tx, good in zip(recheck, self.check_sigs(recheck)):
+            if not good:
+                continue
+            ter, _ = self.lm.do_transaction(
+                tx, TxParams.OPEN_LEDGER | TxParams.RETRY
+            )
+            if ter == TER.terPRE_SEQ:
+                self.lm.add_held_transaction(tx)
 
         if self.voting is not None:
             self.voting.on_ledger_closed(new_lcl)

@@ -7,17 +7,18 @@ knobs (``[signature_backend]``, ``[hash_backend]``, batch-window tuning)
 following the same pattern as the reference's ``[node_db] type=...``
 pluggable-factory selection (doc/stellard-example.cfg:795-802).
 
-This package's node is the standalone node, and its device backend is
-``cuda``: both crypto sections default to ``type=cuda``, so a node runs
-on the card unless its config says ``type=cpu``, and a cuda node's
-signature, hash and path batches all go to the card by default
-(``routing=device``, device floors of 1 and 0): measured-cost routing,
-which may answer a batch on the host, is an explicit
-``routing=cost``. A key that would turn
-on a plane this package does not have (the parallel speculation pool,
-follower and archive modes, history shards and online deletion, the
-peer overlay, TLS doors, the health watchdog, kernel tuning files, the
-lazy tree cache, SNTP and validator list sources) raises when the
+This package's node is the standalone node or a networked validator
+(``[peer_port]`` with ``[standalone] 0``: the TCP overlay, its TLS and
+peer discovery, the TLS doors, SNTP and validator list sources), and
+its device backend is ``cuda``: both crypto sections default to
+``type=cuda``, so a node runs on the card unless its config says
+``type=cpu``, and a cuda node's signature, hash and path batches all go
+to the card by default (``routing=device``, device floors of 1 and 0):
+measured-cost routing, which may answer a batch on the host, is an
+explicit ``routing=cost``. A key that would turn on a plane this
+package does not have (the parallel speculation pool, follower and
+archive modes, history shards and online deletion, the health
+watchdog, kernel tuning files, the lazy tree cache) raises when the
 config is parsed, as does a device width above one; nothing is dropped
 silently.
 """
@@ -930,22 +931,10 @@ class Config:
             unported.append("[node_db] shards= (history shards)")
         if self.node_db_online_delete:
             unported.append("[node_db] online_delete= (online deletion)")
-        if self.peer_port and not self.standalone:
-            unported.append("[peer_port] without [standalone] (the overlay)")
-        if self.rpc_secure:
-            unported.append("[rpc_secure] (TLS doors)")
-        if self.websocket_secure:
-            unported.append("[websocket_secure] (TLS doors)")
         if self.health_enabled:
             unported.append("[health] enabled=1 (the health watchdog)")
         if self.kernel_tuning.strip().lower() not in ("", "none", "off"):
             unported.append(f"[kernel_tuning] {self.kernel_tuning}")
-        if self.sntp_servers:
-            unported.append("[sntp_servers] (the SNTP clock)")
-        if self.validators_file or self.validators_site:
-            unported.append(
-                "[validators_file]/[validators_site] (validator list sources)"
-            )
         from ..crypto.backend import parse_width
 
         for width in (self.verify_mesh, self.hash_mesh, self.paths_mesh):

@@ -698,15 +698,20 @@ class LedgerMaster:
             # re-apply: our open-ledger txns that missed consensus first
             # (they are the lower sequences), then held/queued;
             # SF_SIGGOOD verdicts from submit time carry over so the
-            # re-apply never host-re-verifies
+            # re-apply never host-re-verifies. In canonical order, each
+            # account's by sequence (reference: the retriable
+            # CanonicalTXSet of LedgerConsensus::accept); the JAX package
+            # takes the tx map's order, where a cut burst of one
+            # account's sequences meets terPRE_SEQ and is held, ten an
+            # account once the TxQ absorbs it (ROADMAP Queue C)
             consensus_ids = {tx.txid() for tx in txs}
-            leftovers = [
-                self._parse_with_verdict(open_ledger, txid, blob)
-                for txid, blob, _meta in open_ledger.tx_entries()
-                if txid not in consensus_ids
-            ]
+            leftovers = CanonicalTXSet(new_lcl.hash())
+            for txid, blob, _meta in open_ledger.tx_entries():
+                if txid not in consensus_ids:
+                    leftovers.insert(
+                        self._parse_with_verdict(open_ledger, txid, blob))
             self._open_next(new_lcl, (t_apply - t0) * 1000.0,
-                            leftovers=leftovers)
+                            leftovers=[tx for _k, tx in leftovers.items_sorted()])
             self._note_close_stages(t0, t_apply, t_seal, new_lcl.seq)
             return new_lcl, results
 

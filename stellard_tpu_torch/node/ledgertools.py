@@ -28,6 +28,7 @@ from ..nodestore.core import Database
 from ..protocol.stobject import STObject
 from ..protocol.sttx import SerializedTransaction
 from ..state.ledger import Ledger
+from ..utils import gcpolicy
 from .hashrouter import SF_SIGGOOD
 from .ledgermaster import CanonicalTXSet, LedgerMaster
 
@@ -247,7 +248,16 @@ def replay_range(
     seam) — the bigger the catch-up span, the further the batch rides up
     the device's throughput curve. Verdict semantics are identical to
     per-ledger replay: a bad historic signature still fails its own
-    ledger's hash check, no other's."""
+    ledger's hash check, no other's. Runs under the node's collector
+    policy (utils/gcpolicy.py): the loaded trees are millions of
+    long-lived objects."""
+    with gcpolicy.held():
+        return _replay_range(db, ledger_hashes, hash_batch, verify_many)
+
+
+def _replay_range(db: Database, ledger_hashes: list[bytes],
+                  hash_batch: Optional[Callable],
+                  verify_many: Optional[Callable]) -> dict:
     kw = {"hash_batch": hash_batch} if hash_batch else {}
     t0 = time.perf_counter()
     targets = [Ledger.load(db, h, **kw) for h in ledger_hashes]

@@ -1,4 +1,4 @@
-"""Node: the application container of the standalone node.
+"""Node: the application container of the standalone or networked node.
 
 Reference: src/ripple_app/main/Application.cpp — ApplicationImp owns ~35
 subsystems wired in constructor order (:257-365) with setup() (:659-917)
@@ -8,13 +8,17 @@ K2/K3 hash, K4 pre-ranks paths), but the wiring order (storage → crypto
 plane → executor → ledger chain → brain → API doors) mirrors the
 reference.
 
-This is the JAX package's ``Node`` in standalone mode. The planes whose
-modules this package does not have stay ``None`` — the peer overlay,
-the parallel speculation executor, the health watchdog and flight
-recorder, the history shards, online deletion, the archive tier, the
-ledger cleaner and the SNTP clock — and ``Config.check_ported`` refuses
-a config that would turn one on. ``[start_up] load`` resumes
-eagerly: lazy loading is ROADMAP Queue A item 6.
+This is the JAX package's ``Node`` as a standalone node or as a
+networked validator: with ``[peer_port]`` and ``[standalone] 0`` it
+joins a TCP net (``overlay/tcp.py``), whose ``ValidatorNode`` owns the
+ledger chain, and it may take its clock from SNTP and its UNL from a
+validators file or site. The planes whose modules this package does not
+have stay ``None`` — the parallel speculation executor, the health
+watchdog and flight recorder, the history shards, online deletion, the
+follower and archive tiers and the ledger cleaner — and
+``Config.check_ported`` refuses a config that would turn one on.
+``[start_up] load`` resumes eagerly: lazy loading is ROADMAP Queue A
+item 6.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from ..protocol.keys import KeyPair, decode_seed
 from ..protocol.sttx import SerializedTransaction
 from ..protocol.ter import TER
 from ..state.ledger import Ledger
+from ..utils import gcpolicy
 from .config import Config
 from .hashrouter import HashRouter
 from .jobqueue import JobQueue
@@ -41,6 +46,36 @@ __all__ = ["Node"]
 
 # reference: the well-known test genesis passphrase ("masterpassphrase")
 MASTER_PASSPHRASE = "masterpassphrase"
+
+
+def _parse_host_port(entry: str, default_port: int) -> Optional[tuple[str, int]]:
+    """One "host port" / "host:port" / bare-host entry -> (host, port).
+    A colon is only a separator when it appears exactly once — an IPv6
+    literal like ::1 stays a bare host (reference Config.cpp IPS rules).
+    Returns None for malformed entries (callers skip, never crash)."""
+    entry = entry.strip()
+    if not entry:
+        return None
+    if " " in entry:
+        host, _, port = entry.partition(" ")
+    elif entry.count(":") == 1:
+        host, _, port = entry.partition(":")
+    else:
+        host, port = entry, ""
+    try:
+        return (host.strip(), int(port) if port else default_port)
+    except ValueError:
+        return None
+
+
+def _parse_peer_addrs(ips: list[str]) -> list[tuple[str, int]]:
+    """[ips] entries -> (host, port) dial pairs."""
+    out = []
+    for entry in ips:
+        pair = _parse_host_port(entry, 51235)
+        if pair is not None:
+            out.append(pair)
+    return out
 
 
 def _results_from_meta(ledger: Ledger) -> dict:
@@ -112,7 +147,7 @@ def _result_token(txid: bytes, results: dict, meta: Optional[bytes]) -> str:
 
 
 class Node:
-    """One standalone stellard node. Construct → setup() → (serve / drive)."""
+    """One stellard node. Construct → setup() → (serve / drive)."""
 
     def __init__(self, config: Optional[Config] = None):
         self.config = config or Config()
@@ -149,8 +184,8 @@ class Node:
         self.nodestore = make_database(type=cfg.node_db_type, **db_kwargs)
         self.txdb = TxDatabase(cfg.database_path or ":memory:")
         # the JAX node's planes that this package does not have (the
-        # peer overlay, the speculation executor, the ledger cleaner and
-        # online deletion, history shards, the flight recorder) are
+        # speculation executor, the ledger cleaner and online deletion,
+        # history shards, the archive tier, the flight recorder) are
         # absent: the handlers read them with getattr, and the config
         # refuses every key that would turn one on. The health watchdog
         # is read directly.
@@ -257,18 +292,55 @@ class Node:
 
         unl_path = cfg.database_path + ".unl" if cfg.database_path else None
         self.unl = UniqueNodeList(unl_path)
-        if cfg.validators:
+        if cfg.validators or cfg.validators_file or cfg.validators_site:
             from ..protocol.keys import decode_node_public
+            from .sitefiles import fetch_site_validators, load_validators_file
+
+            def add_keys(pairs, default_comment):
+                for key, comment in pairs:
+                    try:
+                        self.unl.add(
+                            decode_node_public(key), comment or default_comment
+                        )
+                    except (ValueError, KeyError):
+                        import logging
+
+                        logging.getLogger("stellard.unl").warning(
+                            "skipping malformed validator key from %s: %r",
+                            default_comment, key,
+                        )
 
             # the INLINE config is operator-written: a malformed key there
             # is a misconfiguration that must fail loudly, not shrink the
             # trusted set silently
             for v in cfg.validators:
                 self.unl.add(decode_node_public(v), "config")
+            if cfg.validators_file:
+                try:
+                    add_keys(load_validators_file(cfg.validators_file), "file")
+                except OSError:
+                    pass  # a missing file must not kill the node
+            if cfg.validators_site:
+                # fetched on a background thread: startup must not block
+                # on a remote site, and NO exception class from urllib
+                # may kill the node (reference fetches sites async too)
+                def fetch_site():
+                    try:
+                        add_keys(
+                            fetch_site_validators(cfg.validators_site), "site"
+                        )
+                    except Exception:  # noqa: BLE001 — log-and-skip source
+                        pass
+
+                threading.Thread(
+                    target=fetch_site, name="validators-site", daemon=True
+                ).start()
         self.pow_factory = PowFactory()
 
-        # ops plane: insight metrics (reference: CollectorManager :287)
+        # ops plane: SNTP network clock + insight metrics (reference:
+        # SNTPClient init Application.cpp:698-699, CollectorManager :287)
         from .metrics import CollectorManager
+        from .netclock import SntpClient
 
         self.collector = CollectorManager.from_config(cfg.insight)
         if cfg.insight_history:
@@ -278,17 +350,47 @@ class Node:
                 cfg.insight_history_interval, cfg.insight_history_window
             )
 
-        # node identity + validator identity
+        self.sntp: Optional[SntpClient] = None
+        if cfg.sntp_servers:
+            servers = [
+                pair
+                for pair in (
+                    _parse_host_port(spec, 123) for spec in cfg.sntp_servers
+                )
+                if pair is not None
+            ]
+            if servers:
+                self.sntp = SntpClient(servers)
+
+        # node identity + validator identity must exist before the overlay
+        # (the overlay handshakes and proposes with them)
         self.node_keys = self._load_or_create_identity()
         self.validation_keys: Optional[KeyPair] = None
         if cfg.validation_seed:
             self.validation_keys = KeyPair.from_seed(decode_seed(cfg.validation_seed))
 
-        # ledger chain + brain
-        self.ledger_master = LedgerMaster(
-            hash_batch=self.hasher, router=self.hash_router,
-            tracer=self.tracer,
-        )
+        # overlay plane (reference: ApplicationImp Overlay :300 + Peers
+        # start :811): when [peer_port] is configured the node joins a
+        # TCP net and the overlay's ValidatorNode OWNS the ledger chain —
+        # consensus and the RPC plane then share one LedgerMaster and
+        # serialize on one master lock. Every relayed transaction,
+        # proposal and validation is verified on the verify plane, every
+        # tx set and seal hashed on the hasher.
+        self.overlay = None
+        if cfg.peer_port and not cfg.standalone:
+            self._build_overlay()
+
+        # ledger chain + brain (networked: the overlay's chain IS ours)
+        if self.overlay is not None:
+            self.ledger_master = self.overlay.node.lm
+            # the overlay built its own chain before our tracer existed;
+            # repoint it so consensus/close spans land in THIS node's ring
+            self.ledger_master.tracer = self.tracer
+        else:
+            self.ledger_master = LedgerMaster(
+                hash_batch=self.hasher, router=self.hash_router,
+                tracer=self.tracer,
+            )
 
         def _fetch_fallback(h: bytes):
             # history-cache miss -> the in-flight close-pipeline entry
@@ -304,6 +406,24 @@ class Node:
                 return None
 
         self.ledger_master.fetch_fallback = _fetch_fallback
+
+        from ..state.ledger import parse_header, strip_ledger_prefix
+
+        def _header_fetch(h: bytes):
+            # LIGHT resolver for the reindex walk: header bytes only
+            led = self.close_pipeline.get(h)  # read-your-writes
+            if led is not None:
+                return led.seq, led.parent_hash
+            obj = self.nodestore.fetch(h)
+            if obj is None:
+                return None
+            try:
+                f = parse_header(strip_ledger_prefix(obj.data))
+            except (ValueError, IndexError):
+                return None
+            return f["seq"], f["parent_hash"]
+
+        self.ledger_master.header_fetch = _header_fetch
         # close-path overlap seam: close_and_advance materializes the
         # persist rows (Python meta/row tail) WHILE the two seal threads
         # hash the trees through the hasher
@@ -336,8 +456,9 @@ class Node:
             tracer=self.tracer,
             txq=self.txq,
         )
-        # configured skew applies to the ops-plane clock (standalone
-        # closes, status, staleness checks)
+        # configured skew applies to the ops-plane clock too (standalone
+        # closes, status, staleness checks); the SNTP heartbeat COMPOSES
+        # its measured correction with this base (see run)
         self.ops.net_time_offset = int(cfg.network_time_offset)
 
         # RPC-door resource pricing ([overlay] rpc_resource=1): one
@@ -407,7 +528,20 @@ class Node:
         # node-store, txdb and CLF writes have committed (on the close
         # pipeline's worker when the pipeline is on)
         self.on_persisted: list[Callable[[Ledger, dict], None]] = []
-        if cfg.close_pipeline_enabled:
+        if self.overlay is not None:
+            # one master lock for consensus + RPC over the shared chain,
+            # and the relay/local-retry seams (reference: the relay step
+            # of NetworkOPs::processTransaction :544-556 + LocalTxs).
+            # Persistence rides the overlay's on_ledger hook (which also
+            # fires publish_closed_ledger), NOT the sinks below.
+            self.ops.master_lock = self.overlay.node.lock
+            self.ops.relay_tx = self.overlay.broadcast_tx
+            self.ops.local_push = self.overlay.node.local_txs.push_back
+            # a queued local tx the admission plane drops (eviction /
+            # expiry / promote-drop) must stop re-applying across
+            # rounds; a client resubmit then starts a fresh horizon
+            self.txq.on_drop = self.overlay.node.local_txs.remove
+        elif cfg.close_pipeline_enabled:
             # the ledger-closed sink ENQUEUES — ledger N's NodeStore/
             # txdb/CLF writes overlap ledger N+1's verify/apply
             self.ops.on_ledger_closed.append(self.persist_close)
@@ -426,6 +560,173 @@ class Node:
         self.http_server = None
         self.ws_server = None
         self.subs = None
+        # the collector's policy of a serving node (utils/gcpolicy.py),
+        # held from serve() to stop()
+        self._gc_held = False
+
+    def _build_overlay(self) -> None:
+        """The TCP overlay of a networked node: its clocks, TLS, dial set
+        and chain, the catch-up seams on the node store, and persistence
+        through the close pipeline."""
+        from ..overlay.tcp import TcpOverlay
+
+        cfg = self.config
+        speed = max(cfg.clock_speed, 1e-9)
+        clock = None
+        ntime = None
+        timer_interval = 1.0
+        if speed != 1.0:
+            t0 = time.monotonic()
+            clock = lambda: (time.monotonic() - t0) * speed  # noqa: E731
+            # virtual network time is a pure function of WALL time so
+            # independently-started peers agree (anchoring to process
+            # start would skew peers by (speed-1) x launch offset).
+            # Only the delta from a FIXED recent anchor is scaled, so
+            # the value stays well inside the u32 close-time wire
+            # fields (scaling the whole 2000-epoch offset overflows
+            # past speed ~5)
+            _ANCHOR = 1_750_000_000  # fixed wall anchor (2025-06-15)
+            _BASE = _ANCHOR - 946_684_800
+            ntime = lambda: _BASE + int(  # noqa: E731
+                (time.time() - _ANCHOR) * speed
+            )
+            timer_interval = max(0.1, 1.0 / speed)
+        if cfg.network_time_offset:
+            # deliberate clock skew ([network_time_offset], test-net
+            # knob) on the overlay's consensus clock; the ops-plane
+            # clock gets the same offset so both agree
+            from .networkops import EPOCH_OFFSET
+
+            base_nt = ntime
+            if base_nt is None:
+                base_nt = (  # noqa: E731
+                    lambda: int(time.time()) - EPOCH_OFFSET
+                )
+            off = int(cfg.network_time_offset)
+            ntime = lambda: base_nt() + off  # noqa: E731
+        from ..protocol.keys import decode_node_public
+
+        unl_keys = self.unl.publics()
+        signer = self.validation_keys or self.node_keys
+        peer_tls = None
+        if cfg.peer_ssl in ("allow", "require"):
+            import tempfile
+
+            from ..overlay.peertls import PeerTLS
+
+            # database_path is a sqlite FILE path; state files hang
+            # suffixes off it (.clf/.unl/.wallet) — same here
+            tls_dir = (
+                cfg.database_path + ".tls"
+                if cfg.database_path
+                else tempfile.mkdtemp(prefix="stellard-tls-")
+            )
+            peer_tls = PeerTLS.from_state_dir(
+                tls_dir, required=(cfg.peer_ssl == "require")
+            )
+        self.overlay = TcpOverlay(
+            key=signer,
+            unl=unl_keys,
+            quorum=cfg.validation_quorum,
+            port=cfg.peer_port,
+            peer_addrs=_parse_peer_addrs(cfg.ips),
+            network_time=ntime,
+            clock=clock,
+            timer_interval=timer_interval,
+            hash_batch=self.hasher,
+            verify_many=self.verify_plane.verify_many,
+            fee_track=self.fee_track,
+            unl_store=self.unl,
+            bootcache_path=(
+                cfg.database_path + ".bootcache" if cfg.database_path else None
+            ),
+            proposing=self.validation_keys is not None,
+            router=self.hash_router,
+            job_dispatch=self._peer_job_dispatch,
+            peer_tls=peer_tls,
+            # matched against peer.node_public from the hello, i.e.
+            # the key the member HANDSHAKES with: its validation
+            # public when it validates, else its node identity
+            cluster={
+                decode_node_public(v) for v in cfg.cluster_nodes
+            } or None,
+            # [overlay] defense plane: squelch subset size/rotation
+            # + the per-peer sendq discipline
+            squelch_size=cfg.overlay_squelch,
+            squelch_rotate=cfg.overlay_squelch_rotate,
+            sendq_cap=cfg.overlay_sendq_cap,
+            sendq_evict_drops=cfg.overlay_sendq_evict_drops,
+        )
+
+        # catch-up acquisitions resolve nodes from OUR NodeStore
+        # before asking peers: near-tip trees are mostly shared, so
+        # only the delta crosses the wire (reference: SHAMap node
+        # cache + fetch packs)
+        def _local_node_blob(h: bytes):
+            obj = self.nodestore.fetch(h)
+            return obj.data if obj is not None else None
+
+        self.overlay.node.inbound.local_fetch = _local_node_blob
+
+        # segment-granular catch-up: a cold/lagging node bulk-transfers
+        # whole store segments from a peer (wire GetSegments/SegmentData
+        # over the segstore's fetch_segment read door) so the tree
+        # acquisition above resolves locally; timeout/retry/backoff/
+        # peer-scoring in node/inbound.SegmentCatchup
+        backend = self.nodestore.backend
+        if hasattr(backend, "fetch_segment"):
+            from ..nodestore.core import NodeObjectType
+            from ..overlay.resource import FEE_GARBAGE_SEGMENT
+            from .inbound import SegmentCatchup
+
+            vn = self.overlay.node
+            vn.segment_source = backend
+            vn.segment_catchup = SegmentCatchup(
+                send=self.overlay.send_segments_request,
+                peers=self.overlay.segment_peers,
+                store=lambda tb, key, blob: self.nodestore.store(
+                    NodeObjectType(tb), key, blob
+                ),
+                clock=self.overlay._clock,
+                note_byzantine=vn.note_byzantine,
+                # unified peer scoring: a peer condemned for a garbage
+                # segment transfer takes a FEE_BAD_DATA-class charge on
+                # its overlay endpoint, so the same balance that gates
+                # relay/admission sees the catch-up offense too
+                on_condemn=lambda pub: self.overlay.charge_peer(
+                    pub, FEE_GARBAGE_SEGMENT
+                ),
+            )
+
+        # persistence rides the close pipeline's dedicated ORDERED
+        # worker, NOT the consensus tick (the hook fires under the
+        # master lock and a slow disk must not stall round timing —
+        # reference: pendSaveValidated). WS streams + the
+        # INCLUDED→COMMITTED promotion fire AFTER the persist, in
+        # drain order, then the on_persisted hooks.
+        def _persist_async(led):
+            def done(results):
+                self.ops.publish_closed_ledger(led, results)
+                self._note_persisted(led, results)
+
+            self.close_pipeline.submit_close(
+                led, getattr(led, "apply_results", {}), done=done,
+            )
+
+        self.overlay.accepted_hooks.append(_persist_async)
+
+    def _peer_job_dispatch(self, kind: str, thunk) -> None:
+        """Overlay peer-message scheduler: proposals/validations ride
+        their reference job types (latency targets feed LoadMonitor;
+        the queue's per-type accounting makes them sheddable)."""
+        from .jobqueue import JobType
+
+        jt = (
+            JobType.jtPROPOSAL_t
+            if kind == "proposal"
+            else JobType.jtVALIDATION_t
+        )
+        self.job_queue.add_job(jt, kind, thunk)
 
     def _load_or_create_identity(self) -> KeyPair:
         """reference: LocalCredentials::start (wallet.db node seed) — a
@@ -538,11 +839,35 @@ class Node:
         self.fee_track.on_change.append(self.subs.pub_server_status)
         # path subscriptions ride the liquidity plane's staleness budget
         self.subs.path_plane = self.path_plane
+        door_state_dir: list[str] = []  # one shared auto-cert dir per serve
+
+        def _door_ssl(secure: int, cert: str, key: str):
+            # reference [rpc_secure]/[websocket_secure] (Config.cpp:475-492)
+            if not secure:
+                return None
+            from ..overlay.peertls import make_door_ssl_context
+
+            if not door_state_dir:
+                if self.config.database_path:
+                    door_state_dir.append(self.config.database_path + ".tls")
+                else:
+                    import tempfile
+
+                    d = tempfile.mkdtemp(prefix="stellard-tls-")
+                    door_state_dir.append(d)
+                    self._tmp_tls_dir = d  # removed on stop()
+            return make_door_ssl_context(cert, key, door_state_dir[0])
+
         if self.config.rpc_port is not None:
             from ..rpc.http_server import HttpRpcServer
 
             self.http_server = HttpRpcServer(
                 self, self.config.rpc_ip, self.config.rpc_port,
+                ssl_context=_door_ssl(
+                    self.config.rpc_secure,
+                    self.config.rpc_ssl_cert,
+                    self.config.rpc_ssl_key,
+                ),
             ).start()
         if self.config.websocket_port is not None:
             from ..rpc.ws_server import WsRpcServer
@@ -550,9 +875,21 @@ class Node:
             self.ws_server = WsRpcServer(
                 self, self.config.websocket_ip, self.config.websocket_port,
                 subs=self.subs,
+                ssl_context=_door_ssl(
+                    self.config.websocket_secure,
+                    self.config.websocket_ssl_cert,
+                    self.config.websocket_ssl_key,
+                ),
             ).start()
         self._running.set()
         self.load_manager.start()
+        if self.overlay is not None:
+            # chain already set up (fresh/load) by setup(); open the
+            # first consensus round over it and join the net
+            self.overlay.node.begin_round()
+            self.overlay.start_network()
+        if self.sntp is not None:
+            self.sntp.start()
         # pull-gauges for the metrics plane (insight Hook shape)
         self.collector.hook(
             "jobq",
@@ -653,6 +990,9 @@ class Node:
             },
         )
         self.collector.start()
+        # start-up done: what the node loaded lives as long as it serves
+        gcpolicy.hold(freeze=True)
+        self._gc_held = True
         return self
 
     def run(self) -> None:
@@ -719,18 +1059,62 @@ class Node:
                     "heartbeat",
                     self.load_manager.reset_deadlock_detector,
                 )
+                if self.sntp is not None and self.sntp.synced:
+                    # discipline the network clock used for close times
+                    # (reference getNetworkTimeNC via the SNTP offset),
+                    # composed with any configured deliberate skew
+                    self.ops.net_time_offset = int(
+                        round(self.sntp.offset)
+                    ) + int(self.config.network_time_offset)
+                if self.overlay is not None:
+                    self._overlay_heartbeat(now)
             _time.sleep(0.2)
+
+    def _overlay_heartbeat(self, now: float) -> None:
+        """Raise the card's error from under the overlay, then set the
+        operating mode from overlay health (reference:
+        NetworkOPs::setMode heuristics): FULL only while rounds are
+        actually completing — a node that closed rounds once and then
+        lost its peers must degrade."""
+        from ..overlay.tcp import DeviceFailed
+        from .networkops import OperatingMode
+
+        if self.overlay.device_error is not None:
+            raise DeviceFailed(
+                "the card failed under the overlay"
+            ) from self.overlay.device_error
+        vn = self.overlay.node
+        rounds = vn.rounds_completed
+        if rounds > getattr(self, "_last_rounds", 0):
+            self._last_rounds = rounds
+            self._last_round_at = now
+        recently = now - getattr(self, "_last_round_at", 0.0) < 60.0
+        if vn.degraded:
+            # closing without quorum validation: report TRACKING
+            # honestly instead of a confident FULL from a node whose
+            # ledgers nobody signs
+            self.ops.mode = OperatingMode.TRACKING
+        elif rounds > 0 and recently:
+            self.ops.mode = OperatingMode.FULL
+        elif self.overlay.peer_count() > 0:
+            self.ops.mode = OperatingMode.CONNECTED
+        else:
+            self.ops.mode = OperatingMode.DISCONNECTED
 
     def stop(self) -> None:
         self._running.clear()
         self.load_manager.stop()
         self.ledger_master.stop_seal_drainer()
+        if self.overlay is not None:
+            self.overlay.stop()
         # drain-on-stop guarantee: everything queued persists before the
         # stores close (the CLF pointer lands on the last closed ledger)
         self.close_pipeline.stop(timeout=60)
         if self.subs is not None:
             self.subs.stop()
         self.collector.stop()
+        if self.sntp is not None:
+            self.sntp.stop()
         if self.http_server:
             self.http_server.stop()
         if self.ws_server:
@@ -745,6 +1129,14 @@ class Node:
             logging.getLogger("stellard").removeHandler(self._debug_log_handler)
             self._debug_log_handler.close()
             self._debug_log_handler = None
+        if getattr(self, "_tmp_tls_dir", None):
+            import shutil
+
+            shutil.rmtree(self._tmp_tls_dir, ignore_errors=True)
+            self._tmp_tls_dir = None
+        if self._gc_held:
+            self._gc_held = False
+            gcpolicy.release()
 
     # -- persistence on close (reference: pendSaveValidated + CLF commit) --
 

@@ -265,6 +265,8 @@ class ValidatorNode:
             idle_interval=self.idle_interval,
             voting=self.voting,
             note_byzantine=self.note_byzantine,
+            prefetch_sigs=self.prefetch_tx_sigs,
+            check_sigs=self.check_tx_sigs,
         )
         # playback (reference: Consensus::playbackProposals): replay
         # stashed positions that belong to THIS round's prior ledger.
@@ -660,19 +662,19 @@ class ValidatorNode:
         backend (singleton marshaling ~= host-lib verify); one network
         read often carries many TxMessages, and THIS is the seam that
         puts relayed traffic on the batched/native/device plane
-        (reference: PeerImp::checkTransaction, the #1 hot call)."""
-        if self.verify_many is None:
-            return
+        (reference: PeerImp::checkTransaction, the #1 hot call). A tx the
+        HashRouter already has a verdict for takes that verdict."""
         pending = []
         seen: set[bytes] = set()  # dedupe: N copies of one tx in a burst
         for tx in txs:            # must cost ONE verify, not N
             txid = tx.txid()
-            if txid in seen:
-                continue
-            seen.add(txid)
             flags = self.router.get_flags(txid)
             if flags & (SF_SIGGOOD | SF_BAD):
+                tx.set_sig_verdict(bool(flags & SF_SIGGOOD))
                 continue
+            if txid in seen or self.verify_many is None:
+                continue
+            seen.add(txid)
             # structural validity gates the SIGGOOD flag exactly as the
             # per-tx path does (submit() skips its checks when the flag
             # is already set; reference: checkTransaction runs
@@ -693,6 +695,21 @@ class ValidatorNode:
             self.router.set_flag(
                 tx.txid(), SF_SIGGOOD if good else SF_BAD
             )
+
+    def check_tx_sigs(self, txs: list) -> list:
+        """Each tx's signature verdict, checked anew whatever the
+        HashRouter holds (a disputed tx's blob may come from a peer's
+        set): one batch of the verify plane, or each on the host when
+        no plane is wired (the JAX round's check)."""
+        if self.verify_many is None:
+            return [tx.check_sign() for tx in txs]
+        if not txs:
+            return []
+        verdicts = [bool(v) for v in self.verify_many(
+            [self._tx_verify_request(tx) for tx in txs])]
+        for tx, good in zip(txs, verdicts):
+            tx.set_sig_verdict(good)
+        return verdicts
 
     # -- peer message handlers -------------------------------------------
 

@@ -7,12 +7,17 @@ by a digest of its source, so an edited source is rebuilt and an
 unchanged one is loaded as built. Nothing is built at import: the first
 wrapper call on a CUDA tensor builds its library, under a lock, because
 the verify plane's flusher thread and the hasher can both get there
-first. A failed build, load or launch raises ``KernelError``.
+first, and under a file lock in the build directory, because several
+node processes (a private net's validators on one card) can start
+together: one builds, the others wait and load what it built. A failed
+build, load or launch raises ``KernelError``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -56,6 +61,18 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """Hold the build directory's file lock (across processes)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
 def _start(name: str):
     """Start nvcc for csrc/<name>.cu -> (process, tmp path, final path),
     or None when the library is already built."""
@@ -83,7 +100,7 @@ def _finish(name: str, started) -> None:
 def build(names) -> None:
     """Compile the named sources that are not built yet, one nvcc each,
     all started together."""
-    with _LOCK:
+    with _LOCK, _build_lock():
         started = {n: _start(n) for n in names}
         for n, s in started.items():
             if s is not None:
@@ -95,9 +112,11 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            started = _start(name)
-            if started is not None:
-                _finish(name, started)
+            if not _lib_path(name).exists():
+                with _build_lock():
+                    started = _start(name)
+                    if started is not None:
+                        _finish(name, started)
             lib = ctypes.CDLL(str(_lib_path(name)))
             _LIBS[name] = lib
         return lib

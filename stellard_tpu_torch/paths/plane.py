@@ -16,36 +16,17 @@ library into production serving:
   host arm, before the expensive trial executions.
 
 Everything is observable under `paths.*` via ``get_json``.
-
-The resource plane (rate limiting of path-find clients) is not part of
-this package: ``resources`` is any object with ``is_throttled`` and
-``charge``, and the update charge is this module's own
-``FEE_PATH_FIND_UPDATE``.
 """
 
 from __future__ import annotations
 
 import threading
-from dataclasses import dataclass
 from typing import Optional
 
+from ..overlay.resource import FEE_PATH_FIND_UPDATE
 from .orderbook import LiveBookIndex, OrderBookDB
 
-__all__ = ["Charge", "FEE_PATH_FIND_UPDATE", "PathPlane"]
-
-
-@dataclass(frozen=True)
-class Charge:
-    """A resource charge: cost units and a label (reference: the
-    Resource::Charge of src/ripple/resource)."""
-
-    cost: int
-    label: str
-
-
-# what one path_find subscription update costs its client (the
-# reference's resource fee schedule, impl/Fees.cpp)
-FEE_PATH_FIND_UPDATE = Charge(100, "path update")
+__all__ = ["PathPlane"]
 
 # keep this floor above every unit-test-sized candidate set: pre-rank
 # pruning must be a no-op until a search is genuinely oversized, so the

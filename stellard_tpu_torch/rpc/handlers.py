@@ -210,13 +210,12 @@ def _load_historical(ctx: Context, ledger_hash: bytes) -> Optional[Ledger]:
     rebuilt ledger re-enters the cache so a polling client only pays the
     reconstruction once."""
     try:
-        # lazy: an RPC touching one account of a historical ledger must
-        # not deserialize the whole tree (out-of-core plane); cold: its
-        # faults enter the hot cache one epoch behind, so a deep
-        # history scan cannot thrash the serving snapshot's working set
+        # eager: the JAX node loads lazily and cold (its faults entering
+        # the hot cache an epoch behind); lazy loading is not part of
+        # this package (ROADMAP Queue A item 6), so the whole ledger is
+        # rebuilt, as the node's own history fallback does
         led = Ledger.load(
             ctx.node.nodestore, ledger_hash, hash_batch=ctx.node.hasher,
-            lazy=True, cold=True,
         )
     except (KeyError, ValueError, AttributeError):
         return None
@@ -660,6 +659,13 @@ def do_get_counts(ctx: Context) -> dict:
         # sendq shedding (doc/overlay.md degradation contract)
         out["squelch"] = overlay.squelch_json()
         out["peers"] = overlay.peer_count()
+        # this process's host signature checks (protocol/keys.py) and
+        # those of them that were hellos' session signatures: on a node
+        # of the card every other verdict comes from the verify plane
+        from ..protocol import keys as _keys
+
+        out["host_verifies"] = {"total": _keys.host_verifies,
+                                "handshakes": overlay.handshake_verifies}
         vn = getattr(overlay, "node", None)
         if vn is not None:
             if getattr(vn, "follower", False):

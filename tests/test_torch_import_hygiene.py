@@ -57,6 +57,9 @@ def test_every_module_imports_without_jax():
     # and so is consensus's: the round, the wire, the simulated overlay,
     # the validator, catch-up and tree sync
     assert set(CONSENSUS_SLICE) <= set(mods)
+    # and so is the networked validator's: the TCP overlay, its TLS and
+    # discovery, the SNTP clock, the list sources and the test kit
+    assert set(NETWORK_SLICE) <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"
@@ -92,15 +95,33 @@ CONSENSUS_SLICE = tuple(f"stellard_tpu_torch.{m}" for m in (
     "node.inbound", "state.shamapsync"))
 
 
+# the modules the networked validator's slice added
+NETWORK_SLICE = tuple(f"stellard_tpu_torch.{m}" for m in (
+    "overlay.tcp", "overlay.peerfinder", "overlay.peertls", "node.netclock",
+    "node.sitefiles", "testkit", "testkit.tcpnet", "testkit.schedule", "testkit.workloads"))
+
+
 def test_the_consensus_slice_imports_neither_jax_nor_the_jax_package():
     """Importing the consensus slice's modules alone (the SimNet and the
     validator pull in the ledger, engine and node modules they run on)
     leaves jax and the JAX package out of sys.modules, and no source of
     the slice names either."""
+    slice_imports_neither_jax_nor_the_jax_package(CONSENSUS_SLICE)
+
+
+def test_the_networked_slice_imports_neither_jax_nor_the_jax_package():
+    """The same for the networked validator's slice: the TCP overlay
+    (which builds the validator on the verify plane and hasher), its TLS
+    and peer discovery, the SNTP clock, the validator list sources and
+    the test kit that launches port validator processes."""
+    slice_imports_neither_jax_nor_the_jax_package(NETWORK_SLICE)
+
+
+def slice_imports_neither_jax_nor_the_jax_package(modules) -> None:
     code = (
         "import importlib, json, sys\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"
-        f"for m in {list(CONSENSUS_SLICE)!r}:\n"
+        f"for m in {list(modules)!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'stellard_tpu.'))\n"
@@ -112,7 +133,7 @@ def test_the_consensus_slice_imports_neither_jax_nor_the_jax_package():
                        text=True, timeout=300, env=env, cwd=str(REPO))
     assert r.returncode == 0, r.stderr[-2000:]
     assert json.loads(r.stdout.strip().splitlines()[-1]) == []
-    for mod in CONSENSUS_SLICE:
+    for mod in modules:
         path = REPO / mod.replace(".", "/")
         path = path / "__init__.py" if path.is_dir() else path.with_suffix(".py")
         roots = {n.split(".")[0] for n in _imported_names(ast.parse(path.read_text()))}
@@ -155,10 +176,11 @@ CLOSE_SLICE = ("stellard_tpu_torch.node.metrics", "stellard_tpu_torch.node.txdb"
                "stellard_tpu_torch.node.closepipeline", "stellard_tpu_torch.state.specview",
                "stellard_tpu_torch.engine.deltareplay", "stellard_tpu_torch.node.ledgermaster")
 # (since the standalone node: the metrics plane's statsd export over UDP
-# and its history ring, and the node's identity file and free-disk check)
+# and its history ring, and the node's identity file and free-disk check;
+# since the networked node: its TLS state directory without a database)
 CLOSE_SLICE_IMPORTS = {"__future__", "bisect", "contextlib", "dataclasses", "logging",
                        "sqlite3", "threading", "time", "typing",
-                       "collections", "socket", "json", "os", "shutil"}
+                       "collections", "socket", "json", "os", "shutil", "tempfile"}
 
 
 def _imported_names(tree: ast.AST):

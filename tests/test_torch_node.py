@@ -583,9 +583,7 @@ def test_config_defaults_to_cuda_and_refuses_unported_planes():
         "[hash_backend]\ntype=cuda\nmesh=auto", "[paths]\nmesh=4",
         "[spec]\nworkers=2", "[spec]\nworkers=auto", "[node]\nmode=archive",
         "[node]\nmode=follower", "[node_db]\nshards=1", "[node_db]\nonline_delete=4",
-        "[peer_port]\n51235\n[standalone]\n0", "[rpc_secure]\n1", "[websocket_secure]\n1",
         "[health]\nenabled=1", "[kernel_tuning]\nKERNEL_TUNING.json", "[tree]\ncache_mb=2",
-        "[sntp_servers]\npool.example 123", "[validators_file]\nvalidators.txt",
         "[signature_backend]\ntype=cpu\nrouting=device",
         "[signature_backend]\ntype=cpu\nthreads=4",
     ):
@@ -593,6 +591,12 @@ def test_config_defaults_to_cuda_and_refuses_unported_planes():
             Config.from_ini(text)
     with pytest.raises(ValueError, match="type=cuda"):
         Config.from_ini("[signature_backend]\ntype=tpu")
+    # the networked validator's keys parse (tests/test_torch_tcp_mixed.py
+    # holds each to the JAX Config's value)
+    for text in ("[peer_port]\n51235\n[standalone]\n0", "[rpc_secure]\n1",
+                 "[websocket_secure]\n1", "[sntp_servers]\npool.example 123",
+                 "[validators_file]\nvalidators.txt"):
+        Config.from_ini(text)
     # the device keys reach the factories
     cfg = Config.from_ini("[signature_backend]\ntype=cuda\ndevice=cpu\nmin_device_batch=1\n"
                           "routing=device\n[hash_backend]\ntype=cuda\ndevice=cpu\n"

@@ -15,10 +15,10 @@ clocks, the random bytes, the admission queue's measured sizes).
 Left out of the twin runs, each for a reason and replaced below where
 the port answers differently by design:
 
-- the TLS doors (TestSecureDoors) and the RPCSub URL callbacks
-  (TestRpcSubUrlCallbacks): not part of this package, which refuses
-  `rpc_secure`/`websocket_secure` at parse and answers a `url`
-  subscription notImpl;
+- the TLS doors (TestSecureDoors): their twin runs, which read their
+  answers over TLS, are in test_torch_tcp_defense.py;
+- the RPCSub URL callbacks (TestRpcSubUrlCallbacks): not part of this
+  package, which answers a `url` subscription notImpl;
 - the ledger cleaner (`test_ledger_cleaner_runs_clean`): not part of
   this package, so the command answers notImpl;
 - the profiler (`test_profile_captures_device_trace`,
@@ -50,7 +50,7 @@ from test_torch_node import VOLATILE, scrub
 from test_torch_txq import CpuConfig, run_method
 
 LEFT_OUT = {
-    "TestSecureDoors": "TLS doors are not part of this package",
+    "TestSecureDoors": "run in test_torch_tcp_defense.py",
     "TestRpcSubUrlCallbacks": "RPCSub URL callbacks are not part of this package",
     "test_ledger_cleaner_runs_clean": "the ledger cleaner is not part of this package",
     "test_profile_captures_device_trace": "the port's profile is torch.profiler on the card",

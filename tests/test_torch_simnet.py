@@ -4,7 +4,8 @@ node/inbound.py, state/shamapsync.py) against the JAX package's.
 
 Every test of tests/test_simnet.py and tests/test_sync.py, and every
 case of tests/test_overlay_defense.py that needs neither the TCP overlay
-nor the scenario kit (neither is part of the port yet), runs twice: once
+(its cases run in test_torch_tcp_defense.py) nor the scenario kit (not
+part of the port yet), runs twice: once
 as it is and once on its port twin (test_torch_consensus.port_twin).
 Each run's assertions must hold, and what every SimNet and ValidatorNode
 it made ended with (validated and closed hashes, the ledger index,
@@ -21,8 +22,10 @@ import test_simnet as tsn
 import test_sync as tsy
 from test_torch_consensus import cases, recorder, twin_runs  # noqa: F401
 
-# the cases that open the TCP overlay (overlay/tcp.py) or run the
-# scenario kit (testkit/): neither is ported yet (ROADMAP Queue A)
+# the cases that open the TCP overlay (overlay/tcp.py), which
+# test_torch_tcp_defense.py runs with a recorder for wall-clock nets, or
+# run the scenario kit (testkit/scenario.py), not ported yet (ROADMAP
+# Queue A)
 NOT_PORTED = ("TestSendqDiscipline", "TestTcpHostileFlood", "TestFloodSurvival",
               "TestSimnetSquelch.test_squelched_vs_flooded_byte_identical_chain")
 
