@@ -6,8 +6,9 @@
 Drives the ledger close's device plane, then a 4-validator consensus
 net in process and a 4-validator private net over TCP, then a
 standalone node's closes and its order book and path searches, then the
-catch-up replay of the chain it saved, through the entry points a node
-calls, at the sizes a close really has, and checks every result:
+catch-up replay of the chain it saved and a node resumed lazily on it,
+through the entry points a node calls, at the sizes a close really has,
+and checks every result:
 
 1. device   — the card's name and power limit; builds the four CUDA
               kernels (one nvcc a source, started together) and prints
@@ -184,10 +185,25 @@ calls, at the sizes a close really has, and checks every result:
               nodes, one readback per sealed tree; K1 rejects exactly
               the forged lane and the forged ledger alone fails. The
               span is cut from the 8 saved ledgers to 2 to fit the time
-              limit (PERF.md §4). The store is removed at the end.
+              limit (PERF.md §4).
+              resume: the port's Node restarted on the same store with
+              [start_up] load and its path plane off (RESUME_CONFIG,
+              RESUME_SIZES): the lazy resume reads the
+              header and two roots; 256 account_info reads at 1008 and
+              64 at 1005 (a cold, lazy historical load) through HTTP;
+              512 payments of the close workload's shape, each a submit
+              (K1 at batch 1), closed by one ledger_accept on a tree
+              whose clean subtrees are stubs (K2, K3) and saved into
+              the same store. The read answers, the ledger's hash and
+              results and the nodes its save wrote equal to the JAX
+              node's resumed the same way (RESUME_*, from the same slow
+              test); nodes faulted, none inside a seal; no host
+              signature check; the host hashes only what K2/K3 cannot.
+              The store is removed at the end.
 
 Launch counts are zeroed just before phases 3-4 and read just after, and
-again around phases 5, 6 (validator 0's launches), 7, 8 and 10's replay;
+again around phases 5, 6 (validator 0's launches), 7, 8, 10's replay and
+its resume step;
 the kernels line shows the sum, the launches of the main path alone,
 and for K2 and K3 the consensus, tcp, close and book phases' launches by
 who made them (the seal drainer, the two seal threads, the
@@ -577,12 +593,7 @@ def close_workload(n_accounts: int, n_senders: int, n_closes: int,
     verdict is the RFC 8032 oracle's."""
     import numpy as np
 
-    from stellard_tpu_torch.ops import ed25519_ref
-    from stellard_tpu_torch.protocol.formats import TxType
     from stellard_tpu_torch.protocol.keys import KeyPair
-    from stellard_tpu_torch.protocol.sfields import sfAmount, sfDestination, sfTxnSignature
-    from stellard_tpu_torch.protocol.stamount import STAmount
-    from stellard_tpu_torch.protocol.sttx import SerializedTransaction
 
     rng = np.random.default_rng(seed)
     sender_seeds = [rng.bytes(32) for _ in range(n_senders)]
@@ -606,22 +617,37 @@ def close_workload(n_accounts: int, n_senders: int, n_closes: int,
                 while j == i:
                     j = int(rng.integers(n_accounts))
                 dst, drops = accounts[j], int(rng.integers(1_000_000, 100_000_001))
-            tx = SerializedTransaction.build(
-                TxType.ttPAYMENT, key.account_id, seqs[i], 10,
-                {sfAmount: STAmount.from_drops(drops), sfDestination: dst})
-            tx.sign(key)
-            good = True
-            if kind == "bad_sig":
-                sig = bytearray(tx.signature)
-                sig[int(rng.integers(64))] ^= 1 << int(rng.integers(8))
-                tx.obj[sfTxnSignature] = bytes(sig)
-                good = ed25519_ref.verify(key.public, tx.signing_hash(), bytes(sig))
-            if good:
+            entry = payment_entry(rng, key, seqs[i], kind, dst, drops)
+            if entry[2]:
                 seqs[i] += 1  # a rejected payment does not use its sequence
-            entries.append((tx.serialize(), kind, good))
+            entries.append(entry)
         closes.append(entries)
     return {"accounts": accounts, "sender_seeds": sender_seeds, "closes": closes,
             "next_seqs": seqs}
+
+
+def payment_entry(rng, key, seq: int, kind: str, dst: bytes, drops: int) -> tuple:
+    """One Payment of the close workload: `drops` from `key`'s account
+    at `seq` to `dst`, a fee of 10 drops, signed; a ``bad_sig`` one with
+    one bit of its signature flipped (drawn from `rng`), its verdict the
+    RFC 8032 oracle's. -> (blob, kind, expected verdict)."""
+    from stellard_tpu_torch.ops import ed25519_ref
+    from stellard_tpu_torch.protocol.formats import TxType
+    from stellard_tpu_torch.protocol.sfields import sfAmount, sfDestination, sfTxnSignature
+    from stellard_tpu_torch.protocol.stamount import STAmount
+    from stellard_tpu_torch.protocol.sttx import SerializedTransaction
+
+    tx = SerializedTransaction.build(
+        TxType.ttPAYMENT, key.account_id, seq, 10,
+        {sfAmount: STAmount.from_drops(drops), sfDestination: dst})
+    tx.sign(key)
+    good = True
+    if kind == "bad_sig":
+        sig = bytearray(tx.signature)
+        sig[int(rng.integers(64))] ^= 1 << int(rng.integers(8))
+        tx.obj[sfTxnSignature] = bytes(sig)
+        good = ed25519_ref.verify(key.public, tx.signing_hash(), bytes(sig))
+    return tx.serialize(), kind, good
 
 
 # the closed ledger the close phase resumes from (load_ledger); each
@@ -1908,8 +1934,13 @@ def run(dev) -> None:
          rotated_mb=sum(m.numel() * 4 for m in mats) / 1e6)
     del k4_t, k4_got, k4_plain, mats, outs
 
-    # 10. catch-up replay of the saved chain, counted on its own
-    replay = replay_phase(dev, name_power, saver, close_digests)
+    # 10. catch-up replay of the saved chain, then a node resumed lazily on
+    # it, each counted on its own; the store is removed at the end
+    try:
+        replay = replay_phase(dev, name_power, saver, close_digests)
+        resume = resume_step(dev, name_power, saver)
+    finally:
+        shutil.rmtree(saver.path, ignore_errors=True)
     del saver
 
     emit("times", card=name_power, host_prep_ms_per_chunk=prep_ms, chunk=CHUNK,
@@ -1919,7 +1950,7 @@ def run(dev) -> None:
          k1_shape=[CHUNK], k2_shape=k2_shape, k3_nodes=n3, k4_shape=[rows, hops],
          int32_ops_per_s=int32_rate, total_s=time.perf_counter() - t_start)
     phases = (launches, consensus["launches"], tcp["launches"], close_launches,
-              book["launches"], replay["launches"])
+              book["launches"], replay["launches"], resume["launches"])
     main_launches = lambda name: sum(ph.get(name, 0) for ph in phases)  # noqa: E731
     kernels = [
         dict(name="ed25519_verify", route="cuda",
@@ -1930,12 +1961,13 @@ def run(dev) -> None:
              ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_b, bound_by=k1_by,
              library_ms=None),
         # the same kernel at the RPC door's shape: one signature a submit
-        # (its launches are the close phase's batch-1 launches, a part
-        # of the row above's)
+        # (its launches are the close phase's and the resume step's
+        # batch-1 launches, a part of the row above's)
         dict(name="ed25519_verify (batch 1)", route="cuda",
              source="stellard_tpu_torch/csrc/ed25519_verify.cu",
              replaces="stellard_tpu/ops/ed25519_pallas.py:107",
-             launches=k1_batch1["launches"], max_abs_err=close_k1_err,
+             launches=k1_batch1["launches"] + resume["k1_batch1"],
+             max_abs_err=close_k1_err,
              ms=k1_batch1["ms"], plain_ms=k1_batch1["plain_ms"],
              bound_ms=k1_batch1["bound_ms"], bound_by=k1_batch1["bound_by"],
              library_ms=None),
@@ -3731,7 +3763,8 @@ def replay_phase(dev, name_power: str, saver: ChainSaver, close_digests: list) -
     Every real ledger replays to its hash, with its close's results and
     the nodes its close hashed on the host; K1 rejects exactly the
     forged lane, and the forged ledger alone fails. The launch counts
-    are this phase's alone; the store is removed at the end."""
+    are this phase's alone. The store stays for the resume step
+    (resume_step)."""
     import resource
 
     import numpy as np
@@ -3833,7 +3866,6 @@ def replay_phase(dev, name_power: str, saver: ChainSaver, close_digests: list) -
         rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
     finally:
         db.close()
-        shutil.rmtree(saver.path, ignore_errors=True)
 
     per = stats["ledgers"]
     ok = [s["ok"] for s in per]
@@ -3899,6 +3931,344 @@ def replay_phase(dev, name_power: str, saver: ChainSaver, close_digests: list) -
     }
     emit("replay", **summary)
     return {"launches": launches}
+
+
+# --------------------------------------------------------------------------
+# the resume step (the out-of-core state), at the end of the replay phase:
+# a port Node resumes the chain's store lazily from its CLF pointer (the
+# book phase's last ledger, 1008), answers account_info through HTTP for
+# `reads` of the close workload's accounts at that ledger and for
+# `history_reads` at RESUME_HISTORY_SEQ (a cold, lazy historical load),
+# then closes `payments` payments of the close workload's shape, each an
+# HTTP `submit` (K1 at batch 1), with one `ledger_accept` (splice, drainer
+# and two seal threads on a tree whose clean subtrees are stubs: K2, K3)
+# and its close pipeline's save into the same store. Its senders are the
+# plain accounts the book phase leaves alone (resume_first_sender)
+RESUME_SIZES = dict(payments=512, reads=256, history_reads=64, seed=43)
+RESUME_HISTORY_SEQ = START_SEQ + 5
+# the resumed node's config: the chain's own, loading its last ledger,
+# with the path plane off. With it on, the first close after a restart
+# rebuilds the plane's book index by reading every state entry, as the
+# JAX node's does: on a lazy tree that faults all 1.36 M nodes, 232.6 s
+# of the close on the card's host (PERF.md §5), which would carry the
+# smoke past its time limit
+RESUME_CONFIG = "\n[start_up]\nload\n\n[paths]\nenabled=0\n"
+# a lazy resume reads the header and the two roots: a handful of store
+# fetches, against the 1,359,552 nodes of an eager load
+RESUME_FETCHES_MAX = 8
+# what the JAX node gives, resumed the same way on the same chain
+# (tests/test_torch_close.py's slow test): the closed ledger's hash, the
+# results digest, the read answers' digests and the nodes its save wrote
+RESUME_HASH = "6c24f0680b3d6f38096b088becbd74e8ee206d626e1e5060d9ec2b24b2b44ae4"
+RESUME_DIGEST = "fdf3bfe2d56b81ea0f63da54d6875db9c3bf4081c522708cf3dd4787b8935ad5"
+RESUME_READ_DIGESTS = {
+    "resumed": "24ede08728a404baa6b2d476e95d72606062a5d7a2cd02ffbe503a82e7f6267e",
+    "history": "22ca28db60e2e6b5ceadcd0a8ffa5457b525d101bde09b7c4174cadd23fc2342",
+}
+RESUME_SAVE_NODES = 4582
+
+
+def resume_first_sender(book_sizes: dict) -> int:
+    """The first sender the book phase leaves alone: after its gateways,
+    its traders and the plain accounts it merges."""
+    return book_sizes["n_gateways"] + book_sizes["n_traders"] + 2 * book_sizes["n_merges"]
+
+
+def resume_workload(wl: dict, first_sender: int, payments: int, reads: int,
+                    history_reads: int, seed: int) -> dict:
+    """Seeded inputs of the resume step, on the close workload `wl`'s
+    chain: ``payments`` Payments in the close workload's shape (~2% to a
+    new account, ~1% with a planted bad signature; payment_entry) from
+    the senders from ``first_sender`` on in turn, at their next
+    sequences after the close phase, each to one of the accounts that
+    never sent (they exist on every ledger of the chain); and the
+    accounts whose account_info is read at the resumed ledger
+    (``reads``) and at RESUME_HISTORY_SEQ (``history``)."""
+    import numpy as np
+
+    from stellard_tpu_torch.protocol.keys import KeyPair
+
+    rng = np.random.default_rng(seed)
+    n_senders = len(wl["sender_seeds"])
+    keys = [KeyPair.from_seed(sd) for sd in wl["sender_seeds"][first_sender:]]
+    seqs = list(wl["next_seqs"][first_sender:])
+    dests = wl["accounts"][n_senders:]
+    entries = []
+    for p in range(payments):
+        i = p % len(keys)
+        u = rng.random()
+        kind = "bad_sig" if u < 0.01 else "new_account" if u < 0.03 else "existing"
+        if kind == "new_account":
+            dst, drops = rng.bytes(20), 250_000_000
+        else:
+            dst = dests[int(rng.integers(len(dests)))]
+            drops = int(rng.integers(1_000_000, 100_000_001))
+        entry = payment_entry(rng, keys[i], seqs[i], kind, dst, drops)
+        if entry[2]:
+            seqs[i] += 1
+        entries.append(entry)
+    pick = lambda n: [wl["accounts"][int(j)]  # noqa: E731
+                      for j in rng.integers(len(wl["accounts"]), size=n)]
+    return {"entries": entries, "reads": pick(reads), "history": pick(history_reads)}
+
+
+class ResumeProbe:
+    """What a resumed node's step does to its lazy trees and its hasher,
+    in either package: every node faulted from the store (``shamap``'s
+    NodeSource._load) by stage (``stage``, set by drive_resume), and those
+    faulted inside a seal (on a ``seal-`` thread of the LedgerMaster, or
+    within a ``hash_tree`` call of ``hasher``); and per ``hash_tree``
+    call (the port's CudaHasher, whatever thread it runs on) the nodes
+    it hashed on the host and the nodes K2/K3 cannot take, counted from
+    its tree's unhashed set before it ran (host_only_nodes)."""
+
+    def __init__(self, shamap, hasher=None):
+        self.stage = "boot"
+        self.faults: dict[str, int] = {}
+        self.seal_faults = 0
+        self.trees: list[tuple[int, int]] = []
+        self._local = threading.local()
+        self._lock = threading.Lock()
+        self._undo = []
+        source = shamap.NodeSource
+        load = source._load
+
+        def counted_load(src, h):
+            in_seal = (getattr(self._local, "host", None) is not None
+                       or threading.current_thread().name.startswith("seal-"))
+            with self._lock:
+                self.faults[self.stage] = self.faults.get(self.stage, 0) + 1
+                self.seal_faults += in_seal
+            return load(src, h)
+
+        source._load = counted_load
+        self._undo.append(lambda: setattr(source, "_load", load))
+        if hasher is not None:
+            tree, count = hasher.hash_tree, hasher._count_nodes
+
+            def count_nodes(host, device):
+                if getattr(self._local, "host", None) is not None:
+                    self._local.host += host
+                return count(host, device)
+
+            def hash_tree(root, *a, **kw):
+                only = host_only_nodes(root)
+                self._local.host = 0
+                try:
+                    return tree(root, *a, **kw)
+                finally:
+                    with self._lock:
+                        self.trees.append((self._local.host, only))
+                    self._local.host = None
+
+            hasher._count_nodes, hasher.hash_tree = count_nodes, hash_tree
+
+            def unwrap():
+                del hasher._count_nodes, hasher.hash_tree
+
+            self._undo.append(unwrap)
+
+    def restore(self) -> None:
+        for undo in self._undo:
+            undo()
+
+
+def boot_resumed(node_cls, config_cls, text: str):
+    """A node of either package built from the config `text` (with
+    RESUME_CONFIG) and set up: it resumes its chain from the store.
+    -> (node, {node_ms, load_ms, fetches}): the store's fetches at boot
+    (its cache hits and backend fetches)."""
+    t0 = time.perf_counter()
+    node = node_cls(config_cls.from_ini(text))
+    t1 = time.perf_counter()
+    node.setup()
+    t2 = time.perf_counter()
+    db = node.nodestore.get_json()
+    return node, {"node_ms": (t1 - t0) * 1e3, "load_ms": (t2 - t1) * 1e3,
+                  "fetches": db["cache_hits"] + db["backend_fetches"]}
+
+
+def drive_resume(node, rwl: dict, probe: ResumeProbe, close_index: int,
+                 history_seq: int) -> dict:
+    """The resume step through a serving node's doors (either package's
+    Node, resumed lazily and served): account_info of ``rwl["reads"]``
+    at the resumed ledger and of ``rwl["history"]`` at ``history_seq``,
+    every payment a `submit`, then `ledger_accept`
+    with the clock pinned to the close's time (START_CLOSE_TIME + 30
+    (close_index + 1)), and the close pipeline drained. -> the resumed
+    and closed ledgers, the results digest, the answers' TERs, the read
+    digests, the nodes the save wrote (tree nodes and the header), the
+    faults by stage and the times."""
+    from stellard_tpu_torch.protocol.keys import encode_account_id
+    from stellard_tpu_torch.protocol.sttx import SerializedTransaction
+
+    lm = node.ledger_master
+    resumed = lm.closed_ledger()
+    closed: list = []
+    node.ops.on_ledger_closed.append(lambda led, res: closed.append((led, res)))
+    http = HttpRpc(node.http_server.port)
+    times = {}
+    try:
+        t0 = time.perf_counter()
+        probe.stage = "reads"
+        reads = [http.call("account_info", account=encode_account_id(a),
+                           ledger_index=resumed.seq) for a in rwl["reads"]]
+        t1 = time.perf_counter()
+        probe.stage = "history"
+        history = [http.call("account_info", account=encode_account_id(a),
+                             ledger_index=history_seq) for a in rwl["history"]]
+        t2 = time.perf_counter()
+        when = START_CLOSE_TIME + 30 * (close_index + 1)
+        node.ops.network_time = lambda: when
+        flushed0 = len(node.nodestore.flushed)
+        probe.stage = "submits"
+        blobs = [blob for blob, _k, _g in rwl["entries"]]
+        answers = [http.call("submit", tx_blob=b.hex().upper()) for b in blobs]
+        t3 = time.perf_counter()
+        probe.stage = "close"
+        accept = http.call("ledger_accept")
+        t4 = time.perf_counter()
+        require(accept.get("ledger_current_index") == resumed.seq + 2,
+                f"resume ledger_accept: {accept}")
+        probe.stage = "persist"
+        require(node.close_pipeline.flush(timeout=3600), "the close pipeline did not drain")
+        t5 = time.perf_counter()
+        probe.stage = "done"
+        times = {"reads_ms": (t1 - t0) * 1e3, "history_reads_ms": (t2 - t1) * 1e3,
+                 "submits_ms": (t3 - t2) * 1e3, "ledger_accept_ms": (t4 - t3) * 1e3,
+                 "persist_ms": (t5 - t4) * 1e3}
+    finally:
+        http.close()
+    ledger, results = closed[-1]
+    txids = [SerializedTransaction.from_bytes(b).txid() for b in blobs]
+    open_ters = [(txid, int(a["engine_result_code"])) for txid, a in zip(txids, answers)]
+    return {
+        "resumed": (resumed.seq, resumed.hash().hex()), "seq": ledger.seq,
+        "hash": ledger.hash().hex(), "digest": results_digest(open_ters, results),
+        "open_ters": [t for _, t in open_ters],
+        "close_ters": {txid: int(t) for txid, t in results.items()},
+        "read_digests": {"resumed": read_digest(reads), "history": read_digest(history)},
+        "read_errors": [r for r in reads + history if "error" in r][:3],
+        "nodes": len(node.nodestore.flushed) - flushed0 + 1,
+        "faults": dict(probe.faults), "seal_faults": probe.seal_faults, **times,
+    }
+
+
+def resume_step(dev, name_power: str, saver: ChainSaver) -> dict:
+    """The resume step (see RESUME_SIZES) on the chain's store, after
+    the replay phase closed it: the port's Node from the chain's own
+    config with RESUME_CONFIG boots with a handful of store
+    fetches, serves (K1's prewarm), answers the reads and closes the
+    payments. Its ledger hash, results digest, read answers and saved
+    nodes equal the JAX node's; nodes faulted, none of them in a seal;
+    no host verify, device share 1.0; K1, K2 and K3 launched, K1 once a
+    submit; the host hashed only what K2/K3 cannot; one readback a tree.
+    The launch counts are this step's alone."""
+    from stellard_tpu_torch.node.config import Config
+    from stellard_tpu_torch.node.node import Node
+    from stellard_tpu_torch.ops import ed25519_cuda, treehash
+    from stellard_tpu_torch.protocol import keys
+    from stellard_tpu_torch.protocol.ter import TER
+    from stellard_tpu_torch.state import shamap
+
+    rwl = resume_workload(close_workload(**CLOSE_SIZES), resume_first_sender(BOOK_SIZES),
+                          **RESUME_SIZES)
+    # a restarted node is a new process: its hot-node cache starts empty.
+    # This process's still holds the replay's eager loads, whose whole
+    # subtrees a lazy fault would take (both packages' NodeSource takes
+    # any cached node), and a save would then rewrite them
+    shamap.inner_node_cache().clear()
+    ed25519_cuda.launches = 0
+    ed25519_cuda.launches_by_batch.clear()
+    treehash.reset_launches()
+    keys.host_verifies = 0
+    cache = shamap.inner_node_cache()
+    faults0 = cache.faults
+    text = node_config_text(saver.path, PORT_NODE_DEVICE.format(
+        dev=dev, floor=BOOK_PRUNE_FLOOR) + RESUME_CONFIG)
+    node = probe = None
+    try:
+        node, boot = boot_resumed(Node, Config, text)
+        boot["faults"] = cache.faults - faults0
+        hasher = node.hasher.inner  # the CudaHasher behind the watchdog
+        probe = ResumeProbe(shamap, hasher)
+        t0 = time.perf_counter()
+        node.serve()  # waits for K1's prewarm
+        serve_ms = (time.perf_counter() - t0) * 1e3
+        prewarm_k1 = dict(ed25519_cuda.launches_by_batch)
+        calls0, readbacks0 = hasher.tree_calls, hasher.tree_transfers.readbacks
+        t0 = time.perf_counter()
+        res = drive_resume(node, rwl, probe, len(CLOSE_HASHES) + len(BOOK_HASHES),
+                           RESUME_HISTORY_SEQ)
+        step_ms = (time.perf_counter() - t0) * 1e3
+        launches = {"ed25519_verify": ed25519_cuda.launches, **treehash.launches}
+        by_batch = dict(ed25519_cuda.launches_by_batch)
+        host_verifies = keys.host_verifies
+        vp = node.verify_plane.get_json()
+        tree = node.ledger_master.tree_json()
+        last_close = dict(node.ledger_master.last_close)
+        tree_calls = hasher.tree_calls - calls0
+        readbacks = hasher.tree_transfers.readbacks - readbacks0
+        cache_json = cache.get_json()
+    finally:
+        if probe is not None:
+            probe.restore()
+        if node is not None:
+            node.stop()
+
+    entries = rwl["entries"]
+    want = [int(TER.temINVALID) if kind == "bad_sig" else int(TER.tesSUCCESS)
+            for _b, kind, _g in entries]
+    chain = CLOSE_HASHES + BOOK_HASHES
+    require(res["resumed"] == (START_SEQ + len(chain), chain[-1]),
+            f"the node resumed {res['resumed']}, not the book phase's last ledger")
+    require(boot["fetches"] <= RESUME_FETCHES_MAX,
+            f"the lazy resume fetched {boot['fetches']} nodes from the store")
+    require(not res["read_errors"], f"account_info answered {res['read_errors']}")
+    require(res["read_digests"] == RESUME_READ_DIGESTS,
+            f"read answers {res['read_digests']} differ from the JAX node's")
+    require(res["open_ters"] == want, "resume: submit answers' TERs wrong")
+    require(len(res["close_ters"]) == sum(g for _b, _k, g in entries)
+            and set(res["close_ters"].values()) == {int(TER.tesSUCCESS)},
+            "resume: closed TERs wrong")
+    require(res["hash"] == RESUME_HASH,
+            f"resumed close hash {res['hash']} differs from the JAX package's {RESUME_HASH}")
+    require(res["digest"] == RESUME_DIGEST, "resumed close: results digest differs")
+    require(res["nodes"] == RESUME_SAVE_NODES,
+            f"the resumed close's save wrote {res['nodes']} nodes, the JAX node's "
+            f"{RESUME_SAVE_NODES}")
+    require(sum(res["faults"].values()) > 0, "the resumed node faulted no node")
+    require(res["seal_faults"] == 0, f"{res['seal_faults']} nodes faulted inside a seal")
+    require(host_verifies == 0, f"{host_verifies} host signature verifications on resume")
+    require(vp["device_share"] == 1.0, f"resume device share {vp['device_share']}")
+    n_batch1 = by_batch.get(1, 0) - prewarm_k1.get(1, 0)
+    require(n_batch1 == len(entries), f"{n_batch1} K1 launches at batch 1 for "
+            f"{len(entries)} submits")
+    require(launches["sha512_masked"] > 0 and launches["tree_inner_level"] > 0,
+            "K2 or K3 never launched in the resume step")
+    require(probe.trees and all(host == only for host, only in probe.trees),
+            f"host-hashed nodes per sealed tree {probe.trees} differ from the nodes "
+            "K2/K3 cannot hash")
+    require(readbacks == tree_calls > 0, f"resume readbacks {readbacks}, tree calls "
+            f"{tree_calls}")
+    require(all(tree[k] == 0 for k in ABSORBED),
+            f"errors absorbed by the resumed close's helpers {tree}")
+    emit("resume", card=name_power, boot=boot, serve_ms=serve_ms, step_ms=step_ms,
+         resumed_seq=res["resumed"][0], closed_seq=res["seq"],
+         payments=len(entries), reads=len(rwl["reads"]), history_reads=len(rwl["history"]),
+         history_seq=RESUME_HISTORY_SEQ,
+         **{k: res[k] for k in ("reads_ms", "history_reads_ms", "submits_ms",
+                                "ledger_accept_ms", "persist_ms", "faults", "seal_faults",
+                                "nodes")},
+         close=last_close,
+         cache={k: cache_json[k] for k in ("resident_bytes", "limit_bytes", "size",
+                                           "hits", "misses", "faults", "evictions")},
+         tree_calls=tree_calls, readbacks=readbacks,
+         host_nodes_per_tree=[h for h, _o in probe.trees],
+         host_verifies=host_verifies, device_share=vp["device_share"],
+         k1_batch1_submits=n_batch1, hashes_equal_jax=True, reads_equal_jax=True,
+         launches=launches)
+    return {"launches": launches, "k1_batch1": n_batch1}
 
 
 def k4_matrix(n: int, seed: int):

@@ -721,10 +721,7 @@ class Config:
         if "drain_batch" in tree:
             cfg.tree_drain_batch = int(tree["drain_batch"])
         if "cache_mb" in tree:
-            raise ValueError(
-                "[tree] cache_mb sizes the lazy tree's resident set; lazy "
-                "loading is not part of this package (loads are eager)"
-            )
+            cfg.tree_cache_mb = int(tree["cache_mb"])
         if "fused" in tree:
             cfg.tree_fused = tree["fused"].lower() not in (
                 "0", "false", "no", "off"
@@ -927,10 +924,6 @@ class Config:
                 f"[spec] workers={self.spec_workers} (the parallel "
                 "speculation pool)"
             )
-        if self.node_db_shards:
-            unported.append("[node_db] shards= (history shards)")
-        if self.node_db_online_delete:
-            unported.append("[node_db] online_delete= (online deletion)")
         if self.health_enabled:
             unported.append("[health] enabled=1 (the health watchdog)")
         if self.kernel_tuning.strip().lower() not in ("", "none", "off"):

@@ -12,13 +12,16 @@ This is the JAX package's ``Node`` as a standalone node or as a
 networked validator: with ``[peer_port]`` and ``[standalone] 0`` it
 joins a TCP net (``overlay/tcp.py``), whose ``ValidatorNode`` owns the
 ledger chain, and it may take its clock from SNTP and its UNL from a
-validators file or site. The planes whose modules this package does not
-have stay ``None`` — the parallel speculation executor, the health
-watchdog and flight recorder, the history shards, online deletion, the
-follower and archive tiers and the ledger cleaner — and
-``Config.check_ported`` refuses a config that would turn one on.
-``[start_up] load`` resumes eagerly: lazy loading is ROADMAP Queue A
-item 6.
+validators file or site. Its state is out of core: ``[start_up] load``
+resumes the chain lazily (the header and two roots are read; every other
+node faults through the hot-node cache, ``[tree] cache_mb``), and so do
+the history fallback and historical reads. ``[node_db] online_delete=``
+sweeps retired history, sealing it first into history shards with
+``[node_db] shards=``, and the ledger cleaner checks stored ledgers. The
+planes whose modules this package does not have stay ``None`` — the
+parallel speculation executor, the health watchdog and flight recorder,
+and the follower and archive tiers — and ``Config.check_ported`` refuses
+a config that would turn one on.
 """
 
 from __future__ import annotations
@@ -184,18 +187,30 @@ class Node:
         self.nodestore = make_database(type=cfg.node_db_type, **db_kwargs)
         self.txdb = TxDatabase(cfg.database_path or ":memory:")
         # the JAX node's planes that this package does not have (the
-        # speculation executor, the ledger cleaner and online deletion,
-        # history shards, the archive tier, the flight recorder) are
-        # absent: the handlers read them with getattr, and the config
+        # speculation executor, the archive tier, the flight recorder)
+        # are absent: the handlers read them with getattr, and the config
         # refuses every key that would turn one on. The health watchdog
         # is read directly.
         self.health = None
 
-        # the process-wide hot-node cache of eager loads
+        # out-of-core state plane ([tree] cache_mb): the process-wide
+        # hot-node cache is the resident set for lazily-faulted trees —
+        # apply the operator's budget before anything loads a ledger
         from ..state.shamap import configure_inner_cache, inner_node_cache
 
         configure_inner_cache(cfg.tree_cache_mb)
         inner_node_cache().tracer = self.tracer  # `cache.fault` spans
+
+        # history shards ([node_db] shards=): rotation seals retired
+        # ranges here instead of discarding them (doc/storage.md)
+        self.shardstore = None
+        if cfg.node_db_shards:
+            from ..nodestore.shards import HistoryShardStore
+
+            shards_path = cfg.node_db_shards
+            if shards_path.lower() in ("1", "true", "yes", "on"):
+                shards_path = (cfg.node_db_path or "nodestore") + ".shards"
+            self.shardstore = HistoryShardStore(shards_path)
 
         # stellar CLF plane: SQL mirror + LCL pointer (reference:
         # stellar::gLedgerMaster + workingledger.db, Application.cpp:716)
@@ -225,6 +240,32 @@ class Node:
             depth=cfg.close_pipeline_depth,
             tracer=self.tracer,
         )
+
+        # online deletion (rippled SHAMapStore online_delete role): a
+        # rotation sweep driven from the validated-close stream keeps a
+        # validator's disk bounded near the live set ([node_db]
+        # online_delete=N; requires a backend with liveness — segstore).
+        # A full-history archive would contradict it: check_ported
+        # refuses [node] mode=archive.
+        self.online_deleter = None
+        if cfg.node_db_online_delete > 0:
+            if not getattr(
+                self.nodestore.backend, "supports_online_delete", False
+            ):
+                raise ValueError(
+                    f"[node_db] online_delete requires a backend with "
+                    f"liveness accounting (segstore), not "
+                    f"{cfg.node_db_type!r}"
+                )
+            from .ledgercleaner import OnlineDeleter
+
+            self.online_deleter = OnlineDeleter(
+                self,
+                retain=cfg.node_db_online_delete,
+                interval=cfg.node_db_online_delete_interval,
+                sql_trim=bool(cfg.node_db_sql_trim),
+                shardstore=self.shardstore,
+            )
 
         # crypto plane: cpu | cuda batch backends. The cuda hasher runs
         # under the wedge watchdog (a device call that never returns
@@ -286,8 +327,10 @@ class Node:
             cfg, fee_track=self.fee_track, tracer=self.tracer
         )
 
-        # trust + anti-DoS planes (reference: UNL :323, PoW factory :352)
+        # trust + anti-DoS planes (reference: UNL :323, PoW factory :352,
+        # LedgerCleaner)
         from ..utils.pow import PowFactory
+        from .ledgercleaner import LedgerCleaner
         from .unl import UniqueNodeList
 
         unl_path = cfg.database_path + ".unl" if cfg.database_path else None
@@ -336,6 +379,7 @@ class Node:
                     target=fetch_site, name="validators-site", daemon=True
                 ).start()
         self.pow_factory = PowFactory()
+        self.ledger_cleaner = LedgerCleaner(self)
 
         # ops plane: SNTP network clock + insight metrics (reference:
         # SNTPClient init Application.cpp:698-699, CollectorManager :287)
@@ -395,13 +439,17 @@ class Node:
         def _fetch_fallback(h: bytes):
             # history-cache miss -> the in-flight close-pipeline entry
             # (read-your-writes: a queued-but-unpersisted ledger must
-            # never miss), then rebuild from the NodeStore. The load is
-            # eager: lazy loading is ROADMAP Queue A item 6.
+            # never miss), then rebuild from the NodeStore (consensus
+            # promotion and peers must see everything persisted)
             led = self.close_pipeline.get(h)
             if led is not None:
                 return led
             try:
-                return Ledger.load(self.nodestore, h, hash_batch=self.hasher)
+                # lazy: history reads materialize only the nodes the
+                # caller actually touches (out-of-core plane) — opening
+                # a stored ledger is O(1), not O(state)
+                return Ledger.load(self.nodestore, h,
+                                   hash_batch=self.hasher, lazy=True)
             except (KeyError, ValueError):
                 return None
 
@@ -680,7 +728,18 @@ class Node:
             from .inbound import SegmentCatchup
 
             vn = self.overlay.node
-            vn.segment_source = backend
+            if self.shardstore is not None:
+                # history tiering: shard rows join the segment manifest
+                # so a cold peer below our trim floor syncs the gap from
+                # cold storage over the same GetSegments door
+                # (nodestore/shards.py)
+                from ..nodestore.shards import CombinedSegmentSource
+
+                vn.segment_source = CombinedSegmentSource(
+                    backend, self.shardstore
+                )
+            else:
+                vn.segment_source = backend
             vn.segment_catchup = SegmentCatchup(
                 send=self.overlay.send_segments_request,
                 peers=self.overlay.segment_peers,
@@ -792,14 +851,18 @@ class Node:
             # resume preference order (reference: loadLastKnownCLF
             # Application.cpp:729, then loadOldLedger :737-758): the CLF
             # state pointer is the atomically-committed source of truth;
-            # the txdb header index is the fallback. The load is eager
-            # (the JAX node's is lazy; ROADMAP Queue A item 6).
-            led = self.clf.load_last_known(self.nodestore, hash_batch=self.hasher)
+            # the txdb header index is the fallback
+            led = self.clf.load_last_known(
+                self.nodestore, hash_batch=self.hasher, lazy=True
+            )
             if led is None:
                 hdr = self.txdb.get_ledger_header()
                 if hdr is not None:
+                    # lazy resume (out-of-core plane): boot is O(1) in
+                    # state size — the working set faults in on demand
                     led = Ledger.load(
-                        self.nodestore, hdr["hash"], hash_batch=self.hasher,
+                        self.nodestore, hdr["hash"],
+                        hash_batch=self.hasher, lazy=True,
                     )
             if led is None:
                 self.ledger_master.start_new_ledger(self.master_keys.account_id)
@@ -1106,7 +1169,11 @@ class Node:
         self.load_manager.stop()
         self.ledger_master.stop_seal_drainer()
         if self.overlay is not None:
-            self.overlay.stop()
+            stop = getattr(self.overlay, "stop", None)
+            if stop is not None:  # embedders may attach bare adapters
+                stop()
+        if self.online_deleter is not None:
+            self.online_deleter.stop()
         # drain-on-stop guarantee: everything queued persists before the
         # stores close (the CLF pointer lands on the last closed ledger)
         self.close_pipeline.stop(timeout=60)
@@ -1123,6 +1190,8 @@ class Node:
         self.verify_plane.stop()
         self.nodestore.close()
         self.txdb.close()
+        if self.shardstore is not None:
+            self.shardstore.close()
         if self._debug_log_handler is not None:
             import logging
 
@@ -1137,6 +1206,17 @@ class Node:
         if self._gc_held:
             self._gc_held = False
             gcpolicy.release()
+
+    def _update_archive_floor(self) -> None:
+        """Publish the contiguous sealed-shard coverage hi
+        (``HistoryShardStore.contiguous_floor``) to the read plane's
+        forever tier: any result whose request window closes at or below
+        it is backed by offline-verified shard bytes and immutable, so
+        it is cached forever instead of per epoch. Only the archive tier
+        calls it, and [node] mode=archive is not part of this package."""
+        rp = getattr(self, "read_plane", None)
+        if rp is not None and self.shardstore is not None:
+            rp.set_archive_floor(self.shardstore.contiguous_floor())
 
     # -- persistence on close (reference: pendSaveValidated + CLF commit) --
 
@@ -1168,6 +1248,10 @@ class Node:
         # must never move the CLF resume pointer backwards.
         prev = self.ledger_master.get_ledger_by_hash(ledger.parent_hash)
         self.clf.commit_ledger_close(ledger, prev)
+        if self.online_deleter is not None:
+            # rotation hook: runs on the drain worker AFTER the ledger
+            # is fully durable; cheap check, sweeps happen in background
+            self.online_deleter.on_validated(ledger.seq)
 
     def _persist_tx_rows(self, ledger: Ledger, results: dict) -> None:
         """Header + tx rows in ONE sqlite transaction (close-pipeline txdb

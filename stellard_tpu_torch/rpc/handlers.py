@@ -210,12 +210,13 @@ def _load_historical(ctx: Context, ledger_hash: bytes) -> Optional[Ledger]:
     rebuilt ledger re-enters the cache so a polling client only pays the
     reconstruction once."""
     try:
-        # eager: the JAX node loads lazily and cold (its faults entering
-        # the hot cache an epoch behind); lazy loading is not part of
-        # this package (ROADMAP Queue A item 6), so the whole ledger is
-        # rebuilt, as the node's own history fallback does
+        # lazy: an RPC touching one account of a historical ledger must
+        # not deserialize the whole tree (out-of-core plane); cold: its
+        # faults enter the hot cache one epoch behind, so a deep
+        # history scan cannot thrash the serving snapshot's working set
         led = Ledger.load(
             ctx.node.nodestore, ledger_hash, hash_batch=ctx.node.hasher,
+            lazy=True, cold=True,
         )
     except (KeyError, ValueError, AttributeError):
         return None
@@ -2181,10 +2182,7 @@ def do_sms(ctx: Context) -> dict:
 @handler("ledger_cleaner", Role.ADMIN)
 def do_ledger_cleaner(ctx: Context) -> dict:
     """reference: handlers/LedgerCleaner.cpp — drive the integrity
-    checker. The checker is not part of this package (ROADMAP Queue A
-    item 6): without it the command answers notImpl."""
-    if getattr(ctx.node, "ledger_cleaner", None) is None:
-        raise RPCError("notImpl", "the ledger cleaner is not part of this build")
+    checker."""
     p = ctx.params
     if p.get("stop"):
         return ctx.node.ledger_cleaner.stop()

@@ -31,9 +31,10 @@ Three properties the plain TaggedCache (utils/taggedcache.py) lacked:
 
 Counters ride ``get_counts.shamap_inner_cache``.
 
-In this package the lazy trees are not ported yet: the eager
-``SHAMap.from_store`` (state/shamap.py) is the cache's one user, and
-its whole-subtree entries ride the ``EAGER_ENTRY_CAP`` count bound.
+Two users share it: the lazy trees' ``NodeSource`` (state/shamap.py),
+whose faults are byte-bounded entries, and the eager
+``SHAMap.from_store``, whose whole-subtree entries ride the
+``EAGER_ENTRY_CAP`` count bound instead.
 """
 
 from __future__ import annotations
@@ -89,6 +90,9 @@ class HotNodeCache:
         self.resident_bytes = 0
         self.epoch = 0
         self._eager_count = 0
+        # entries stamped before the current epoch: eviction's first
+        # pass takes them, and skips its scan when there are none
+        self._old_count = 0
         # counters (get_counts.shamap_inner_cache)
         self.hits = 0
         self.misses = 0
@@ -112,6 +116,7 @@ class HotNodeCache:
         with self._lock:
             if epoch > self.epoch:
                 self.epoch = epoch
+                self._old_count = len(self._data)  # every stamp is behind it
 
     # -- cache ops ---------------------------------------------------------
 
@@ -121,7 +126,7 @@ class HotNodeCache:
             if entry is None:
                 self.misses += 1
                 return None
-            entry[2] = self.epoch
+            self._restamp(entry)
             self._data.move_to_end(key)
             self.hits += 1
             return entry[0]
@@ -140,10 +145,9 @@ class HotNodeCache:
         with self._lock:
             old = self._data.pop(key, None)
             if old is not None:
-                self.resident_bytes -= old[1]
-                if old[3]:
-                    self._eager_count -= 1
+                self._drop(old)
             epoch = self.epoch - 1 if cold else self.epoch
+            self._old_count += cold
             self._data[key] = [node, cost, epoch, eager]
             self.resident_bytes += cost
             if eager:
@@ -162,7 +166,7 @@ class HotNodeCache:
             with self._lock:
                 entry = self._data.get(key)
                 if entry is not None:
-                    entry[2] = self.epoch
+                    self._restamp(entry)
                     self._data.move_to_end(key)
                     self.hits += 1
                     return entry[0]
@@ -209,6 +213,20 @@ class HotNodeCache:
 
     # -- eviction ----------------------------------------------------------
 
+    def _restamp(self, entry: list) -> None:
+        """A hit: the entry joins the current epoch."""
+        if entry[2] < self.epoch:
+            self._old_count -= 1
+        entry[2] = self.epoch
+
+    def _drop(self, entry: list) -> None:
+        """Account for an entry leaving the cache (the caller popped it)."""
+        self.resident_bytes -= entry[1]
+        if entry[3]:
+            self._eager_count -= 1
+        if entry[2] < self.epoch:
+            self._old_count -= 1
+
     def _evict_locked(self) -> None:
         # pass 0: bound EAGER entries by count (each pins an unaccounted
         # whole subtree — TaggedCache-parity semantics for the eager
@@ -225,38 +243,39 @@ class HotNodeCache:
                     if len(victims) == excess:
                         break
             for key in victims:
-                _n, cost, _e, _eager = self._data.pop(key)
-                self.resident_bytes -= cost
-                self._eager_count -= 1
+                entry = self._data.pop(key)
+                self._drop(entry)
                 self.evictions += 1
-                self.evicted_bytes += cost
+                self.evicted_bytes += entry[1]
         if self.resident_bytes <= self.limit_bytes:
             return
-        # pass 1: old-epoch entries in LRU order (the serving snapshot's
-        # current-epoch working set survives a cold history scan)
-        cur = self.epoch
-        if any(e[2] < cur for e in self._data.values()):
-            for key in [
-                k for k, e in self._data.items() if e[2] < cur
-            ]:
-                if self.resident_bytes <= self.limit_bytes:
-                    return
-                _node, cost, _e, eager = self._data.pop(key)
-                self.resident_bytes -= cost
-                if eager:
-                    self._eager_count -= 1
+        # pass 1: old-epoch entries in LRU order, until the bound holds
+        # (the serving snapshot's current-epoch working set survives a
+        # cold history scan). The scan stops at the last victim, and is
+        # skipped when no entry is old: testing every entry on every
+        # insert over the bound makes a walk larger than the cache
+        # quadratic
+        if self._old_count:
+            cur, need, victims = self.epoch, self.resident_bytes - self.limit_bytes, []
+            for k, e in self._data.items():
+                if e[2] < cur:
+                    victims.append(k)
+                    need -= e[1]
+                    if need <= 0 or len(victims) == self._old_count:
+                        break
+            for key in victims:
+                entry = self._data.pop(key)
+                self._drop(entry)
                 self.evictions += 1
-                self.evicted_bytes += cost
+                self.evicted_bytes += entry[1]
                 self.epoch_first_evictions += 1
         # pass 2: pure LRU — current-epoch entries too, because the
         # byte bound always wins (re-faulting is cheap; OOM is not)
         while self.resident_bytes > self.limit_bytes and self._data:
-            _key, (_node, cost, _e, eager) = self._data.popitem(last=False)
-            self.resident_bytes -= cost
-            if eager:
-                self._eager_count -= 1
+            _key, entry = self._data.popitem(last=False)
+            self._drop(entry)
             self.evictions += 1
-            self.evicted_bytes += cost
+            self.evicted_bytes += entry[1]
 
     # -- introspection -----------------------------------------------------
 
@@ -265,6 +284,7 @@ class HotNodeCache:
             self._data.clear()
             self.resident_bytes = 0
             self._eager_count = 0
+            self._old_count = 0
 
     def __len__(self) -> int:
         with self._lock:

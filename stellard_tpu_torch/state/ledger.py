@@ -13,8 +13,8 @@ with the reference (src/ripple_app/ledger/Ledger.cpp):
 Closing a ledger is functional: `close()` snapshots into an immutable
 closed ledger and the caller opens a successor with `open_successor()` —
 the persistent SHAMap makes both O(1). ``save`` persists both trees and
-the header into a NodeStore; ``load`` rebuilds a ledger from one
-eagerly (the lazy, out-of-core load is not part of this package yet).
+the header into a NodeStore; ``load`` rebuilds a ledger from one,
+eagerly or as lazy trees that fault their nodes on first touch.
 """
 
 from __future__ import annotations
@@ -437,17 +437,20 @@ class Ledger:
     @classmethod
     def load(cls, db: Database, ledger_hash: bytes,
              hash_batch: Optional[Callable] = None,
-             lazy: bool = False) -> "Ledger":
+             lazy: bool = False, cold: bool = False) -> "Ledger":
         """Rebuild a ledger (header + both trees) from the NodeStore —
         the checkpoint/resume path (reference: Application loadOldLedger,
         Ledger::Ledger(blob) Ledger.cpp:120-175). Every node is fetched
         and content-checked now (SHAMap.from_store), and the rebuilt
-        header must hash to `ledger_hash`. `lazy=True` (the out-of-core
-        load) is not part of this package and raises."""
-        if lazy:
-            raise NotImplementedError(
-                "lazy Ledger.load is not part of stellard_tpu_torch"
-            )
+        header must hash to `ledger_hash`.
+
+        With `lazy` (the out-of-core plane) only the header and the two
+        tree ROOTS are read now; every other node is a hash-only stub
+        that faults from this store through the bounded hot-node cache
+        on first touch (`cold`: one epoch behind, for a history read).
+        Opening a million-account ledger is O(1); the eager path's
+        whole-tree hash re-verification is traded for per-node content
+        verification at fault time (the same check, paid lazily)."""
         obj = db.fetch(ledger_hash)
         if obj is None:
             raise KeyError(f"missing ledger {ledger_hash.hex()}")
@@ -462,6 +465,15 @@ class Ledger:
             return o.data if o else None
 
         kw: dict = {"hash_batch": hash_batch} if hash_batch else {}
+        if lazy:
+            def fetch(h: bytes) -> Optional[bytes]:  # noqa: F811
+                o = db.fetch(h)
+                return o.data if o else None
+
+            # store_known=db.flushed marks the trees as backed by THIS
+            # store: flushing them (or descendants sharing their
+            # subtrees) back into it never faults clean cold branches
+            kw.update(lazy=True, store_known=db.flushed, cold=cold)
         led = cls(
             seq=f["seq"],
             parent_hash=f["parent_hash"],
@@ -482,8 +494,10 @@ class Ledger:
                 f"ledger hash mismatch after load: want {ledger_hash.hex()} "
                 f"got {led.hash().hex()}"
             )
-        # only after the full tree verified do the fetched nodes count
-        # as known-good in this store (a corrupt node must stay
-        # rewritable)
-        db.flushed.update(fetched)
+        if not lazy:
+            # only after the full tree verified do the fetched nodes
+            # count as known-good in this store (a corrupt node must
+            # stay rewritable); the lazy path never claims this — each
+            # node verifies at fault time instead
+            db.flushed.update(fetched)
         return led

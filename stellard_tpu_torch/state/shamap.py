@@ -16,11 +16,12 @@ hash; ``compute_hashes`` groups the unhashed nodes by depth and hands
 them to a batch hasher, or the whole tree to a hasher's ``hash_tree``
 (the device-resident seal, crypto.backend.CudaHasher). Nodes persist
 to a NodeStore in the prefix format (``flush``; a blob is exactly the
-node's hashed bytes) and a tree is rebuilt from one eagerly
-(``from_store``, every node content-checked). This is the JAX package's
-state/shamap.py without its out-of-core plane: the lazy tree (``Stub``,
-``LazyInner``, ``NodeSource``) is not part of this package yet, and
-``from_store(lazy=True)`` raises.
+node's hashed bytes) and a tree is rebuilt from one (``from_store``,
+every node content-checked): eagerly, or lazily as the out-of-core tree,
+whose unmaterialized slots (``Stub``, ``LazyInner``) fault through a
+``NodeSource`` and the bounded hot-node cache on first descent. This is
+the JAX package's state/shamap.py with the Python merge only (no native
+pack or merge).
 """
 
 from __future__ import annotations
@@ -38,15 +39,21 @@ from ..utils.hashes import (
 )
 
 __all__ = [
-    "TNType", "SHAMapItem", "SHAMap", "Leaf", "Inner", "MissingNodeError",
+    "TNType", "SHAMapItem", "SHAMap", "Leaf", "Inner",
+    "Stub", "LazyInner", "NodeSource", "MissingNodeError",
     "encode_nodes", "compute_hashes", "inner_node_cache", "configure_inner_cache",
     "resolve_node",
 ]
 
 
 class MissingNodeError(KeyError):
-    """A tree node could not be fetched from the store (the seam where
-    network acquisition hooks in)."""
+    """A tree node could not be fetched from the store. On lazy trees
+    this can surface MID-WALK, long after the tree opened — e.g. an
+    online-deletion sweep retired a cached historical ledger's nodes —
+    so consumers that used to rely on Ledger.load's all-or-nothing
+    materialization catch THIS (rpc dispatch maps it to lgrNotFound;
+    the overlay serving path answers with silence) instead of leaking
+    a bare KeyError."""
 
 
 ZERO256 = b"\x00" * 32
@@ -143,13 +150,158 @@ class Inner:
 EMPTY_INNER = Inner((None,) * 16, hash=ZERO256)
 
 
+# --------------------------------------------------------------------------
+# out-of-core faulting: Stub / LazyInner / NodeSource (doc/storage.md)
+#
+# A lazy tree holds *unmaterialized* child slots: a `Stub` knows only a
+# node hash and the `NodeSource` to fault it from. Stubs always carry a
+# hash (`_hash` is set at construction), so every hash-driven fast path
+# — compute_hashes skipping sealed subtrees, compare's hash
+# short-circuit, encode_nodes reading child hashes — works on a stub
+# without touching the store. Only an actual *descent* through the slot
+# faults, and the faulted node lives in the process-wide HotNodeCache
+# (state/hotcache.py), NOT in the tree: the slot keeps its stub, so
+# evicting the cache entry really frees the node and the resident set
+# stays bounded by `[tree] cache_mb` regardless of state size.
+
+
+class Stub:
+    """Unmaterialized child slot: hash + where to fault it from."""
+
+    __slots__ = ("_hash", "source")
+
+    def __init__(self, hash: bytes, source: "NodeSource"):
+        self._hash = hash
+        self.source = source
+
+    def resolve(self):
+        """Fault the node (through the hot cache)."""
+        return self.source.load(self._hash)
+
+    def __repr__(self):
+        return f"Stub({self._hash.hex()[:16]}…)"
+
+
+class LazyInner(Inner):
+    """Faulted inner node that stays PACKED: the 512-byte child-hash
+    area is kept as one bytes object and `child(b)` resolves straight
+    off a 32-byte slice. The 16-slot `children` tuple of Stub objects
+    materializes only when something iterates it (mutation copies,
+    whole-subtree walks); key-guided descents (`get`, `succ`,
+    bulk_update path prefaults) never pay for the 16 sibling objects."""
+
+    __slots__ = ("raw", "source")
+
+    def __init__(self, raw: bytes, source: "NodeSource", hash: bytes):
+        # deliberately NOT calling Inner.__init__: the `children` slot
+        # stays unset until __getattr__ materializes it
+        self.raw = raw
+        self.source = source
+        self._hash = hash
+
+    def __getattr__(self, name):
+        if name == "children":
+            raw, src = self.raw, self.source
+            ch = tuple(
+                None if raw[i * 32: (i + 1) * 32] == ZERO256
+                else Stub(raw[i * 32: (i + 1) * 32], src)
+                for i in range(16)
+            )
+            # benign write race: concurrent materializers build equal
+            # tuples of content-addressed stubs; either assignment wins
+            self.children = ch
+            return ch
+        raise AttributeError(name)
+
+    def child_hash(self, b: int) -> bytes:
+        return self.raw[b * 32: (b + 1) * 32]
+
+    def child(self, b: int):
+        h = self.raw[b * 32: (b + 1) * 32]
+        if h == ZERO256:
+            return None
+        return self.source.load(h)
+
+    def is_empty(self) -> bool:
+        return self.raw == ZERO256 * 16
+
+    def branch_count(self) -> int:
+        raw = self.raw
+        return sum(
+            1 for i in range(16)
+            if raw[i * 32: (i + 1) * 32] != ZERO256
+        )
+
+
+class NodeSource:
+    """The fault door of a lazy tree: content-addressed loads through
+    the process-wide hot-node cache, single-flight per hash.
+
+    `known` is the identity of the backing store (the Database's
+    `flushed` set): SHAMap.flush skips any stub/lazy subtree whose
+    source carries the same `known` object — those bytes are already
+    durably in that store, so a close's save never faults the cold
+    tail just to re-write it.
+
+    `cold` marks a historical scan (an RPC touching an old ledger):
+    its faults enter the hot cache one epoch behind, so a deep history
+    walk becomes first-pass eviction fodder instead of flushing the
+    serving snapshot's working set (the readplane epoch contract)."""
+
+    __slots__ = ("fetch", "verify", "known", "cold")
+
+    def __init__(self, fetch: Callable[[bytes], Optional[bytes]],
+                 verify: bool = True, known: Optional[set] = None,
+                 cold: bool = False):
+        self.fetch = fetch
+        self.verify = verify
+        self.known = known
+        self.cold = cold
+
+    def load(self, h: bytes):
+        """Leaf | LazyInner for `h`, faulting through the hot cache."""
+        return inner_node_cache().get_or_load(h, self._load,
+                                              cold=self.cold)
+
+    def _load(self, h: bytes):
+        blob = self.fetch(h)
+        if blob is None:
+            raise MissingNodeError(f"missing node {h.hex()}")
+        if self.verify:
+            if sha512_half(blob) != h:
+                raise ValueError(
+                    f"node content hash mismatch: key {h.hex()[:16]}"
+                )
+        if len(blob) >= 4 and \
+                int.from_bytes(blob[:4], "big") == HP_INNER_NODE:
+            if len(blob) != 516:
+                raise ValueError(f"bad inner node length {len(blob) - 4}")
+            return LazyInner(blob[4:], self, h), len(blob)
+        node = deserialize_node_prefix(blob)
+        if isinstance(node, InnerStub):  # unreachable; defensive
+            raise ValueError("inner blob misclassified")
+        node._hash = h
+        return node, len(blob)
+
+
 def resolve_node(node):
-    """The accessor every traversal outside this module uses before
-    type-dispatching on Leaf/Inner (state/shamapsync.py walks,
-    node/inbound.py serving). In the JAX package it faults a lazy
-    ``Stub``; this package's trees are eager (no ``Stub`` until the
-    out-of-core state is ported), so it returns `node` as it is."""
+    """Fault `node` if it is a stub; identity otherwise. The accessor
+    every traversal outside this module uses before type-dispatching on
+    Leaf/Inner (state/shamapsync.py walks, node/inbound.py serving)."""
+    if type(node) is Stub:
+        return node.resolve()
     return node
+
+
+_resolve = resolve_node
+
+
+def _step(node, b: int):
+    """Child slot `b` of an inner: plain tuple index for Inner, packed
+    raw-slice fault for LazyInner (no sibling-stub materialization)."""
+    if type(node) is Inner:
+        return node.children[b]
+    return node.child(b)
 
 
 def _nibble(key: bytes, depth: int) -> int:
@@ -164,6 +316,7 @@ def _nibble(key: bytes, depth: int) -> int:
 
 
 def _set_item(node, key: bytes, leaf: Leaf, depth: int):
+    node = _resolve(node)
     if node is None:
         return leaf
     if isinstance(node, Leaf):
@@ -193,6 +346,7 @@ def _del_item(node, key: bytes, depth: int):
     """Returns the replacement node (None if subtree empty), or raises
     KeyError. Collapses single-leaf inners on the way up (reference:
     SHAMap::delItem single-child fold-up)."""
+    node = _resolve(node)
     if node is None:
         raise KeyError(key.hex())
     if isinstance(node, Leaf):
@@ -205,7 +359,7 @@ def _del_item(node, key: bytes, depth: int):
     children[b] = new_child
     live = [c for c in children if c is not None]
     if len(live) == 1:
-        only = live[0]
+        only = _resolve(live[0])  # the fold-up candidate may be a stub
         if isinstance(only, Leaf):
             return only
     if not live:
@@ -256,6 +410,7 @@ def _bulk_merge(node, ops: list, lo: int, hi: int, depth: int,
     property the differential suite pins."""
     if lo >= hi:
         return node
+    node = _resolve(node)
     if hi - lo == 1:
         # singleton run: the lean per-key primitives finish the path
         k, leaf = ops[lo]
@@ -315,7 +470,7 @@ def _bulk_merge(node, ops: list, lo: int, hi: int, depth: int,
     if not live:
         return None
     if len(live) == 1:
-        only = live[0]
+        only = _resolve(live[0])  # the fold-up candidate may be a stub
         if isinstance(only, Leaf):
             return only  # single-leaf fold-up (del_item parity)
     return Inner(tuple(children))
@@ -323,15 +478,17 @@ def _bulk_merge(node, ops: list, lo: int, hi: int, depth: int,
 
 def _get(node, key: bytes, depth: int) -> Optional[SHAMapItem]:
     while node is not None:
+        node = _resolve(node)
         if isinstance(node, Leaf):
             return node.item if node.item.tag == key else None
-        node = node.children[_nibble(key, depth)]
+        node = _step(node, _nibble(key, depth))
         depth += 1
     return None
 
 
 def _walk_leaves(node) -> Iterator[Leaf]:
     """Leaves in ascending key order (radix order == numeric order)."""
+    node = _resolve(node)
     if node is None:
         return
     if isinstance(node, Leaf):
@@ -495,11 +652,14 @@ def serialize_node_wire(node) -> bytes:
     return item.data + item.tag + bytes([trailer])
 
 
-# process-wide memo of deserialized-and-resolved inner nodes, keyed by
-# node hash (content-addressed, so sharing across stores and trees is
-# always sound): the HotNodeCache (state/hotcache.py). For the eager
-# from_store path a hit returns a whole resolved subtree in O(1); its
-# entries ride the cache's EAGER_ENTRY_CAP count bound.
+# process-wide memo of deserialized-and-resolved nodes, keyed by node
+# hash (content-addressed, so sharing across stores and trees is always
+# sound): the byte-bounded, epoch-aware HotNodeCache (state/hotcache.py).
+# For lazy trees it IS the resident hot set ([tree] cache_mb) and its
+# fault counters are the out-of-core evidence in
+# get_counts.shamap_inner_cache; for the eager from_store path a hit
+# returns a whole resolved subtree in O(1), and those entries ride the
+# cache's EAGER_ENTRY_CAP count bound.
 _INNER_CACHE = None
 
 
@@ -585,15 +745,19 @@ class SHAMap:
     """Mutable handle over a persistent radix tree.
 
     Mirrors the reference SHAMap surface (src/ripple_app/shamap/SHAMap.h):
-    add/update/del items, hash, snapshot, flush to a NodeStore, rebuild
-    from a NodeStore by root hash.
+    add/update/del items, hash, snapshot, compare, flush to a NodeStore,
+    rebuild from a NodeStore by root hash.
     """
 
     def __init__(self, leaf_type: TNType = TNType.ACCOUNT_STATE, root=None,
-                 hash_batch: Callable = _default_hasher):
+                 hash_batch: Callable = _default_hasher,
+                 source: Optional[NodeSource] = None):
         self.leaf_type = leaf_type
         self.root = root if root is not None else EMPTY_INNER
         self.hash_batch = hash_batch
+        # non-None marks a lazy tree (out-of-core faulting): descents may
+        # hit Stub slots, which every traversal resolves on the way down
+        self._source = source
 
     # -- queries ----------------------------------------------------------
 
@@ -604,9 +768,10 @@ class SHAMap:
         """Typed leaf lookup, O(depth)."""
         node, depth = self.root, 0
         while node is not None:
+            node = _resolve(node)
             if isinstance(node, Leaf):
                 return node if node.item.tag == key else None
-            node = node.children[_nibble(key, depth)]
+            node = _step(node, _nibble(key, depth))
             depth += 1
         return None
 
@@ -637,17 +802,21 @@ class SHAMap:
         branch first, then scan higher branches for their smallest leaf."""
 
         def smallest(node) -> Optional[SHAMapItem]:
+            node = _resolve(node)
             while isinstance(node, Inner):
-                node = next((c for c in node.children if c is not None), None)
+                node = _resolve(
+                    next((c for c in node.children if c is not None), None)
+                )
             return node.item if node is not None else None
 
         def descend(node, depth) -> Optional[SHAMapItem]:
+            node = _resolve(node)
             if node is None:
                 return None
             if isinstance(node, Leaf):
                 return node.item if node.item.tag > key else None
             b = _nibble(key, depth)
-            found = descend(node.children[b], depth + 1)
+            found = descend(_step(node, b), depth + 1)
             if found is not None:
                 return found
             for c in node.children[b + 1 :]:
@@ -729,7 +898,8 @@ class SHAMap:
 
     def snapshot(self) -> "SHAMap":
         """O(1) immutable snapshot: share the persistent root."""
-        return SHAMap(self.leaf_type, self.root, self.hash_batch)
+        return SHAMap(self.leaf_type, self.root, self.hash_batch,
+                      source=self._source)
 
     def compare(self, other: "SHAMap", limit: int = 2**31) -> dict[bytes, tuple]:
         """Key → (this_item|None, other_item|None) for keys that differ
@@ -756,6 +926,9 @@ class SHAMap:
         def walk(a, b):
             if len(delta) > limit or same(a, b):
                 return
+            # resolve only AFTER the hash short-circuit: shared subtrees
+            # (stub vs anything carrying the same hash) never fault
+            a, b = _resolve(a), _resolve(b)
             a_items, b_items = items_of(a), items_of(b)
             if a_items is not None or b_items is not None:
                 if a_items is None:
@@ -795,7 +968,10 @@ class SHAMap:
         versions are skipped and the write cost per close is proportional
         to the delta, not total state. The set is per-store — flushing the
         same tree into a second store writes everything again there
-        (the reference's flushDirty dirty-list behaves the same way).
+        (the reference's flushDirty dirty-list behaves the same way). A
+        lazy tree's clean subtrees whose source is backed by the target
+        store (the source's `known` IS `known`) are skipped without
+        faulting; flushing into another store faults and writes them.
 
         The write set serializes through the flat-buffer node encoder
         (the same encoding the hash plane consumes — a prefix-format
@@ -814,6 +990,16 @@ class SHAMap:
         def visit(node):
             if node is None or node._hash in known:
                 return
+            # lazy subtrees: a stub or faulted-but-clean node whose
+            # source is backed by THIS store ("known" is the source's
+            # own flushed set) is already durably present — skip the
+            # whole subtree without faulting it. Flushing into a
+            # DIFFERENT store materializes and writes as usual.
+            src = getattr(node, "source", None)
+            if src is not None and src.known is known:
+                return
+            if type(node) is Stub:
+                node = node.source.load(node._hash)
             if isinstance(node, Inner):
                 for c in node.children:
                     visit(c)
@@ -850,6 +1036,8 @@ class SHAMap:
         verify: bool = True,
         use_cache: bool = True,
         lazy: bool = False,
+        store_known: Optional[set] = None,
+        cold: bool = False,
     ) -> "SHAMap":
         """Materialize a full tree from a content-addressed store
         (reference: SHAMap fetchNodeExternal path). Raises
@@ -865,23 +1053,38 @@ class SHAMap:
         longer holds. Nodes are immutable + content-addressed, which is
         what makes the sharing sound across stores and trees.
 
-        `lazy=True` (the out-of-core plane) is not part of this package
-        and raises."""
-        if lazy:
-            raise NotImplementedError(
-                "lazy SHAMap loading is not part of stellard_tpu_torch"
-            )
+        With `lazy` (the out-of-core plane), only the ROOT node is
+        fetched now; every child slot is a hash-only Stub that faults
+        from the store through the bounded hot-node cache on first
+        descent, and a missing or corrupt node raises then. Opening a
+        million-account ledger is O(1); walks, succ cursors, bulk_update
+        and the delta-replay splice fault on demand, byte-identical to
+        the eager tree. `store_known` identifies the backing store (the
+        Database's `flushed` set) so flushing back into the same store
+        never faults clean subtrees just to re-write them; `cold` enters
+        the faults into the hot cache one epoch behind (a history
+        read)."""
         if root_hash == ZERO256:
             return cls(leaf_type, EMPTY_INNER, hash_batch)
+        if lazy:
+            source = NodeSource(fetch, verify=verify, known=store_known,
+                                cold=cold)
+            root = source.load(root_hash)
+            if isinstance(root, Leaf):
+                children = [None] * 16
+                children[_nibble(root.item.tag, 0)] = root
+                root = Inner(tuple(children))
+            return cls(leaf_type, root, hash_batch, source=source)
         cache = inner_node_cache() if use_cache else None
 
         def load(h: bytes):
             if cache is not None:
                 hit = cache.get(h)
-                # only a whole resolved Inner may enter an eager tree (the
-                # cache is also the lazy plane's resident set, whose
-                # entries hold unresolved children)
-                if hit is not None and type(hit) is Inner:
+                # only a whole resolved Inner or a leaf may enter an
+                # EAGER tree: a LazyInner hit (faulted by the out-of-core
+                # plane) has stubs below it, and eager trees (source=None)
+                # promise stub-free structure
+                if type(hit) is Inner or type(hit) is Leaf:
                     return hit
             blob = fetch(h)
             if blob is None:

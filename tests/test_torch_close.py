@@ -274,6 +274,46 @@ def run_node_closes(root: str, wl: dict, store, extra: str, book=None) -> dict:
     return out
 
 
+def run_resume(root: str, store, extra: str, wl: dict, first_sender: int,
+               close_index: int, history_seq: int, sizes: dict) -> dict:
+    """chip_smoke.py's resume step through one package's Node, on the
+    chain saved under ``store`` (its node stopped, its CLF closed): the
+    node built from the smoke's config with ``extra`` and
+    chip_smoke.RESUME_CONFIG (``[start_up] load``, the path plane off)
+    resumes lazily (chip_smoke.boot_resumed), serves,
+    and chip_smoke.drive_resume drives it, its ResumeProbe on the
+    package's lazy trees and, for a hasher with ``hash_tree`` (the
+    port's CudaHasher), on its seals. -> drive_resume's record, with the
+    boot's fetches and faults, whether the resumed ledger is lazy, and
+    the probe's (host-hashed, host-only) nodes per sealed tree."""
+    import importlib
+
+    Config = importlib.import_module(f"{root}.node.config").Config
+    Node = importlib.import_module(f"{root}.node.node").Node
+    shamap = importlib.import_module(f"{root}.state.shamap")
+    rwl = cs.resume_workload(wl, first_sender, **sizes)
+    cache = shamap.inner_node_cache()
+    cache.clear()
+    faults0 = cache.faults
+    text = cs.node_config_text(store, extra.format(floor=cs.BOOK_PRUNE_FLOOR)
+                               + cs.RESUME_CONFIG)
+    node, boot = cs.boot_resumed(Node, Config, text)
+    probe = None
+    try:
+        boot["faults"] = cache.faults - faults0
+        lazy = node.ledger_master.closed_ledger().state_map._source is not None
+        node.serve()
+        hasher = getattr(node.hasher, "inner", None)
+        probe = cs.ResumeProbe(shamap, hasher if hasattr(hasher, "hash_tree") else None)
+        res = cs.drive_resume(node, rwl, probe, close_index, history_seq=history_seq)
+    finally:
+        if probe is not None:
+            probe.restore()
+        node.ledger_master.stop_seal_drainer()
+        node.stop()
+    return dict(res, boot=boot, lazy=lazy, trees=list(probe.trees), entries=rwl["entries"])
+
+
 def txids(wl: dict, close: int) -> list[bytes]:
     return [JaxSTTx.from_bytes(b).txid() for b, _k, _g in wl["closes"][close]]
 
@@ -490,7 +530,10 @@ def test_chip_smoke_constants_through_the_jax_package(tmp_path):
     BOOK_RESULT_DIGESTS / STORE_DIGEST / SAVE_NODES (the node's segstore
     with its defaults, the start ledger saved first and each closed
     ledger by its close pipeline) and the default close's DELTAS /
-    TXDB_DIGESTS / CLF_DIGESTS (its txdb and CLF)."""
+    TXDB_DIGESTS / CLF_DIGESTS (its txdb and CLF); then the resume
+    step's RESUME_HASH / RESUME_DIGEST / RESUME_READ_DIGESTS /
+    RESUME_SAVE_NODES, the JAX node restarted with ``[start_up] load``
+    on the same store (run_resume)."""
     wl = cs.close_workload(**cs.CLOSE_SIZES)
     bwl = cs.book_workload(wl, **cs.BOOK_SIZES)
     jax = run_jax_node_closes(wl, tmp_path / "store", book=(bwl, cs.BOOK_PRUNE_FLOOR))
@@ -522,6 +565,28 @@ def test_chip_smoke_constants_through_the_jax_package(tmp_path):
     pipe = persist.pipeline.get_json()
     print("pipeline =", {k: pipe[k] for k in ("persisted", "failed", "depth_hwm")},
           "clf =", persist.clf.get_json())
+    # the resume step: the JAX node restarted lazily on the same store,
+    # under test_torch_resume.jax_lazy_parity (as it is, each Ledger it
+    # builds over a lazy tree walks the whole tree, 1.36 M nodes) and
+    # with a hot-node cache that holds the whole tree (its eviction
+    # reads every entry on every insert over the bound, and the path
+    # plane's first close faults every node); none of these changes a
+    # hash, a result, a read or a save count (tests/test_torch_resume.py
+    # holds the JAX node as it is and under the switches to the port)
+    from test_torch_resume import jax_lazy_parity
+
+    jax["node"].clf.db.close()
+    with pytest.MonkeyPatch.context() as mp:
+        jax_lazy_parity(mp)
+        resume = run_resume("stellard_tpu", tmp_path / "store",
+                            JAX_NODE + "\n[tree]\ncache_mb=4096\n", wl,
+                            cs.resume_first_sender(cs.BOOK_SIZES), len(closes),
+                            cs.RESUME_HISTORY_SEQ, cs.RESUME_SIZES)
+    print("RESUME_HASH =", resume["hash"])
+    print("RESUME_DIGEST =", resume["digest"])
+    print("RESUME_READ_DIGESTS =", resume["read_digests"])
+    print("RESUME_SAVE_NODES =", resume["nodes"])
+    print("resume boot =", resume["boot"], "faults =", resume["faults"])
     assert jax["start"] == cs.START_HASH
     assert got == (cs.CLOSE_HASHES, cs.CLOSE_DIGESTS)
     assert jax["stream"] == cs.CLOSE_HASHES
@@ -535,6 +600,12 @@ def test_chip_smoke_constants_through_the_jax_package(tmp_path):
     assert pipe["persisted"] == len(closes) and pipe["failed"] == 0
     assert deltas == cs.DELTAS
     assert persisted_digests == (cs.TXDB_DIGESTS, cs.CLF_DIGESTS)
+    assert resume["resumed"] == (cs.START_SEQ + len(closes), cs.BOOK_HASHES[-1])
+    assert not resume["read_errors"] and resume["seal_faults"] == 0
+    assert resume["open_ters"] == [int(TER.temINVALID) if kind == "bad_sig" else 0
+                                   for _b, kind, _g in resume["entries"]]
+    assert (resume["hash"], resume["digest"], resume["read_digests"], resume["nodes"]) == (
+        cs.RESUME_HASH, cs.RESUME_DIGEST, cs.RESUME_READ_DIGESTS, cs.RESUME_SAVE_NODES)
 
 
 def test_genesis_chain_with_held_transactions_equal():

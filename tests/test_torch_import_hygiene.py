@@ -60,6 +60,9 @@ def test_every_module_imports_without_jax():
     # and so is the networked validator's: the TCP overlay, its TLS and
     # discovery, the SNTP clock, the list sources and the test kit
     assert set(NETWORK_SLICE) <= set(mods)
+    # and so is the out-of-core state's: history shards, the cleaner and
+    # online deletion
+    assert set(OOC_SLICE) <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"
@@ -101,6 +104,12 @@ NETWORK_SLICE = tuple(f"stellard_tpu_torch.{m}" for m in (
     "node.sitefiles", "testkit", "testkit.tcpnet", "testkit.schedule", "testkit.workloads"))
 
 
+# the modules the out-of-core state's slice added (and the lazy tree it
+# extends)
+OOC_SLICE = tuple(f"stellard_tpu_torch.{m}" for m in (
+    "nodestore.shards", "node.ledgercleaner", "state.shamap", "state.hotcache"))
+
+
 def test_the_consensus_slice_imports_neither_jax_nor_the_jax_package():
     """Importing the consensus slice's modules alone (the SimNet and the
     validator pull in the ledger, engine and node modules they run on)
@@ -115,6 +124,13 @@ def test_the_networked_slice_imports_neither_jax_nor_the_jax_package():
     and peer discovery, the SNTP clock, the validator list sources and
     the test kit that launches port validator processes."""
     slice_imports_neither_jax_nor_the_jax_package(NETWORK_SLICE)
+
+
+def test_the_out_of_core_slice_imports_neither_jax_nor_the_jax_package():
+    """The same for the out-of-core state's slice: the history shards
+    (with the port's own native record scan), the ledger cleaner and
+    online deletion, and the lazy tree."""
+    slice_imports_neither_jax_nor_the_jax_package(OOC_SLICE)
 
 
 def slice_imports_neither_jax_nor_the_jax_package(modules) -> None:

@@ -582,8 +582,8 @@ def test_config_defaults_to_cuda_and_refuses_unported_planes():
         "[hash_backend]\ntype=cpp", "[signature_backend]\ntype=cuda\nmesh=2",
         "[hash_backend]\ntype=cuda\nmesh=auto", "[paths]\nmesh=4",
         "[spec]\nworkers=2", "[spec]\nworkers=auto", "[node]\nmode=archive",
-        "[node]\nmode=follower", "[node_db]\nshards=1", "[node_db]\nonline_delete=4",
-        "[health]\nenabled=1", "[kernel_tuning]\nKERNEL_TUNING.json", "[tree]\ncache_mb=2",
+        "[node]\nmode=follower",
+        "[health]\nenabled=1", "[kernel_tuning]\nKERNEL_TUNING.json",
         "[signature_backend]\ntype=cpu\nrouting=device",
         "[signature_backend]\ntype=cpu\nthreads=4",
     ):
@@ -593,6 +593,10 @@ def test_config_defaults_to_cuda_and_refuses_unported_planes():
         Config.from_ini("[signature_backend]\ntype=tpu")
     # the networked validator's keys parse (tests/test_torch_tcp_mixed.py
     # holds each to the JAX Config's value)
+    # and so do the out-of-core state's (tests/test_torch_tcp_mixed.py
+    # holds each to the JAX Config's value)
+    for text in ("[node_db]\nshards=1", "[node_db]\nonline_delete=4", "[tree]\ncache_mb=2"):
+        Config.from_ini(text)
     for text in ("[peer_port]\n51235\n[standalone]\n0", "[rpc_secure]\n1",
                  "[websocket_secure]\n1", "[sntp_servers]\npool.example 123",
                  "[validators_file]\nvalidators.txt"):

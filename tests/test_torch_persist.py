@@ -452,12 +452,23 @@ def test_node_serializations_equal():
 
 
 def test_lazy_loads_raise():
+    """A lazy load raises where a node is missing: at open for the
+    header and the roots, at fault time for every other node, and a
+    failed fault never gives way to an eager load."""
     db = port_ns.make_database("memory", async_writes=False)
-    lh = Ledger.genesis(ROOT).save(db)
-    with pytest.raises(NotImplementedError):
-        Ledger.load(db, lh, lazy=True)
-    with pytest.raises(NotImplementedError):
+    led = Ledger.genesis(ROOT)
+    lh = led.save(db)
+    with pytest.raises(KeyError):
+        Ledger.load(db, b"\x01" * 32, lazy=True)
+    with pytest.raises(port_shamap.MissingNodeError):
         port_shamap.SHAMap.from_store(lh, lambda _h: None, lazy=True)
+    lazy = Ledger.load(db, lh, lazy=True)
+    assert lazy.hash() == lh and lazy.state_map._source is not None
+    port_shamap.inner_node_cache().clear()
+    lazy.state_map._source.fetch = lambda _h: None
+    with pytest.raises(port_shamap.MissingNodeError):
+        list(lazy.state_map.items())
+    assert lazy.state_map._source is not None
 
 
 def test_configure_inner_cache_sets_the_byte_budget():
@@ -473,9 +484,10 @@ def test_configure_inner_cache_sets_the_byte_budget():
 
 
 def test_eager_tree_never_takes_a_foreign_cache_entry():
-    """Only a whole resolved Inner may come out of the shared cache into
-    an eager tree; any other entry under a node's hash is passed over and
-    the node is loaded from the store."""
+    """Only a whole resolved Inner (or a leaf) may come out of the shared
+    cache into an eager tree; any other entry under a node's hash (a
+    lazy tree's LazyInner among them) is passed over and the node is
+    loaded from the store."""
     m = port_shamap.SHAMap()
     for i in range(64):
         m.set_item(port_shamap.SHAMapItem(h(i), b"v%d" % i))
@@ -518,8 +530,10 @@ def test_hot_cache_evicts_as_the_jax_cache():
         k = rng.randrange(9000)
         if u < 0.6:
             ops.append(("put", k, rng.random() < 0.8, rng.random() < 0.1))
-        elif u < 0.9:
+        elif u < 0.8:
             ops.append(("get", k))
+        elif u < 0.9:
+            ops.append(("load", k, rng.random() < 0.1))
         elif u < 0.99:
             ops.append(("epoch", rng.randrange(1, 50)))
         else:
@@ -532,6 +546,9 @@ def test_hot_cache_evicts_as_the_jax_cache():
                 c.put(key, node, blob_len=516, eager=op[2], cold=op[3])
             elif op[0] == "get":
                 c.get(op[1].to_bytes(32, "big"))
+            elif op[0] == "load":  # a lazy tree's fault: a hit, or a cold or hot put
+                c.get_or_load(op[1].to_bytes(32, "big"),
+                              lambda _k, n=nodes[op[1] % len(nodes)]: (n, 100), cold=op[2])
             elif op[0] == "epoch":
                 c.advance_epoch(op[1])
             else:
@@ -541,6 +558,49 @@ def test_hot_cache_evicts_as_the_jax_cache():
         [(k, e[1:]) for k, e in jax_c._data.items()]
     assert port_c.get_json() == jax_c.get_json()
     assert port_c.evictions > 1000
+
+
+def test_hot_cache_eviction_reads_no_entry_when_none_is_old():
+    """A walk larger than the cache (a resumed node's first book-index
+    rebuild faults its whole state tree): once over the bound, each
+    insert evicts. The JAX cache's first pass reads every entry on every
+    such insert, old or not; the port's reads none while no entry is
+    old, and after an epoch makes every entry old it reads its victims
+    alone. Both evict the same entries (test_hot_cache_evicts_as_the_jax_cache)."""
+    from collections import OrderedDict
+
+    class Counting(OrderedDict):
+        read = 0
+
+        def items(self):
+            for kv in super().items():
+                Counting.read += 1
+                yield kv
+
+        def values(self):
+            for v in super().values():
+                Counting.read += 1
+                yield v
+
+    class Leafish:
+        item = type("I", (), {"data": b"x" * 100})()
+
+    reads = {}
+    for name, mod in (("jax", jax_hotcache), ("port", port_hotcache)):
+        c = mod.HotNodeCache(limit_bytes=100_000)
+        c._data = Counting()
+        Counting.read = 0
+        for i in range(3000):
+            c.put(i.to_bytes(32, "big"), Leafish())
+        over = Counting.read
+        c.advance_epoch(1)
+        Counting.read = 0
+        c.put(b"\xff" * 32, Leafish())
+        reads[name] = (over, Counting.read, c.evictions, c.epoch_first_evictions)
+    port, jax = reads["port"], reads["jax"]
+    assert port[2:] == jax[2:] and port[2] > 2000 and port[3] == 1
+    assert port[:2] == (0, 1)
+    assert jax[0] > 200 * jax[2]  # every resident entry (~250), every eviction
 
 
 def test_flush_marks_known_only_after_the_store_accepts(monkeypatch):

@@ -19,8 +19,9 @@ the port answers differently by design:
   answers over TLS, are in test_torch_tcp_defense.py;
 - the RPCSub URL callbacks (TestRpcSubUrlCallbacks): not part of this
   package, which answers a `url` subscription notImpl;
-- the ledger cleaner (`test_ledger_cleaner_runs_clean`): not part of
-  this package, so the command answers notImpl;
+- the ledger cleaner (`test_ledger_cleaner_runs_clean`): its twin run,
+  which holds the cleaner's answers but its wall-clock status polls, is
+  in test_torch_cleaner.py;
 - the profiler (`test_profile_captures_device_trace`,
   `test_trace_lifecycle_captures_xplane`): the port's `profile` records
   the card with torch.profiler, and without a CUDA device its start
@@ -52,7 +53,7 @@ from test_torch_txq import CpuConfig, run_method
 LEFT_OUT = {
     "TestSecureDoors": "run in test_torch_tcp_defense.py",
     "TestRpcSubUrlCallbacks": "RPCSub URL callbacks are not part of this package",
-    "test_ledger_cleaner_runs_clean": "the ledger cleaner is not part of this package",
+    "test_ledger_cleaner_runs_clean": "run in test_torch_cleaner.py",
     "test_profile_captures_device_trace": "the port's profile is torch.profiler on the card",
     "test_trace_lifecycle_captures_xplane": "the port's profile is torch.profiler on the card",
 }
@@ -173,8 +174,18 @@ def port_call(node, method, **params):
 
 
 def test_ledger_cleaner_answers_not_implemented(port_node):
+    """The cleaner is part of the port now: every verb answers as the
+    JAX node's does (the status of an idle cleaner, a scan of one
+    ledger, a stop) and none answers notImpl."""
+    idle = port_call(port_node, "ledger_cleaner")
+    assert idle["state"] == "idle" and idle["checked"] == 0
+    assert port_call(port_node, "ledger_cleaner", ledger=1) == {
+        "status": "started", "min_ledger": 1, "max_ledger": 1}
+    stopped = port_call(port_node, "ledger_cleaner", stop=True)
+    assert stopped["state"] in ("running", "done", "stopped")
+    assert stopped["failure_count"] == 0
     for params in ({}, {"ledger": 1}, {"stop": True}):
-        assert port_call(port_node, "ledger_cleaner", **params)["error"] == "notImpl"
+        assert "error" not in port_call(port_node, "ledger_cleaner", **params)
 
 
 def test_profile_without_a_card(port_node, tmp_path):

@@ -280,9 +280,16 @@ LIFTED = {
     "[sntp_servers]\ntime.example 123\npool.example\n": ("sntp_servers",),
     "[validators_file]\nvalidators.txt\n[validators_site]\nexample.com\n": (
         "validators_file", "validators_site"),
+    # the out-of-core state's: history shards, online deletion, the
+    # lazy trees' resident set
+    "[node_db]\nshards=1": ("node_db_shards",),
+    "[node_db]\nonline_delete=4": ("node_db_online_delete",),
+    "[node_db]\nonline_delete=8\nonline_delete_interval=2\nsql_trim=0\nshards=/s\n": (
+        "node_db_online_delete", "node_db_online_delete_interval", "node_db_sql_trim",
+        "node_db_shards"),
+    "[tree]\ncache_mb=2": ("tree_cache_mb",),
 }
-STILL_REFUSED = ("[node]\nmode=follower", "[node]\nmode=archive", "[node_db]\nshards=1",
-                 "[node_db]\nonline_delete=4", "[health]\nenabled=1",
+STILL_REFUSED = ("[node]\nmode=follower", "[node]\nmode=archive", "[health]\nenabled=1",
                  "[kernel_tuning]\nKERNEL_TUNING.json", "[spec]\nworkers=2")
 
 
