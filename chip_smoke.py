@@ -22,7 +22,23 @@ and checks every result:
               ~1% planted corruptions) through VerifyPlane(backend=
               "cuda", routing="device").verify_many in two 16,384
               chunks, then 4,096 submit() futures: every verdict as
-              expected, device share 1.0, no wedge.
+              expected, device share 1.0, no wedge. Two steps follow
+              the seal, each with its own line, wall and launch counts:
+              mesh — entry.dryrun_multichip (verify_and_count: K1 with
+              its count epilogue a shard, the counts summed on the card;
+              planted R/S/A corruptions in every second shard, a ragged
+              batch padded with zero rows, 64 mesh-hashed payloads
+              against hashlib) at the visible cards' width and over
+              MESH_SHARDS shards on this one card (not four cards), K1's
+              counted launches and K2's one a shard; verify_and_count
+              on a flood chunk at both widths, the same flags, equal to
+              K1's plain version, the totals to flags.sum(); timed.
+              point — K1 with STELLARD_VERIFY_CHECK=point's final check
+              against its plain version on the corpus with 4,096 lanes
+              and on a flood chunk, the flood's 32,768 through the
+              verifier's sharded call in point mode with the bytes
+              check's verdicts; K1's point, bytes and bytes-with-count
+              ms at 16,384 with their bounds.
 4. seal     — a 1,000,000-leaf state SHAMap and a 32,768-leaf
               transaction SHAMap sealed by CudaHasher.hash_tree, then a
               3,000-write / 300-delete delta re-sealed: every root equal
@@ -89,7 +105,9 @@ and checks every result:
 7. close    — the port's standalone Node under a payment flood
               (CLOSE_SIZES), built from a config beside the chain's store
               (NODE_CONFIG with PORT_NODE_DEVICE: both crypto planes on
-              the card, K1 for a single signature, admission caps that
+              the card at the default width mesh=auto, which get_counts
+              must report as every visible card, K1 for a single
+              signature, admission caps that
               never bind), its K1 prewarm joined by serve(): 1,000,000
               AccountRoots resumed through its LedgerMaster.load_ledger,
               then 4 closes of 4,096 signed Payments (~2% creating
@@ -202,7 +220,8 @@ and checks every result:
               The store is removed at the end.
 
 Launch counts are zeroed just before phases 3-4 and read just after, and
-again around phases 5, 6 (validator 0's launches), 7, 8, 10's replay and
+again around the flood phase's mesh step and the point step's drive of
+the flood, phases 5, 6 (validator 0's launches), 7, 8, 10's replay and
 its resume step;
 the kernels line shows the sum, the launches of the main path alone,
 and for K2 and K3 the consensus, tcp, close and book phases' launches by
@@ -279,6 +298,8 @@ WALK_DOUBLES = (256 * 4, 256 * 4)
 ADD = (8, 0)
 # 1/Z (the chain and 5 squarings and a multiply), then x and y
 ENCODE = (CHAIN_250[0] + 1 + 2, CHAIN_250[1] + 5)
+# the point check in its place: R's decode, then Xr*Z and Yr*Z
+POINT_CHECK = (DECODE[0] + 2, DECODE[1])
 
 
 def fe_ops(muls_sqs) -> int:
@@ -328,6 +349,22 @@ def cuda_ms(fn, reps: int):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def once_ms(fn):
+    """(ms of one call of fn() by CUDA events, unwarmed; its result): for
+    the plain versions, whose one call at the main path's shapes takes
+    seconds."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
 
 
 def raw_launch_ms(fn, args: list, reps: int) -> float:
@@ -420,12 +457,13 @@ def plant(pubs, msgs, sigs, seed: int):
     return expect, counts
 
 
-def k1_ops(batch: dict) -> int:
+def k1_ops(batch: dict, check: str = "bytes") -> int:
     """32-bit integer multiply ops K1's function needs on these inputs:
     lanes with a non-canonical S stop at once; lanes whose key does not
     decode stop after the decode; the walk adds once per nonzero digit of
     each scalar, in whichever 4-bit form has fewer: unsigned nibbles or
-    signed digits in [-8, 7]."""
+    signed digits in [-8, 7]. The final check is the inversion and
+    encode (``bytes``) or R's decode and two products (``point``)."""
     import numpy as np
 
     from stellard_tpu_torch.ops import ed25519_ref as ref
@@ -443,7 +481,8 @@ def k1_ops(batch: dict) -> int:
         nonzero += int(np.minimum((_nibbles_le(b) != 0).sum(1),
                                   (_signed_digits_le(b) != 0).sum(1)).sum())
     return (int(sc.sum()) * fe_ops(DECODE)
-            + int(decodes.sum()) * (fe_ops(TABLE) + fe_ops(WALK_DOUBLES) + fe_ops(ENCODE))
+            + int(decodes.sum()) * (fe_ops(TABLE) + fe_ops(WALK_DOUBLES)
+                                    + fe_ops(POINT_CHECK if check == "point" else ENCODE))
             + nonzero * fe_ops(ADD))
 
 
@@ -1784,6 +1823,15 @@ def run(dev) -> None:
          device_nodes=cuda_hasher.device_nodes, host_nodes=cuda_hasher.host_nodes)
     emit("launches", **launches)
 
+    # the flood phase's device width and K1's point check, each counted on
+    # its own
+    chunks = [prepare_batch(f_pubs[lo : lo + CHUNK], f_msgs[lo : lo + CHUNK],
+                            f_sigs[lo : lo + CHUNK]) for lo in range(0, N_FLOOD, CHUNK)]
+    mesh = mesh_step(dev, name_power, chunks[0], int32_rate)
+    point = point_step(dev, name_power, cmp_batch, np.concatenate([oracle, expect_lanes]),
+                       chunks, verdicts, int32_rate)
+    del chunks
+
     # K2 and K3 against their plain versions on the seal phase's trees, and
     # their times; then the trees go (a smaller heap for the collector)
     inners = widest_inner_level(state.root)
@@ -1867,9 +1915,11 @@ def run(dev) -> None:
         prep_ms.append((time.perf_counter() - t0) * 1e3)
         tens = to_tensors(host, dev)
         if lo == 0:
+            # the plain version's flags and time on this chunk are the
+            # mesh step's (one call, by CUDA events)
             chunk_host, chunk_tens = host, tens
             k1_ms, got = cuda_ms(lambda: ed25519_cuda.verify(**tens), reps=10)
-            k1_plain_ms, plain = cuda_ms(lambda: verify_kernel_ref(**tens), reps=1)
+            k1_plain_ms, plain = mesh["plain_ms"], mesh["plain_flags"]
         else:
             got, plain = ed25519_cuda.verify(**tens), verify_kernel_ref(**tens)
         err = max_abs_err(got, plain)
@@ -1971,6 +2021,23 @@ def run(dev) -> None:
              ms=k1_batch1["ms"], plain_ms=k1_batch1["plain_ms"],
              bound_ms=k1_batch1["bound_ms"], bound_by=k1_batch1["bound_by"],
              library_ms=None),
+        # the same kernel with the point final check (STELLARD_VERIFY_CHECK=
+        # point); its launches are the point step's drive of the flood
+        dict(name="ed25519_verify (point)", route="cuda",
+             source="stellard_tpu_torch/csrc/ed25519_verify.cu",
+             replaces="stellard_tpu/ops/ed25519_pallas.py:107",
+             launches=point["launches"], max_abs_err=point["max_abs_err"],
+             ms=point["point_ms"], plain_ms=point["plain_ms"], bound_ms=point["bound_ms"],
+             bound_by=point["bound_by"], library_ms=None),
+        # K1 with its count epilogue, one launch a shard, the shards'
+        # counts summed on the first device; its launches are the mesh
+        # step's two dry runs, its times at width 1 on a flood chunk
+        dict(name="verify_and_count", route="cuda",
+             source="stellard_tpu_torch/csrc/ed25519_verify.cu",
+             replaces="stellard_tpu/parallel/mesh.py:166",
+             launches=mesh["counted_k1_launches"], max_abs_err=mesh["max_abs_err"],
+             ms=mesh["ms"], plain_ms=mesh["plain_ms"], bound_ms=mesh["bound_ms"],
+             bound_by=mesh["bound_by"], library_ms=None),
         dict(name="sha512_masked", route="cuda",
              source="stellard_tpu_torch/csrc/sha512.cu",
              replaces="stellard_tpu/ops/treehash_jax.py:49",
@@ -1997,6 +2064,120 @@ def run(dev) -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+MESH_SHARDS = 4  # the mesh step's second run: four shards on the one card
+
+
+def mesh_step(dev, name_power: str, chunk: dict, int32_rate: float) -> dict:
+    """The device width (the flood phase's `mesh` line): the port's
+    ``entry.dryrun_multichip`` (verify_and_count with K1's count
+    epilogue, planted R/S/A corruptions, a ragged batch padded with zero
+    rows, 64 mesh-hashed payloads against hashlib) at the width of the
+    visible cards and again over MESH_SHARDS shards placed on this one
+    card, counted on its own: K1's counted launches and K2's are one a
+    shard. Then verify_and_count on the flood's first chunk at width 1
+    and over the shards on the card: the same flags at both widths,
+    equal to K1's plain version, and both totals (the count epilogue)
+    equal to its plain version, flags.sum(); timed at width 1."""
+    import numpy as np
+    import torch
+
+    from stellard_tpu_torch.entry import dryrun_multichip
+    from stellard_tpu_torch.ops import ed25519_cuda, treehash
+    from stellard_tpu_torch.ops.ed25519 import to_tensors, verify_kernel_ref
+    from stellard_tpu_torch.parallel import make_mesh, verify_and_count
+
+    t0 = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    ed25519_cuda.reset_launches()
+    treehash.reset_launches()
+    runs = [dryrun_multichip(n_cards, device="cuda"),
+            dryrun_multichip(MESH_SHARDS, device=[dev] * MESH_SHARDS)]
+    counted, k2 = ed25519_cuda.variant_launches["count"], treehash.launches["sha512_masked"]
+    require(counted == 2 * (n_cards + MESH_SHARDS),
+            f"{counted} counted K1 launches for two dry runs at widths {n_cards} and "
+            f"{MESH_SHARDS}: not one a shard")
+    require(k2 == n_cards + MESH_SHARDS, f"{k2} K2 launches for the dry runs' hashing")
+
+    tens = to_tensors(chunk, dev)
+    step1 = verify_and_count(make_mesh([dev]))
+    stepn = verify_and_count(make_mesh([dev] * MESH_SHARDS))
+    vac_ms, (flags1, total1) = cuda_ms(lambda: step1(**tens), reps=10)
+    flagsn, totaln = stepn(**tens)
+    plain_ms, (pflags, ptotal) = once_ms(
+        lambda: (lambda f: (f, f.sum(dtype=torch.int32)))(verify_kernel_ref(**tens)))
+    err = max(max_abs_err(flags1, pflags), max_abs_err(flagsn, pflags),
+              abs(int(total1) - int(ptotal)), abs(int(totaln) - int(ptotal)))
+    require(err == 0, "verify_and_count differs from its plain version on the flood chunk")
+    require(torch.equal(flags1, flagsn), "flags differ across widths")
+    bound, by = bound_ms(k1_ops(chunk), 130 * len(chunk["s_canonical"]) + 4, int32_rate)
+    out = {"card": name_power, "visible_cards": n_cards, "shards_on_one_card": MESH_SHARDS,
+           "dry_runs": [{k: v for k, v in r.items() if k != "flags"} for r in runs],
+           "counted_k1_launches": counted, "k2_launches": k2,
+           "chunk": len(chunk["s_canonical"]), "total": int(total1),
+           "total_shards": int(totaln), "flags_equal_across_widths": True,
+           "max_abs_err": err, "ms": vac_ms, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": by, "wall_s": time.perf_counter() - t0}
+    emit("mesh", **out)
+    # the plain K1 flags of the flood's first chunk, which K1's own
+    # comparison on that chunk (phase 9) takes instead of a second call
+    return {**out, "plain_flags": pflags}
+
+
+def point_step(dev, name_power: str, cmp_batch: dict, cmp_expect, chunks: list,
+               verdicts, int32_rate: float) -> dict:
+    """K1's point check (the flood phase's `point` line): against the
+    plain point version on the adversarial corpus with 4,096 flood
+    lanes, and on the flood's first chunk; then the flood's two chunks
+    driven through the verifier's sharded call in point mode, counted
+    on their own, with the bytes mode's verdicts. Timed at 16,384 beside
+    the bytes check and the bytes check with the count epilogue, each
+    with its bound (k1_ops recounted for the mode)."""
+    import numpy as np
+    import torch
+
+    from stellard_tpu_torch.ops import ed25519_cuda
+    from stellard_tpu_torch.ops.ed25519 import to_tensors, verify_kernel_ref
+    from stellard_tpu_torch.parallel import make_mesh, sharded_verify_kernel
+
+    t0 = time.perf_counter()
+    cmp_t = to_tensors(cmp_batch, dev)
+    got = ed25519_cuda.verify(**cmp_t, check="point")
+    err = max_abs_err(got, verify_kernel_ref(**cmp_t, check="point"))
+    require(err == 0, "K1's point check differs from its plain version on the corpus")
+    require(np.array_equal(got.cpu().numpy(), cmp_expect),
+            "K1's point check differs from the oracle on the corpus and lanes")
+    tens = [to_tensors(c, dev) for c in chunks]
+    point_ms, got0 = cuda_ms(lambda: ed25519_cuda.verify(**tens[0], check="point"), reps=10)
+    plain_ms, plain0 = once_ms(lambda: verify_kernel_ref(**tens[0], check="point"))
+    err = max(err, max_abs_err(got0, plain0))
+    require(err == 0, "K1's point check differs from its plain version on the flood chunk")
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    bytes_ms, _ = cuda_ms(lambda: ed25519_cuda.verify(**tens[0], check="bytes"), reps=10)
+    counted_ms, _ = cuda_ms(lambda: ed25519_cuda.verify(**tens[0], check="bytes", count=count),
+                            reps=10)
+    # the warm-up call and ten timed ones, each adding the chunk's accepts
+    require(int(count) == 11 * int(verdicts[:CHUNK].sum()), "the count epilogue miscounted")
+
+    # the flood through the verifier's own sharded call, in point mode
+    ed25519_cuda.reset_launches()
+    point = sharded_verify_kernel(make_mesh([dev]), check="point")
+    flood = np.concatenate([point(**t).cpu().numpy() for t in tens])
+    launches = ed25519_cuda.variant_launches["point"]
+    require(launches == len(chunks), f"{launches} point-mode launches for {len(chunks)} chunks")
+    require(np.array_equal(flood, verdicts), "the point check's flood verdicts differ from "
+            "the bytes check's")
+    bound_p, by_p = bound_ms(k1_ops(chunks[0], "point"), 130 * CHUNK, int32_rate)
+    bound_b, _ = bound_ms(k1_ops(chunks[0], "bytes"), 130 * CHUNK, int32_rate)
+    out = {"card": name_power, "corpus_and_lanes": int(got.numel()),
+           "flood": int(flood.size), "accepted": int(flood.sum()), "equal_bytes_mode": True,
+           "launches": launches, "max_abs_err": err, "chunk": CHUNK,
+           "point_ms": point_ms, "bytes_ms": bytes_ms, "bytes_count_ms": counted_ms,
+           "plain_ms": plain_ms, "bound_ms": bound_p, "bound_by": by_p,
+           "bytes_bound_ms": bound_b, "wall_s": time.perf_counter() - t0}
+    emit("point", **out)
+    return out
 
 
 def close_phase(dev, name_power: str, saver, int32_rate: float) -> dict:
@@ -2075,6 +2256,18 @@ def close_phase(dev, name_power: str, saver, int32_rate: float) -> dict:
     http = HttpRpc(node.http_server.port)
     counts = http.call("get_counts")
     http.close()
+    # the config's default width, auto: every visible card, reported by
+    # both planes
+    import torch
+
+    widths = {plane: {k: counts["crypto"][plane]["mesh"][k]
+                      for k in ("mesh_requested", "mesh_width", "devices_visible")}
+              for plane in ("verify", "hash")}
+    n_cards = torch.cuda.device_count()
+    require(cfg.verify_mesh == cfg.hash_mesh == "auto"
+            and all(w == {"mesh_requested": "auto", "mesh_width": n_cards,
+                          "devices_visible": n_cards} for w in widths.values()),
+            f"get_counts reports the widths {widths} for {n_cards} visible cards")
 
     closes = res["closes"]
     n_pay = sum(len(c) for c in wl["closes"])
@@ -2161,7 +2354,7 @@ def close_phase(dev, name_power: str, saver, int32_rate: float) -> dict:
         "k1_prewarm_launches": sum(prewarm_k1.values()), "k1_batch1_submits": n_batch1,
         "watchdog_calls": watchdog["calls"], "watchdog_start_ms": watchdog["start_ms"],
         "launches": launches, "launches_by_thread": by_thread,
-        "txq": counts["txq"],
+        "txq": counts["txq"], "mesh": widths,
     }
     emit("close", **summary)
     emit("door", card=name_power, per_close=[
@@ -3091,6 +3284,7 @@ def tcp_phase(dev, name_power: str, int32_rate: float) -> dict:
         treehash.reset_launches()
         keys.host_verifies = 0
         handshakes0 = overlay.handshake_verifies
+        calls0 = len(record)
         rechecks = [0]
         round_ms, submit_ms = [], []
         gc.callbacks.append(gc_clock)
@@ -3226,8 +3420,6 @@ def tcp_phase(dev, name_power: str, int32_rate: float) -> dict:
         require(launches["ed25519_verify"] > 0 and launches["sha512_masked"] > 0
                 and launches["tree_inner_level"] > 0,
                 "K1, K2 or K3 never launched on validator 0 in the tcp phase")
-        require(launches["ed25519_verify"] == len(record),
-                f"{launches['ed25519_verify']} K1 launches for {len(record)} plane calls")
         tree = node.ledger_master.tree_json()
         absorbed = {k: tree.get(k, 0) for k in ABSORBED}
         require(not any(absorbed.values()), f"validator 0's close absorbed errors: {absorbed}")
@@ -3241,6 +3433,10 @@ def tcp_phase(dev, name_power: str, int32_rate: float) -> dict:
             codes = net.stop()
     require(not run_errors, f"validator 0 failed: {run_errors!r}")
     require(all(c == 0 for c in codes.values()), f"tcp validators exited {codes}")
+    # one K1 launch a plane call, counted once validator 0 has stopped:
+    # the net goes on validating while the checks above read it
+    require(ed25519_cuda.launches == len(record) - calls0,
+            f"{ed25519_cuda.launches} K1 launches for {len(record) - calls0} plane calls")
 
     # every request validator 0 gave its plane, through K1's plain version
     # on the card in one batch: the verdict the plane gave on every lane

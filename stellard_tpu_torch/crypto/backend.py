@@ -12,17 +12,25 @@ verification batches and the ledger seal run on.
   (``ops.treehash``) — with the digests of a whole tree seal resident
   on the card.
 
+``mesh=`` is the device-width axis (``parse_mesh``: 0, N or ``auto``):
+a ``cuda`` backend cuts each batch into shards over that many devices
+(``parallel.mesh``), the cards of the host or, in the tests, an explicit
+list of CPU shards (``devices=``). Width 1 runs the same sharded code
+over a one-device mesh.
+
 A node builds its hasher with ``make_watched_hasher``: a ``cuda`` hasher
 runs under the wedge watchdog (``WatchdogHasher``), with every batch on
 the card by default, or, as an explicit choice, routed by the
-measured-cost model (``_HashCostModel``) between the card and the host
-above the floor ``min_device_nodes``. A device call that overruns its
-deadline raises, and so does every later call: nothing moves to the
-host after a wedge. ``PathQualityEvaluator`` routes on the same model.
+measured-cost model (``_HashCostModel``) between the host, one card
+(``dev1``) and the whole mesh (``devN``) above the floor
+``min_device_nodes``. A device call that overruns its deadline raises,
+and so does every later call: nothing moves to the host after a wedge.
+``PathQualityEvaluator`` routes on the same model.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from contextlib import nullcontext
@@ -34,16 +42,77 @@ import torch
 
 from ..utils.device import resolve_device
 
+log = logging.getLogger("stellard.device")
 
-def parse_width(mesh) -> int:
-    """The ``mesh=`` device-width axis. Only width 1 (one card) is
-    supported by this package; ``None``, ``""``, ``"off"``, ``0`` and
-    ``1`` all mean one card, anything else raises rather than silently
-    running narrower than asked."""
-    s = "" if mesh is None else str(mesh).strip().lower()
-    if s in ("", "off", "0", "1"):
-        return 1
-    raise ValueError(f"mesh={mesh!r}: only one device is supported (width 1)")
+
+def parse_mesh(value) -> str:
+    """Canonicalize a ``mesh=`` value (the device-width axis): ``"auto"``
+    or the string form of a non-negative int. ``0`` means "no mesh
+    requested", which runs as a width-1 mesh, the same sharded code as
+    every other width. Anything else raises: a width toggle must not
+    silently fail open into an unintended topology."""
+    if value is None:
+        return "0"
+    s = str(value).strip().lower()
+    if s in ("", "off"):
+        return "0"
+    if s == "auto":
+        return "auto"
+    try:
+        n = int(s)
+    except ValueError:
+        raise ValueError(
+            f"mesh= must be a non-negative integer or 'auto', got {value!r}"
+        ) from None
+    if n < 0:
+        raise ValueError(
+            f"mesh= must be a non-negative integer or 'auto', got {value!r}"
+        )
+    return str(n)
+
+
+def mesh_wants_width(value) -> bool:
+    """True when a ``mesh=`` value asks for more than one device (so the
+    host/1-card/N-card routing grows a separate one-card arm). "auto"
+    counts: its width is known only when the devices are listed."""
+    m = parse_mesh(value)
+    return m == "auto" or int(m) > 1
+
+
+def resolve_mesh_width(mesh, n_visible: int, pow2: bool = False) -> int:
+    """Effective width: ``auto`` -> every visible device, N -> min(N,
+    visible) (clamped with a warning), 0 -> 1. ``pow2=True`` rounds down
+    to a power of two, as the JAX package's hash plane does."""
+    m = parse_mesh(mesh)
+    n_visible = max(1, n_visible)
+    want = n_visible if m == "auto" else max(1, int(m))
+    if want > n_visible:
+        log.warning(
+            "mesh=%s requests %d devices but only %d are visible — "
+            "clamping to %d", m, want, n_visible, n_visible,
+        )
+    width = max(1, min(want, n_visible))
+    if pow2:
+        width = 1 << (width.bit_length() - 1)
+    return width
+
+
+def _visible(device, devices) -> list[torch.device]:
+    """The devices a backend's mesh is cut from: ``devices`` (an explicit
+    list, repeats allowed: N CPU shards in the tests), else every card of
+    the host with ``device`` first, or the one CPU."""
+    from ..parallel.mesh import visible_devices
+
+    if devices is not None:
+        out = [resolve_device(d) for d in devices]
+        if not out:
+            raise ValueError("devices= must name at least one device")
+        return out
+    return visible_devices(device)
+
+
+def _device_name(dev: torch.device) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
 
 
 @dataclass(frozen=True)
@@ -223,38 +292,54 @@ class TransferMeter:
 
 
 class CudaVerifier(BatchVerifier):
-    """Batched Ed25519 on the K1 kernel (ops.ed25519_cuda.verify).
+    """Batched Ed25519 on the K1 kernel (ops.ed25519_cuda.verify), the
+    batch sharded over a mesh of ``mesh=`` devices
+    (``parallel.mesh.sharded_verify_kernel``).
 
     Batches are cut into chunks of at most ``max_batch`` and
     double-buffered: the host prep of chunk i+1 (SHA-512 and mod-l of h,
     packing) runs while the card verifies chunk i, since a launch
-    returns before the kernel ends. K1 takes any batch size, so nothing
-    is padded. On ``device="cpu"`` the same path runs K1's plain
-    version (the tests use it)."""
+    returns before the kernel ends. K1 takes any batch size and the mesh
+    cuts a chunk into shards that differ by at most one row, so nothing
+    is padded. On ``device="cpu"`` the same path runs K1's plain version
+    (the tests use it, with ``devices=`` for N CPU shards)."""
 
     name = "cuda"
 
-    def __init__(self, max_batch: int = 16384, mesh=None, device="cuda"):
+    def __init__(self, max_batch: int = 16384, mesh="auto", device="cuda", devices=None):
+        from ..parallel.mesh import make_mesh, sharded_verify_kernel
+
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        self.mesh = parse_mesh(mesh)
+        visible = _visible(device, devices)
+        self.devices_visible = len(visible)
+        self.n_devices = resolve_mesh_width(self.mesh, len(visible))
+        self.device = visible[0]
+        self._kernel = sharded_verify_kernel(make_mesh(visible[: self.n_devices]))
+        self.kernel_selected = (
+            f"{'ed25519_verify' if self.device.type == 'cuda' else 'plain'}"
+            f"@{self.n_devices}"
+        )
         self.max_batch = max_batch
-        self.width = parse_width(mesh)
-        self.device = resolve_device(device)
         self.transfers = TransferMeter()
 
     def describe(self) -> dict:
+        """Which devices, width and kernel this verifier resolved to (the
+        get_counts crypto block)."""
         return {
-            "device": str(self.device),
-            "device_name": (torch.cuda.get_device_name(self.device)
-                            if self.device.type == "cuda" else "cpu"),
-            "width": self.width,
-            "kernel": "ed25519_verify" if self.device.type == "cuda" else "plain",
+            "mesh_requested": self.mesh,
+            "mesh_width": self.n_devices,
+            "devices_visible": self.devices_visible,
+            "platform": self.device.type,
+            "kernel": self.kernel_selected,
             "max_batch": self.max_batch,
+            "device": str(self.device),
+            "device_name": _device_name(self.device),
         }
 
     def verify_batch(self, batch: Sequence[VerifyRequest]) -> np.ndarray:
         from ..ops.ed25519 import prepare_batch, to_tensors
-        from ..ops.ed25519_cuda import verify
 
         out = np.zeros(len(batch), bool)
         pending = None  # (start, n, device verdicts) of the chunk in flight
@@ -273,7 +358,7 @@ class CudaVerifier(BatchVerifier):
                 [r.signature for r in chunk],
             )
             self.transfers.up(sum(v.nbytes for v in host.values()))
-            res = verify(**to_tensors(host, self.device))
+            res = self._kernel(**to_tensors(host, self.device))
             if pending is not None:
                 drain(pending)
             pending = (start, len(chunk), res)
@@ -297,6 +382,11 @@ class CudaHasher(BatchHasher):
       K2, inner levels through K3 reading their children by row — and
       ONE readback per tree (``tree_transfers.readbacks == tree_calls``).
 
+    Both paths shard their rows over a mesh of ``mesh=`` devices
+    (rounded down to a power of two, as the JAX hasher's width is),
+    ``parallel.mesh``'s ``sharded_masked_sha512`` and
+    ``sharded_tree_kernels``, the digest buffer on the first device.
+
     One hasher serves several threads at once: the close hashes its two
     trees on two helper threads while the seal drainer pre-hashes the
     next ledger's building tree. Every launch goes to the device's
@@ -309,9 +399,17 @@ class CudaHasher(BatchHasher):
     # whole-tree (fused) hashing on: the seal drainer takes hash_tree
     fused_enabled = True
 
-    def __init__(self, mesh=None, device="cuda"):
-        self.width = parse_width(mesh)
-        self.device = resolve_device(device)
+    def __init__(self, mesh="auto", device="cuda", devices=None):
+        from ..parallel.mesh import make_mesh, sharded_masked_sha512, sharded_tree_kernels
+
+        self.mesh = parse_mesh(mesh)
+        visible = _visible(device, devices)
+        self.devices_visible = len(visible)
+        self.n_devices = resolve_mesh_width(self.mesh, len(visible), pow2=True)
+        self.device = visible[0]
+        mesh_ = make_mesh(visible[: self.n_devices])
+        self._masked = sharded_masked_sha512(mesh_)
+        self._leaf, self._inner = sharded_tree_kernels(mesh_)
         self._lock = threading.Lock()
         self.tree_calls = 0
         self.host_nodes = 0
@@ -331,13 +429,23 @@ class CudaHasher(BatchHasher):
             self.device_nodes += device
 
     def describe(self) -> dict:
+        """Which devices, width and kernels this hasher resolved to, and
+        the whole-tree path's calls and meters (the get_counts crypto
+        block)."""
+        cuda = self.device.type == "cuda"
         return {
+            "mesh_requested": self.mesh,
+            "mesh_width": self.n_devices,
+            "devices_visible": self.devices_visible,
+            "kernel": f"{'sha512_masked' if cuda else 'plain'}@{self.n_devices}",
+            "tree_kernel": f"{'tree_inner_level' if cuda else 'plain'}@{self.n_devices}",
+            "tree_width": self.n_devices,
+            "tree_pipeline_calls": self.tree_calls,
+            "transfers": self.transfers.get_json(),
+            "tree_transfers": self.tree_transfers.get_json(),
             "device": str(self.device),
-            "device_name": (torch.cuda.get_device_name(self.device)
-                            if self.device.type == "cuda" else "cpu"),
-            "width": self.width,
-            "kernels": (["sha512_masked", "tree_inner_level"]
-                        if self.device.type == "cuda" else "plain"),
+            "device_name": _device_name(self.device),
+            "kernels": ["sha512_masked", "tree_inner_level"] if cuda else "plain",
         }
 
     def transfer_json(self) -> dict:
@@ -362,7 +470,7 @@ class CudaHasher(BatchHasher):
         return torch.from_numpy(arr).to(self.device)
 
     def _hash_msgs(self, msgs):
-        from ..ops.treehash import ladder_buckets, pad_leaf_batch, sha512_blocks_masked
+        from ..ops.treehash import ladder_buckets, pad_leaf_batch
         from ..utils.hashes import sha512_half
 
         out: list[Optional[bytes]] = [None] * len(msgs)
@@ -374,7 +482,7 @@ class CudaHasher(BatchHasher):
         for ladder, idxs in buckets:
             blocks, nblocks = pad_leaf_batch([msgs[i] for i in idxs], ladder)
             self.transfers.up(blocks.nbytes + nblocks.nbytes)
-            st = sha512_blocks_masked(self._upload(blocks), self._upload(nblocks))
+            st = self._masked(self._upload(blocks), self._upload(nblocks))
             results.append((idxs, st))
         for idxs, st in results:
             arr = st.cpu().numpy()  # [M, 16] u32
@@ -404,13 +512,7 @@ class CudaHasher(BatchHasher):
         level below; only children with a known hash (sealed siblings,
         oversized leaves) are written into its template, and the
         digests go back onto the nodes in one pass in row order."""
-        from ..ops.treehash import (
-            build_inner_template,
-            ladder_buckets,
-            pad_packed,
-            tree_inner_level,
-            tree_leaf_body,
-        )
+        from ..ops.treehash import build_inner_template, ladder_buckets, pad_packed
         from ..state.shamap import ZERO256, Inner, _collect_unhashed, encode_nodes
         from ..utils.hashes import HP_INNER_NODE, sha512_half
 
@@ -478,14 +580,14 @@ class CudaHasher(BatchHasher):
                 _k, ladder, lbuf, starts, lengths, off = step
                 blocks, nblocks = pad_packed(lbuf, starts, lengths, ladder)
                 self.tree_transfers.up(blocks.nbytes + nblocks.nbytes)
-                tree_leaf_body(buf, self._upload(blocks), self._upload(nblocks), off)
+                self._leaf(buf, self._upload(blocks), self._upload(nblocks), off)
             else:
                 _k, child_rows, known, known_words, off = step
                 template = build_inner_template(len(child_rows), HP_INNER_NODE)
                 node_i, slot = np.divmod(known, 16)
                 template[node_i[:, None], 1 + 8 * slot[:, None] + np.arange(8)] = known_words
                 self.tree_transfers.up(template.nbytes + child_rows.nbytes)
-                tree_inner_level(
+                self._inner(
                     buf, self._upload(template), self._upload(child_rows), off
                 )
 
@@ -548,9 +650,9 @@ class _RowIndex:
 
 
 register_verifier("cpu", CpuVerifier)
-register_verifier("cuda", CudaVerifier, options=("max_batch", "mesh", "device"))
+register_verifier("cuda", CudaVerifier, options=("max_batch", "mesh", "device", "devices"))
 register_hasher("cpu", CpuHasher)
-register_hasher("cuda", CudaHasher, options=("mesh", "device"))
+register_hasher("cuda", CudaHasher, options=("mesh", "device", "devices"))
 
 
 # --------------------------------------------------------------------------
@@ -583,24 +685,34 @@ def make_watched_hasher(backend: str,
                         routing: str = "device",
                         first_timeout: Optional[float] = None,
                         device="cuda",
+                        devices=None,
                         ) -> BatchHasher:
     """The ONE wiring for a possibly-device hasher: the cuda backend is
     wrapped in the wedge watchdog (a hung device call must fail the
     close, not freeze it) with a cpu host arm for cost routing; the cpu
     backend passes through untouched.
 
-    ``mesh`` is the [hash_backend] width axis (one card: ``parse_width``
-    raises above 1). ``routing`` "device" (default) sends every batch
-    at or over ``min_device_nodes`` to the card, "cost" routes by
-    measured cost; ``first_timeout`` is the wedge deadline; ``device``
-    the torch device of the cuda hasher ("cpu" runs the kernels' plain
-    versions)."""
+    ``mesh`` is the [hash_backend] width axis (``parse_mesh`` values,
+    ``auto`` when None). When the hasher resolves to more than one
+    device, the watchdog also gets a width-1 inner hasher: the one-card
+    arm of the host / 1-card / N-card cost routing. ``routing`` "device"
+    (default) sends every batch at or over ``min_device_nodes`` to the
+    widest arm,
+    "cost" routes by measured cost; ``first_timeout`` is the wedge
+    deadline; ``device`` the torch device of the cuda hasher ("cpu" runs
+    the kernels' plain versions) and ``devices`` an explicit list of
+    the devices its mesh is cut from."""
     if backend != "cuda":
         return make_hasher(backend)
-    hasher = make_hasher("cuda", mesh=mesh, device=device)
+    mesh = "auto" if mesh is None else mesh
+    hasher = make_hasher("cuda", mesh=mesh, device=device, devices=devices)
+    inner_one = None
+    if hasher.n_devices > 1:
+        # the one-card arm: the same sharded code at width 1
+        inner_one = make_hasher("cuda", mesh="0", device=device, devices=devices)
     return WatchdogHasher(
         hasher, make_hasher("cpu"), min_device_nodes=min_device_nodes,
-        routing=routing, first_timeout=first_timeout,
+        inner_one=inner_one, routing=routing, first_timeout=first_timeout,
     )
 
 
@@ -663,14 +775,13 @@ class _HashCostModel:
                 },
             }
 
-    def choose(self, n: int, arms: Optional[Sequence[str]] = None) -> str:
+    def choose(self, n: int) -> str:
         """Pick the arm for an n-node batch: ``"host"`` or a device arm
         name. Unmeasured device arms are explored first (in declared
         order); the host is measured once before any comparison; after
         that the cheapest measured arm wins, with bounded per-(arm,
         bucket) re-exploration of close losers."""
-        avail = [a for a in (arms if arms is not None else self.arms)
-                 if a in self._dev]
+        avail = self.arms
         with self._lock:
             if n < self.min_device_nodes or not avail:
                 return "host"  # below any plausible win size
@@ -742,9 +853,15 @@ class WatchdogHasher(BatchHasher):
     hasher launches K2 and K3 on shapes the wrapper cannot enumerate,
     so no call is provably build-free.
 
-    The inner hasher's meters are read through ``inner`` (and summed in
-    ``transfer_json``); ``device_nodes``/``host_nodes`` sum the inner
-    and the fallback.
+    ``inner_one`` (``make_watched_hasher`` builds it when the wide
+    hasher resolved to more than one device) is the one-card arm of the
+    host / 1-card / N-card routing: the arms are ``dev1`` and ``devN``
+    (the wide ``inner``), or ``device`` alone without it. The split
+    follows the JAX hasher's model; on CUDA it is not measured yet.
+
+    The inner hashers' meters are read through ``inner`` and
+    ``inner_one`` (and summed in ``transfer_json``);
+    ``device_nodes``/``host_nodes`` sum the arms and the fallback.
     """
 
     # [tree] fused kill-switch surface: node.py stamps cfg.tree_fused
@@ -757,11 +874,13 @@ class WatchdogHasher(BatchHasher):
                  first_timeout: Optional[float] = None,
                  warm_timeout: Optional[float] = None,
                  min_device_nodes: int = 0,
-                 routing: str = "device"):
+                 routing: str = "device",
+                 inner_one: Optional[BatchHasher] = None):
         from ..utils.devicewatch import resolve_timeouts
 
         self.inner = inner
         self.fallback = fallback
+        self.inner_one = inner_one
         self.name = inner.name
         self._t_first, _ = resolve_timeouts(first_timeout, warm_timeout)
         self.device_wedged = False
@@ -784,31 +903,43 @@ class WatchdogHasher(BatchHasher):
         if floor < 0:
             raise ValueError(f"min_device_nodes must be >= 0, got {floor}")
         self.min_device_nodes = floor
+        self._arm_names = ("dev1", "devN") if inner_one is not None else ("device",)
         self._flat = _HashCostModel(
-            reexplore_every=256, min_device_nodes=floor, arms=("device",),
+            reexplore_every=256, min_device_nodes=floor, arms=self._arm_names,
         )
         # tree model buckets per-node RATE in the size-independent
         # bucket 1 — the floor applies via the hash_tree hint, not here
         self._tree = _HashCostModel(reexplore_every=64)
 
+    def _inner_of(self, arm: str) -> BatchHasher:
+        if arm == "dev1" and self.inner_one is not None:
+            return self.inner_one
+        return self.inner
+
     @property
     def device_nodes(self):  # type: ignore[override]
-        return self.inner.device_nodes
+        one = self.inner_one.device_nodes if self.inner_one is not None else 0
+        return self.inner.device_nodes + one
 
     @device_nodes.setter
     def device_nodes(self, value):  # counter reset
         self.inner.device_nodes = value
+        if self.inner_one is not None:
+            self.inner_one.device_nodes = 0
 
     @property
     def host_nodes(self):  # type: ignore[override]
-        return self.inner.host_nodes + self.fallback.host_nodes
+        one = self.inner_one.host_nodes if self.inner_one is not None else 0
+        return self.inner.host_nodes + self.fallback.host_nodes + one
 
     @host_nodes.setter
     def host_nodes(self, value):  # counter reset
-        # round-trips: getter sums inner + fallback, so the value goes
-        # to inner and the fallback's share zeroes
+        # round-trips: getter sums the arms and the fallback, so the
+        # value goes to inner and the other shares zero
         self.inner.host_nodes = value
         self.fallback.host_nodes = 0
+        if self.inner_one is not None:
+            self.inner_one.host_nodes = 0
 
     def _wedge(self, exc: Exception) -> None:
         from ..utils.devicewatch import log as dlog
@@ -829,7 +960,7 @@ class WatchdogHasher(BatchHasher):
     def prefix_hash_batch(self, prefixes, payloads):
         return self._routed(
             len(prefixes),
-            lambda: self.inner.prefix_hash_batch(prefixes, payloads),
+            lambda arm: self._inner_of(arm).prefix_hash_batch(prefixes, payloads),
             lambda: self.fallback.prefix_hash_batch(prefixes, payloads),
         )
 
@@ -838,33 +969,36 @@ class WatchdogHasher(BatchHasher):
         model and wedge watchdog as the (prefix, payload) shape."""
         return self._routed(
             len(offsets) - 1,
-            lambda: self.inner.hash_packed(buf, offsets),
+            lambda arm: self._inner_of(arm).hash_packed(buf, offsets),
             lambda: self.fallback.hash_packed(buf, offsets),
         )
 
     def _routed(self, n, device_call, host_fn):
-        """Host/device dispatch: cost mode picks the cheaper measured
-        side (exploring an unmeasured device bucket), device mode sends
-        every batch at or above the floor to the card."""
+        """Host / 1-card / N-card dispatch: ``device_call(arm)`` runs the
+        batch on that arm's inner hasher. Cost mode picks the cheapest
+        measured arm (exploring unmeasured ones), device mode sends every
+        batch at or above the floor to the widest arm."""
         from ..utils.devicewatch import DeviceWedged, call_with_deadline
 
         self._check_alive()
-        use_device = False
+        arm: Optional[str] = None
         if n > 0:
             if not self._route_by_cost:
-                use_device = n >= self.min_device_nodes
+                if n >= self.min_device_nodes:
+                    arm = self._arm_names[-1]
             else:
-                use_device = self._flat.use_device(n)
-        if use_device:
+                choice = self._flat.choose(n)
+                arm = None if choice == "host" else choice
+        if arm is not None:
             t0 = time.perf_counter()
             try:
                 out = call_with_deadline(
-                    device_call, self._t_first, label="hash-device",
+                    lambda: device_call(arm), self._t_first, label="hash-device",
                 )
             except DeviceWedged as exc:
                 self._wedge(exc)
                 raise
-            self._flat.observe_device(n, (time.perf_counter() - t0) * 1000.0)
+            self._flat.observe(arm, n, (time.perf_counter() - t0) * 1000.0)
             return out
         t0 = time.perf_counter()
         out = host_fn()
@@ -880,7 +1014,7 @@ class WatchdogHasher(BatchHasher):
             "backend": self.name,
             "wedged": self.device_wedged,
             "routing": self.routing,
-            "arms": ["device"],
+            "arms": list(self._arm_names),
             "fused": bool(self.fused_enabled),
             "mesh": describe() if describe is not None else None,
             "device_nodes": self.device_nodes,
@@ -892,14 +1026,14 @@ class WatchdogHasher(BatchHasher):
         }
 
     def transfer_json(self) -> Optional[dict]:
-        """Transfer-honesty aggregate of the inner hasher: both meters,
-        the flat ``transfers`` and the whole-tree ``tree_transfers``
-        (kept apart on the inner so the one-readback-per-tree pin stays
-        crisp there). Per-close deltas of this block are the residency
-        proof."""
+        """Transfer-honesty aggregate of both device arms' meters, the
+        flat ``transfers`` and the whole-tree ``tree_transfers`` (kept
+        apart on each inner so the one-readback-per-tree pin stays crisp
+        there). Per-close deltas of this block are the residency proof."""
         agg: Optional[dict] = None
-        for meter in (getattr(self.inner, "transfers", None),
-                      getattr(self.inner, "tree_transfers", None)):
+        meters = [getattr(h, m, None) for h in (self.inner, self.inner_one)
+                  if h is not None for m in ("transfers", "tree_transfers")]
+        for meter in meters:
             if meter is None:
                 continue
             j = meter.get_json()
@@ -986,38 +1120,37 @@ class PathQualityEvaluator:
     """Evaluation of flattened candidate-path rate matrices, the path
     search's pre-rank (paths.plane.PathPlane.make_pre_rank).
 
-    Two arms give the same bytes: the NumPy host arm
-    (``ops.pathq.path_quality_host``) and K4 on the card
-    (``ops.pathq.path_quality``). ``routing``: "device" (default) runs
-    every batch on K4 on ``device``; "host" runs the host arm; "cost"
-    routes each batch by the measured-cost model (``_HashCostModel``:
-    per-pow2-bucket EWMAs, the first sample discarded, bounded
-    re-exploration, and batches under ``min_device_batch`` on the
-    host). Mesh widths above one raise (ROADMAP Queue A item 5). A
-    device batch never falls back to the host arm: a failed build or
-    launch raises."""
+    The arms give the same bytes: the NumPy host arm
+    (``ops.pathq.path_quality_host``), a one-card arm ``dev1`` and, when
+    ``mesh=`` resolves to more than one device, an N-card arm ``devN``:
+    K4 over a mesh of that width (rounded down to a power of two, as the
+    JAX evaluator's), ``parallel.mesh.sharded_path_quality``.
+    ``routing``: "device" (default) runs every batch on the widest arm;
+    "host" runs the host arm; "cost" routes each batch by the
+    measured-cost model (``_HashCostModel``: per-pow2-bucket EWMAs, the
+    first sample discarded, bounded re-exploration, and batches under
+    ``min_device_batch`` on the host). A device batch never falls back
+    to the host arm: a failed build or launch raises."""
 
     def __init__(self, mesh=None, routing: Optional[str] = None,
-                 device="cuda", min_device_batch: int = PATHQ_DEVICE_FLOOR):
+                 device="cuda", min_device_batch: int = PATHQ_DEVICE_FLOOR,
+                 devices=None):
         routing = (routing or "device").strip().lower()
         if routing not in ("device", "host", "cost"):
             raise ValueError(
                 f"path evaluator routing must be cost|device|host, got {routing!r}"
             )
-        try:
-            self.width = parse_width(mesh)
-        except ValueError:
-            raise ValueError(
-                f"mesh={mesh!r}: path evaluation across more than one card is "
-                "not ported yet (ROADMAP Queue A item 5)"
-            ) from None
+        self.mesh = parse_mesh(mesh)
         self.routing = routing
-        self.device = resolve_device(device) if routing != "host" else None
+        self._visible = _visible(device, devices) if routing != "host" else []
+        self.device = self._visible[0] if self._visible else None
+        wide = resolve_mesh_width(self.mesh, len(self._visible), pow2=True) > 1
+        arms = ("dev1", "devN") if wide else ("dev1",)
         self._model = _HashCostModel(
-            reexplore_every=64, min_device_nodes=min_device_batch,
-            arms=("dev1",),
+            reexplore_every=64, min_device_nodes=min_device_batch, arms=arms,
         )
         self._lock = threading.Lock()
+        self._kernels: dict[str, tuple] = {}  # arm -> (sharded K4, width)
         # fn(rates) for every non-empty batch, before it is evaluated:
         # lets a caller hold a kernel to its plain version on the very
         # batches the path search gave it
@@ -1026,16 +1159,26 @@ class PathQualityEvaluator:
         self.device_batches = 0
         self.rows_evaluated = 0
 
+    def _kernel(self, arm: str) -> tuple:
+        from ..parallel.mesh import make_mesh, sharded_path_quality
+
+        with self._lock:
+            hit = self._kernels.get(arm)
+            if hit is None:
+                want = "0" if arm == "dev1" else self.mesh
+                width = resolve_mesh_width(want, len(self._visible), pow2=True)
+                hit = self._kernels[arm] = (
+                    sharded_path_quality(make_mesh(self._visible[:width])), width)
+            return hit
+
     def evaluate_host(self, rates: np.ndarray) -> np.ndarray:
         from ..ops.pathq import path_quality_host
 
         return path_quality_host(rates)
 
-    def _evaluate_device(self, rates: np.ndarray) -> np.ndarray:
-        from ..ops.pathq import path_quality
-
-        t = torch.from_numpy(rates).to(self.device)
-        return path_quality(t).cpu().numpy()
+    def _evaluate_device(self, arm: str, rates: np.ndarray) -> np.ndarray:
+        fn, _width = self._kernel(arm)
+        return fn(torch.from_numpy(rates).to(self.device)).cpu().numpy()
 
     def evaluate(self, rates: np.ndarray) -> np.ndarray:
         """[B, H] uint32 -> [B] uint32 composites on the routed arm."""
@@ -1048,14 +1191,14 @@ class PathQualityEvaluator:
         if self.routing == "host":
             arm = "host"
         elif self.routing == "device":
-            arm = "dev1"
+            arm = self._model.arms[-1]
         else:
             arm = self._model.choose(n)
         t0 = time.perf_counter()
         if arm == "host":
             out = self.evaluate_host(rates)
         else:
-            out = self._evaluate_device(rates)
+            out = self._evaluate_device(arm, rates)
         self._model.observe(arm, n, (time.perf_counter() - t0) * 1000.0)
         with self._lock:
             self.rows_evaluated += n
@@ -1065,18 +1208,24 @@ class PathQualityEvaluator:
                 self.device_batches += 1
         return out
 
+    def device_width(self) -> int:
+        """Effective width of the widest device arm."""
+        return self._kernel(self._model.arms[-1])[1]
+
     def get_json(self) -> dict:
         with self._lock:
+            widths = {a: w for a, (_f, w) in self._kernels.items()}
             counters = {
                 "host_batches": self.host_batches,
                 "device_batches": self.device_batches,
                 "rows_evaluated": self.rows_evaluated,
             }
         return {
-            "mesh": self.width,
+            "mesh": self.mesh,
             "routing": self.routing,
             "device": None if self.device is None else str(self.device),
             "min_device_batch": self._model.min_device_nodes,
+            "arm_widths": widths,
             **counters,
             "model": self._model.get_json(),
         }
@@ -1085,7 +1234,8 @@ class PathQualityEvaluator:
 def make_path_evaluator(mesh=None, routing: Optional[str] = None,
                         device="cuda",
                         min_device_batch: int = PATHQ_DEVICE_FLOOR,
+                        devices=None,
                         ) -> PathQualityEvaluator:
     """The one wiring of the path-quality evaluator."""
     return PathQualityEvaluator(mesh=mesh, routing=routing, device=device,
-                                min_device_batch=min_device_batch)
+                                min_device_batch=min_device_batch, devices=devices)

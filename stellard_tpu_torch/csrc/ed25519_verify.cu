@@ -2,15 +2,25 @@
 //
 // Replaces the TPU kernel stellard_tpu/ops/ed25519_pallas.py::_kernel
 // (launched by _call, wrapped by verify_kernel_pallas) and its XLA twin
-// stellard_tpu/ops/ed25519_jax.py::verify_kernel. Verdict, bit for bit
-// the JAX package's `bytes` final-check mode:
+// stellard_tpu/ops/ed25519_jax.py::verify_kernel, and, with a count, the
+// shard body of stellard_tpu/parallel/mesh.py::verify_and_count. Verdict,
+// bit for bit the JAX package's final check in either of its modes
+// (STELLARD_VERIFY_CHECK, a runtime argument here):
 //
-//   accept iff s_canonical && A decodes && encode([S]B + [h](-A)) == R
+//   bytes: accept iff s_canonical && A decodes && encode([S]B + [h](-A)) == R
+//   point: accept iff s_canonical && A decodes && R decodes && y_r < p
+//          && X == x_r * Z && Y == y_r * Z for (X, Y, Z) = [S]B + [h](-A)
 //
 // with h = SHA512(R || A || M) mod l computed on the host. A's y is taken
 // mod p (a non-canonical y is NOT rejected, as in the JAX decoder); x = 0
-// with the sign bit set is rejected; R is compared as raw bytes, so a
-// non-canonical R never matches the canonical encoding.
+// with the sign bit set is rejected. In bytes mode R is compared as raw
+// bytes, so a non-canonical R never matches the canonical encoding; in
+// point mode R is decoded like A and y_r < p is tested explicitly, which
+// replaces the final inversion by a second square-root chain.
+//
+// The count (the psum of verify_and_count's per-device valid counts, kept
+// on the device): when `count` is not null, the last phase's warp adds its
+// block's accepted signatures to *count with one atomicAdd of its ballot.
 //
 // What bounds it on an H100: integer instruction issue. A signature needs
 // about 3,500 field multiplies and squarings (256 doublings, about 120
@@ -446,10 +456,22 @@ __device__ __forceinline__ int next_digit(uint32_t w[8]) {
   return d;
 }
 
+// y (sign bit masked) of 8 LE u32 words is below p = 2^255 - 19
+__device__ __forceinline__ bool words_lt_p(const uint32_t w[8]) {
+  if ((w[7] & 0x7FFFFFFFu) != 0x7FFFFFFFu) return true;
+#pragma unroll
+  for (int k = 6; k > 0; k--)
+    if (w[k] != 0xFFFFFFFFu) return true;
+  return w[0] < 0xFFFFFFEDu;
+}
+
 // Three phases a block, 32 signatures each, split by __syncthreads (no
 // thread leaves before the last): the first warp decodes A, one thread a
 // signature; every group builds its table of -A and walks; the first warp
-// inverts Z, encodes and compares, one thread a signature. The two
+// makes the final check, one thread a signature: in bytes mode it inverts
+// Z, encodes and compares; in point mode it decodes R into a_xy (dead
+// once phase 2 has built the tables: a slot of its own would pass the
+// 48 KB of static shared memory) and compares projectively. The
 // exponentiations thus run once a signature, not once a lane.
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 ed25519_verify_kernel(const uint32_t* __restrict__ a_words,
@@ -458,7 +480,8 @@ ed25519_verify_kernel(const uint32_t* __restrict__ a_words,
                       const uint32_t* __restrict__ h_words,
                       const uint8_t* __restrict__ s_canonical,
                       const u64* __restrict__ base_table,
-                      uint8_t* __restrict__ out, int n) {
+                      uint8_t* __restrict__ out, int n, int point_check,
+                      int* __restrict__ count) {
   // B's cached multiples 1..8 as (Y+X, Y-X, 2Z, 2dT), for the whole block
   __shared__ u64 btab[8][4][5];
   // each lane's coordinate of -A's cached multiples 1..8, by thread so a
@@ -537,37 +560,55 @@ ed25519_verify_kernel(const uint32_t* __restrict__ a_words,
   }
   __syncthreads();
 
-  // encode and compare against R's raw bytes
+  // the final check against R; the whole first warp takes part (SIGS is
+  // a warp), so that its ballot may count the block's accepted lanes
   if (t < SIGS) {
     const int idx = blockIdx.x * SIGS + t;
-    if (idx < n) {
-      bool eq = false;
-      if (ok[t]) {
+    bool eq = false;
+    if (idx < n && ok[t]) {
+      uint32_t rw[8];
+#pragma unroll
+      for (int k = 0; k < 8; k++) rw[k] = r_words[8 * idx + k];
+      if (point_check) {
+        if (words_lt_p(rw) && ge_decode(rw, a_xy[0], a_xy[1], t)) {
+          Fe z = get_fe(q_xyz[2], t);
+          eq = fe_eq(get_fe(q_xyz[0], t), fe_mul(get_fe(a_xy[0], t), z)) &&
+               fe_eq(get_fe(q_xyz[1], t), fe_mul(get_fe(a_xy[1], t), z));
+        }
+      } else {
         Fe zi = fe_invert(get_fe(q_xyz[2], t));
         uint32_t enc[8];
         fe_to_words(fe_mul(get_fe(q_xyz[1], t), zi), enc);
         enc[7] |= (uint32_t)fe_parity(fe_mul(get_fe(q_xyz[0], t), zi)) << 31;
         eq = true;
 #pragma unroll
-        for (int k = 0; k < 8; k++) eq = eq && (enc[k] == r_words[8 * idx + k]);
+        for (int k = 0; k < 8; k++) eq = eq && (enc[k] == rw[k]);
       }
-      out[idx] = eq ? 1 : 0;
+    }
+    if (idx < n) out[idx] = eq ? 1 : 0;
+    if (count != nullptr) {
+      const unsigned accepted = __ballot_sync(0xFFFFFFFFu, eq);
+      if (t == 0 && accepted != 0u) atomicAdd(count, (int)__popc(accepted));
     }
   }
 }
 
 }  // namespace
 
+// point_check: 0 for the bytes final check, 1 for the point one; count:
+// a device int that the accepted signatures are added to, or null
 extern "C" int ed25519_verify_launch(const void* a_words, const void* r_words,
                                      const void* s_bytes, const void* h_bytes,
                                      const void* s_canonical,
                                      const void* base_table, void* out, int n,
+                                     int point_check, void* count,
                                      void* stream) {
   if (n <= 0) return 0;
   int blocks = (n + SIGS - 1) / SIGS;
   ed25519_verify_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)a_words, (const uint32_t*)r_words,
       (const uint32_t*)s_bytes, (const uint32_t*)h_bytes,
-      (const uint8_t*)s_canonical, (const u64*)base_table, (uint8_t*)out, n);
+      (const uint8_t*)s_canonical, (const u64*)base_table, (uint8_t*)out, n,
+      point_check, (int*)count);
   return (int)cudaGetLastError();
 }

@@ -15,12 +15,12 @@ its device backend is ``cuda``: both crypto sections default to
 ``type=cpu``, and a cuda node's signature, hash and path batches all go
 to the card by default (``routing=device``, device floors of 1 and 0):
 measured-cost routing, which may answer a batch on the host, is an
-explicit ``routing=cost``. A key that would turn on a plane this
-package does not have (the parallel speculation pool, follower and
-archive modes, history shards and online deletion, the health
-watchdog, kernel tuning files, the lazy tree cache) raises when the
-config is parsed, as does a device width above one; nothing is dropped
-silently.
+explicit ``routing=cost``. ``mesh=`` (0, N or ``auto``, the default of
+both crypto sections, as in the JAX package) is the device width: the
+batches shard over that many cards. A key that would turn on a plane
+this package does not have (the parallel speculation pool, follower and
+archive modes, the health watchdog, kernel tuning files) raises when
+the config is parsed; nothing is dropped silently.
 """
 
 from __future__ import annotations
@@ -93,18 +93,22 @@ def _reject_unknown(section: str, kv: dict, known: tuple) -> None:
         )
 
 
-def _crypto_mesh(kv: dict, default: str) -> str:
-    """Validated `mesh=` for a crypto section: this package runs on one
-    card, so only width 1 parses (``parse_width``: "", off, 0, 1); a
-    wider or ``auto`` mesh raises rather than running narrower than
-    asked. The width is returned as "0" (no mesh), the JAX package's
-    spelling of one device."""
-    from ..crypto.backend import parse_width
+def _crypto_mesh(section: str, backend: str, kv: dict, default: str) -> str:
+    """Validated `mesh=` for a crypto section: parse_mesh canonicalizes
+    (0/N/auto; garbage raises), and a mesh request on a HOST backend is
+    a loud config error — the operator believes cards are in play."""
+    from ..crypto.backend import parse_mesh
 
     if "mesh" not in kv:
         return default
-    parse_width(kv["mesh"])
-    return "0"
+    mesh = parse_mesh(kv["mesh"])
+    if mesh != "0" and backend != "cuda":
+        raise ValueError(
+            f"[{section}] mesh={kv['mesh']} is meaningless with "
+            f"type={backend} (host backends have no mesh); use type=cuda "
+            "or mesh=0"
+        )
+    return mesh
 
 
 def _crypto_routing(section: str, kv: dict, default: str) -> str:
@@ -226,10 +230,13 @@ class Config:
     # below this a batch is verified on the CPU: 1 keeps every batch of
     # a cuda node, a door's single signature included, on the card
     verify_min_device_batch: int = 1
-    # mesh= is the device-width axis; this package runs on one card, so
-    # only width 1 parses ("0"/"1"/"off") and anything wider raises
-    verify_mesh: str = "0"
-    hash_mesh: str = "0"
+    # mesh= is the device-width axis: 0 = no mesh (which still runs the
+    # same sharded code at width 1), N = shard the batches over N cards,
+    # auto = every visible card. Widths beyond the visible cards clamp
+    # with a warning. Only meaningful on a cuda backend: mesh= with a
+    # host type is a loud config error.
+    verify_mesh: str = "auto"
+    hash_mesh: str = "auto"
     # routing= device (default: every batch the floor admits goes to
     # the card) | cost (measured-latency host/device routing, which may
     # answer a batch on the host: an explicit opt-in)
@@ -616,7 +623,9 @@ class Config:
             cfg.verify_device_warm_timeout_s = float(
                 sig["device_warm_timeout_s"]
             )
-        cfg.verify_mesh = _crypto_mesh(sig, cfg.verify_mesh)
+        cfg.verify_mesh = _crypto_mesh(
+            "signature_backend", cfg.signature_backend, sig, cfg.verify_mesh
+        )
         cfg.verify_routing = _crypto_routing("signature_backend", sig,
                                              cfg.verify_routing)
         _crypto_backend_gate(
@@ -641,7 +650,9 @@ class Config:
             cfg.hash_device_first_timeout_s = float(
                 hsh["device_first_timeout_s"]
             )
-        cfg.hash_mesh = _crypto_mesh(hsh, cfg.hash_mesh)
+        cfg.hash_mesh = _crypto_mesh(
+            "hash_backend", cfg.hash_backend, hsh, cfg.hash_mesh
+        )
         cfg.hash_routing = _crypto_routing("hash_backend", hsh,
                                            cfg.hash_routing)
         _crypto_backend_gate(
@@ -765,7 +776,9 @@ class Config:
             if key in paths:
                 setattr(cfg, attr, int(paths[key]))
         if "mesh" in paths:
-            cfg.paths_mesh = _crypto_mesh(paths, cfg.paths_mesh)
+            from ..crypto.backend import parse_mesh
+
+            cfg.paths_mesh = parse_mesh(paths["mesh"])
         if "routing" in paths:
             routing = paths["routing"].strip().lower()
             if routing not in ("cost", "device", "host"):
@@ -928,10 +941,10 @@ class Config:
             unported.append("[health] enabled=1 (the health watchdog)")
         if self.kernel_tuning.strip().lower() not in ("", "none", "off"):
             unported.append(f"[kernel_tuning] {self.kernel_tuning}")
-        from ..crypto.backend import parse_width
+        from ..crypto.backend import parse_mesh
 
         for width in (self.verify_mesh, self.hash_mesh, self.paths_mesh):
-            parse_width(width)
+            parse_mesh(width)
         _backend_type("signature_backend", self.signature_backend)
         _backend_type("hash_backend", self.hash_backend)
         if unported:

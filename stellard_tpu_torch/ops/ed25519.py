@@ -11,15 +11,16 @@ little-endian words, S and h as [B, 32] u8 scalar bytes, and the
 host-checked ``s_canonical`` flag (129 bytes a signature).
 
 ``verify_kernel_ref`` is the plain version the kernel is held against:
-the JAX package's verify_kernel in its ``bytes`` final-check mode, in
-PyTorch over ``ops.fe25519`` (13-bit limbs, limb-major [20, B]):
-decompress A, a 9-entry cached table of -A walked with signed 4-bit
-digits, and a 64-window fixed-base comb for [S]B, one shared loop.
+the JAX package's verify_kernel in PyTorch over ``ops.fe25519`` (13-bit
+limbs, limb-major [20, B]): decompress A, a 9-entry cached table of -A
+walked with signed 4-bit digits, and a 64-window fixed-base comb for
+[S]B, one shared loop; then the final check of ``VERIFY_CHECK``.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 
 import numpy as np
 import torch
@@ -47,11 +48,37 @@ from .fe25519 import (
     fe_sub,
     int_to_limbs_np,
     limbs_from_words_le,
+    limbs_lt_p,
     limbs_to_words_le,
 )
 
 WINDOW = 4
 NWINDOWS = 64  # ceil(256/4); scalars are < l < 2^253
+
+# the final check, read once at import as the JAX package reads it
+# (stellard_tpu/ops/ed25519_jax.py:122-127), with the same two values:
+#   bytes - encode [S]B + [h](-A) and byte-compare it with R (ref10
+#           crypto_sign_open), which costs an inversion;
+#   point - decode R as A is decoded and compare projectively (R's Z is
+#           1: X3 == Xr*Z3 and Y3 == Yr*Z3), with y_r < p tested
+#           explicitly, as the byte compare rejects a non-canonical R.
+# Both give the same verdicts (tests/test_torch_verify_check_modes.py).
+CHECKS = ("bytes", "point")
+VERIFY_CHECK = os.environ.get("STELLARD_VERIFY_CHECK", "bytes")
+if VERIFY_CHECK not in CHECKS:
+    raise ValueError(
+        f"STELLARD_VERIFY_CHECK={VERIFY_CHECK!r}: expected 'bytes' or "
+        "'point'"
+    )
+
+
+def check_mode(check=None) -> str:
+    """``check``, or the process's ``VERIFY_CHECK`` when None; any other
+    value than the two raises."""
+    check = VERIFY_CHECK if check is None else check
+    if check not in CHECKS:
+        raise ValueError(f"check={check!r}: expected 'bytes' or 'point'")
+    return check
 
 # --------------------------------------------------------------------------
 # point helpers (limb-major)
@@ -294,12 +321,15 @@ def _signed_digits_le(b: np.ndarray) -> np.ndarray:
 # the plain batched verify
 
 
-def verify_kernel_ref(a_words, r_words, s_bytes, h_bytes, s_canonical):
+def verify_kernel_ref(a_words, r_words, s_bytes, h_bytes, s_canonical, check=None):
     """Plain PyTorch batched verify, on whichever device the inputs lie.
 
     a_words, r_words: [B, 8] uint32 LE words; s_bytes, h_bytes: [B, 32]
     uint8 LE scalars (h < l); s_canonical: [B] bool. -> [B] bool.
+    ``check``: the final check, "bytes" or "point" (``VERIFY_CHECK``
+    when None).
     """
+    check = check_mode(check)
     dev = a_words.device
     b = a_words.shape[0]
     aw = a_words.view(torch.int32).t()  # [8, B]
@@ -322,13 +352,22 @@ def verify_kernel_ref(a_words, r_words, s_bytes, h_bytes, s_canonical):
         entry = comb[j][:, sw[j].to(torch.int64)]  # [60, B]
         acc_s = pt_add_mixed(acc_s, entry.reshape(3, NLIMB, b))
     rp = pt_add_cached(acc_s, pt_to_cached(acc_h))
-    return final_check(rp, rw, valid, s_canonical)
+    return final_check(rp, rw, valid, s_canonical, check)
 
 
-def final_check(rp, rw, valid, s_canonical):
-    """The JAX package's `bytes` final check (ref10 crypto_sign_open):
-    encode P3 = [S]B + [h](-A) and byte-compare it with R (rw: [8, B]
-    words), so a non-canonical R encoding never matches."""
+def final_check(rp, rw, valid, s_canonical, check: str = "bytes"):
+    """The JAX package's final check of P3 = [S]B + [h](-A) against R
+    (rw: [8, B] words). ``bytes``: encode P3 and byte-compare it with R
+    (ref10 crypto_sign_open), so a non-canonical R never matches.
+    ``point``: R decoded as A is (x = 0 with the sign bit rejected, x's
+    parity set by it), then X3 == Xr*Z3 and Y3 == Yr*Z3, and y_r (sign
+    bit masked) < p, where the byte compare rejected a non-canonical R."""
+    if check == "point":
+        r_point, r_valid = pt_decompress(rw)
+        r_canon = limbs_lt_p(limbs_from_words_le(rw))
+        ex = fe_eq(rp[0], fe_mul(r_point[0], rp[2]))
+        ey = fe_eq(rp[1], fe_mul(r_point[1], rp[2]))
+        return ex & ey & r_valid & r_canon & valid & s_canonical
     eq = torch.all(pt_encode_words(rp) == (rw.to(torch.int64) & 0xFFFFFFFF), dim=0)
     return eq & valid & s_canonical
 

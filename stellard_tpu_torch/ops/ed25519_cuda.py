@@ -3,7 +3,10 @@
 on the CPU (``ops.ed25519.verify_kernel_ref``, re-exported here).
 
 Replaces stellard_tpu/ops/ed25519_pallas.py::_kernel and its XLA twin
-ed25519_jax.py::verify_kernel.
+ed25519_jax.py::verify_kernel in either final-check mode (``check``,
+``ops.ed25519.VERIFY_CHECK`` by default), and, with ``count``, the shard
+body of stellard_tpu/parallel/mesh.py::verify_and_count: the accepted
+signatures are added to a device counter in the kernel's last phase.
 """
 
 from __future__ import annotations
@@ -15,9 +18,10 @@ import torch
 
 from . import build
 from . import ed25519_ref as ref
-from .ed25519 import verify_kernel_ref
+from .ed25519 import check_mode, verify_kernel_ref
 
-__all__ = ["verify", "verify_kernel_ref", "launches", "launches_by_batch", "base_table_np"]
+__all__ = ["verify", "verify_kernel_ref", "launches", "launches_by_batch",
+           "variant_launches", "reset_launches", "base_table_np"]
 
 LIB = "ed25519_verify"
 
@@ -26,6 +30,16 @@ LIB = "ed25519_verify"
 # one signature at a time)
 launches = 0
 launches_by_batch: dict[int, int] = {}
+# the part of those launches in point mode, and with the count epilogue
+variant_launches = {"point": 0, "count": 0}
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+    launches_by_batch.clear()
+    for k in variant_launches:
+        variant_launches[k] = 0
 
 _BASE_TABLES: dict[torch.device, torch.Tensor] = {}
 
@@ -68,24 +82,34 @@ def _check(name, t, dtype, shape):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def verify(a_words, r_words, s_bytes, h_bytes, s_canonical) -> torch.Tensor:
+def verify(a_words, r_words, s_bytes, h_bytes, s_canonical, check=None,
+           count=None) -> torch.Tensor:
     """a_words, r_words: [B, 8] uint32 LE words; s_bytes, h_bytes:
     [B, 32] uint8 LE scalars (h < l); s_canonical: [B] bool -> [B] bool.
+    ``check``: "bytes" or "point" (``ops.ed25519.VERIFY_CHECK`` when
+    None); ``count``: a [1] int32 tensor on the same device, to which
+    the number of accepted signatures is added in place.
 
     On CUDA tensors this launches K1 (any B, no padding); on CPU
-    tensors it runs the plain version."""
+    tensors it runs the plain version (the count: ``flags.sum()``)."""
+    check = check_mode(check)
     b = a_words.shape[0]
     _check("a_words", a_words, torch.uint32, (b, 8))
     _check("r_words", r_words, torch.uint32, (b, 8))
     _check("s_bytes", s_bytes, torch.uint8, (b, 32))
     _check("h_bytes", h_bytes, torch.uint8, (b, 32))
     _check("s_canonical", s_canonical, torch.bool, (b,))
+    if count is not None:
+        _check("count", count, torch.int32, (1,))
     dev = a_words.device
-    for t in (r_words, s_bytes, h_bytes, s_canonical):
+    for t in (r_words, s_bytes, h_bytes, s_canonical) + ((count,) if count is not None else ()):
         if t.device != dev:
             raise ValueError(f"inputs on different devices: {dev} and {t.device}")
     if dev.type == "cpu":
-        return verify_kernel_ref(a_words, r_words, s_bytes, h_bytes, s_canonical)
+        flags = verify_kernel_ref(a_words, r_words, s_bytes, h_bytes, s_canonical, check)
+        if count is not None:
+            count += flags.sum(dtype=torch.int32)
+        return flags
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     out = torch.empty(b, dtype=torch.bool, device=dev)
@@ -93,17 +117,23 @@ def verify(a_words, r_words, s_bytes, h_bytes, s_canonical) -> torch.Tensor:
         return out
     lib = build.load(LIB)
     fn = lib.ed25519_verify_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                                           ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             a_words.data_ptr(), r_words.data_ptr(), s_bytes.data_ptr(),
             h_bytes.data_ptr(), s_canonical.data_ptr(),
-            _base_table(dev).data_ptr(), out.data_ptr(), b, stream,
+            _base_table(dev).data_ptr(), out.data_ptr(), b,
+            int(check == "point"), None if count is None else count.data_ptr(), stream,
         )
     build.check(err, "ed25519_verify")
     global launches
     launches += 1
     launches_by_batch[b] = launches_by_batch.get(b, 0) + 1
+    if check == "point":
+        variant_launches["point"] += 1
+    if count is not None:
+        variant_launches["count"] += 1
     return out

@@ -47,8 +47,11 @@ def test_registry_seam():
         make_verifier("cuda", device="cpu", min_batch=32)
     with pytest.raises(ValueError, match="does not accept"):
         make_hasher("cpu", mesh="1")
-    with pytest.raises(ValueError, match="one device"):
-        make_verifier("cuda", device="cpu", mesh="4")
+    # the width axis: any width over CPU shards; garbage raises at build
+    v = make_verifier("cuda", device="cpu", mesh="4", devices=["cpu"] * 4)
+    assert v.n_devices == 4
+    with pytest.raises(ValueError, match="mesh="):
+        make_verifier("cuda", device="cpu", mesh="wide")
 
 
 @pytest.mark.parametrize("make", [
@@ -119,7 +122,7 @@ def test_verify_plane_cost_routing_and_wedge_fallback():
         # a device call past its deadline fails the batch, and every
         # later batch, small ones included: none is verified on the host
         plane.verifier = Hung()
-        plane._device_warm = True
+        plane._warm_arms.add("device")
         plane._t_warm = 0.2
         cpu_sigs = plane.cpu_sigs
         try:

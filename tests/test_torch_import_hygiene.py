@@ -63,6 +63,8 @@ def test_every_module_imports_without_jax():
     # and so is the out-of-core state's: history shards, the cleaner and
     # online deletion
     assert set(OOC_SLICE) <= set(mods)
+    # and so is the device width's: the mesh and its dry run
+    assert set(WIDTH_SLICE) <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"
@@ -110,6 +112,13 @@ OOC_SLICE = tuple(f"stellard_tpu_torch.{m}" for m in (
     "nodestore.shards", "node.ledgercleaner", "state.shamap", "state.hotcache"))
 
 
+# the modules the device width's slice added or widened: the mesh, the
+# backends over it, the planes' arms and the multichip dry run
+WIDTH_SLICE = tuple(f"stellard_tpu_torch.{m}" for m in (
+    "parallel", "parallel.mesh", "crypto.backend", "node.verifyplane", "entry",
+    "ops.ed25519", "ops.ed25519_cuda"))
+
+
 def test_the_consensus_slice_imports_neither_jax_nor_the_jax_package():
     """Importing the consensus slice's modules alone (the SimNet and the
     validator pull in the ledger, engine and node modules they run on)
@@ -131,6 +140,14 @@ def test_the_out_of_core_slice_imports_neither_jax_nor_the_jax_package():
     (with the port's own native record scan), the ledger cleaner and
     online deletion, and the lazy tree."""
     slice_imports_neither_jax_nor_the_jax_package(OOC_SLICE)
+
+
+def test_the_width_slice_imports_neither_jax_nor_the_jax_package():
+    """The same for the device width's slice: ``parallel/`` (the mesh
+    over a list of devices, verify_and_count), the backends and planes
+    with their one-card and N-card arms, K1's point check and
+    ``entry.dryrun_multichip``."""
+    slice_imports_neither_jax_nor_the_jax_package(WIDTH_SLICE)
 
 
 def slice_imports_neither_jax_nor_the_jax_package(modules) -> None:

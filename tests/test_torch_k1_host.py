@@ -10,8 +10,11 @@ shuffle whose partner lane has left deadlocks there as it would misbehave
 on the card, so the binary runs under its own timeout; a shuffle with a
 mask or width other than its group's own lanes aborts.
 
-The kernel's verdicts are held to the plain version (``verify_kernel_ref``)
-and the RFC 8032 oracle on three batches: the adversarial corpus and
+The kernel's verdicts, in both final-check modes and with its count
+epilogue (the warp ballot, popcount and atomicAdd are shimmed too), are
+held to the plain version (``verify_kernel_ref``) and the RFC 8032 oracle
+on three batches, and in point mode on the check-modes corpus of
+``tests/test_verify_check_modes.py`` as well: the adversarial corpus and
 random signed lanes, with an early-exit lane (S >= l or an undecodable
 key) in every warp, filling neither its last warp nor its last block;
 one signature, so that 31 of its block's 32 groups lie past the batch;
@@ -41,6 +44,7 @@ RUN_TIMEOUT_S = 120
 
 SHIM = r"""
 #pragma once
+#include <atomic>
 #include <barrier>
 #include <cstdint>
 #include <cstdio>
@@ -81,6 +85,35 @@ inline std::vector<std::unique_ptr<ShimGroup>> shim_groups;
 
 inline void __syncthreads() { shim_block_bar->arrive_and_wait(); }
 
+// the warp vote of the count epilogue: the same mailbox scheme over a
+// warp's 32 lanes; a partial mask aborts
+struct ShimWarp {
+  std::barrier<> bar{32};
+  int vote[2][32];
+  int phase[32] = {};
+};
+inline std::vector<std::unique_ptr<ShimWarp>> shim_warps;
+
+inline unsigned __ballot_sync(unsigned mask, int pred) {
+  const unsigned t = threadIdx.x;
+  if (mask != 0xFFFFFFFFu) {
+    std::fprintf(stderr, "ballot by thread %u: mask %x\n", t, mask);
+    std::abort();
+  }
+  ShimWarp& w = *shim_warps[t / 32];
+  int me = t % 32, ph = w.phase[me];
+  w.phase[me] ^= 1;
+  w.vote[ph][me] = pred != 0;
+  w.bar.arrive_and_wait();
+  unsigned out = 0;
+  for (int i = 0; i < 32; i++) out |= (unsigned)w.vote[ph][i] << i;
+  return out;
+}
+
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+
+inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
+
 // the group shuffle: write, wait for the group's lanes, read; two slots
 // alternate, so one barrier a shuffle suffices
 template <class T>
@@ -99,8 +132,9 @@ T __shfl_sync(unsigned mask, T v, int src, int width) {
 }
 """
 
-# stdin: n, then a/r words, s/h bytes, s_canonical, the [15,4,5] u64
-# table; stdout: n verdict characters
+# stdin: n, the point-check flag, the count flag, then a/r words, s/h
+# bytes, s_canonical, the [15,4,5] u64 table; stdout: n verdict
+# characters, a space and the count (-1 without one)
 MAIN = r"""
 #include <iostream>
 #include <iterator>
@@ -108,8 +142,11 @@ MAIN = r"""
 int main() {
   std::vector<char> in((std::istreambuf_iterator<char>(std::cin)), {});
   const char* p = in.data();
-  int n;
+  int n, point_check, counted;
   std::memcpy(&n, p, 4); p += 4;
+  std::memcpy(&point_check, p, 4); p += 4;
+  std::memcpy(&counted, p, 4); p += 4;
+  int count = 0;
   auto take = [&](size_t bytes) { const char* q = p; p += bytes; return q; };
   const uint32_t* aw = (const uint32_t*)take(32 * n);
   const uint32_t* rw = (const uint32_t*)take(32 * n);
@@ -125,15 +162,19 @@ int main() {
     shim_block_bar = std::make_unique<std::barrier<>>(THREADS);
     shim_groups.clear();
     for (int i = 0; i < THREADS / G; i++) shim_groups.push_back(std::make_unique<ShimGroup>());
+    shim_warps.clear();
+    for (int i = 0; i < THREADS / 32; i++) shim_warps.push_back(std::make_unique<ShimWarp>());
     std::vector<std::thread> threads;
     for (int t = 0; t < THREADS; t++)
       threads.emplace_back([&, t] {
         threadIdx.x = t;
-        ed25519_verify_kernel(aw, rw, sw, hw, sc, tab, out.data(), n);
+        ed25519_verify_kernel(aw, rw, sw, hw, sc, tab, out.data(), n, point_check,
+                              counted ? &count : nullptr);
       });
     for (auto& th : threads) th.join();
   }
   for (int i = 0; i < n; i++) std::putchar('0' + out[i]);
+  std::printf(" %d", counted ? count : -1);
   return 0;
 }
 """
@@ -220,6 +261,31 @@ def k1_binary(tmp_path_factory):
     return _compile(tmp_path_factory.mktemp("k1_host"))
 
 
+def _run_source(binary: Path, batch: dict, point: bool, counted: bool = True):
+    """K1's source on ``batch`` -> (verdicts [n] u8, count or -1)."""
+    n = len(batch["s_canonical"])
+    blob = np.array([n, int(point), int(counted)], np.int32).tobytes() + b"".join(
+        np.ascontiguousarray(batch[k]).tobytes()
+        for k in ("a_words", "r_words", "s_bytes", "h_bytes")
+    ) + batch["s_canonical"].astype(np.uint8).tobytes() + K1.base_table_np().tobytes()
+    run = subprocess.run([str(binary)], input=blob, capture_output=True,
+                         timeout=RUN_TIMEOUT_S)
+    assert run.returncode == 0, run.stderr.decode()
+    verdicts, count = run.stdout.split(b" ")
+    got = np.frombuffer(verdicts, np.uint8) - ord("0")
+    assert got.shape == (n,) and set(got.tolist()) <= {0, 1}
+    return got, int(count)
+
+
+def _modes_lanes():
+    """tests/test_verify_check_modes.py's corpus (as test_torch_ed25519
+    builds it): non-canonical R, x = 0 with the sign bit, the small-order
+    forgery, an off-curve R, a non-canonical S among signed lanes."""
+    from test_torch_ed25519 import _check_modes_corpus
+
+    return list(zip(*_check_modes_corpus()))
+
+
 @pytest.mark.parametrize("kind", ["mixed", "one", "early"])
 def test_kernel_source_matches_plain_and_oracle(k1_binary, kind):
     lanes_in = _batch(kind)
@@ -232,17 +298,13 @@ def test_kernel_source_matches_plain_and_oracle(k1_binary, kind):
         assert early.reshape(-1)[: n // 8 * 8].reshape(-1, 8).any(axis=1).all()
     assert early.all() == (kind == "early")
 
-    blob = np.int32(n).tobytes() + b"".join(
-        np.ascontiguousarray(batch[k]).tobytes()
-        for k in ("a_words", "r_words", "s_bytes", "h_bytes")
-    ) + batch["s_canonical"].astype(np.uint8).tobytes() + K1.base_table_np().tobytes()
-    run = subprocess.run([str(k1_binary)], input=blob, capture_output=True,
-                         timeout=RUN_TIMEOUT_S)
-    assert run.returncode == 0, run.stderr.decode()
-    got = np.frombuffer(run.stdout, np.uint8) - ord("0")
-    assert got.shape == (n,) and set(got.tolist()) <= {0, 1}
+    # the bytes check, with the count epilogue and without it
+    got, count = _run_source(k1_binary, batch, point=False)
+    uncounted, none = _run_source(k1_binary, batch, point=False, counted=False)
+    assert np.array_equal(got, uncounted) and none == -1
+    assert count == int(got.sum())
 
-    plain = verify_kernel_ref(**to_tensors(batch, "cpu")).numpy()
+    plain = verify_kernel_ref(**to_tensors(batch, "cpu"), check="bytes").numpy()
     oracle = np.array([ref.verify(p, m, s) for p, m, s in lanes_in])
     assert np.array_equal(got.astype(bool), plain)
     assert np.array_equal(got.astype(bool), oracle)
@@ -250,6 +312,32 @@ def test_kernel_source_matches_plain_and_oracle(k1_binary, kind):
         assert 0 < oracle.sum() < n
     else:
         assert oracle.sum() == (kind == "one")
+
+
+@pytest.mark.parametrize("kind", ["mixed", "one", "early", "modes"])
+def test_kernel_source_point_check_matches_plain_bytes_and_oracle(k1_binary, kind):
+    """The point check (R decoded into the decode's slots, compared
+    projectively, y_r < p) on the same batches and on the check-modes
+    corpus: the verdicts of the plain point version, of the bytes check
+    and of the oracle; the count epilogue their sum; the small-order
+    forgery accepted."""
+    lanes_in = _modes_lanes() if kind == "modes" else _batch(kind)
+    pubs, msgs, sigs = (list(t) for t in zip(*lanes_in))
+    batch = prepare_batch(pubs, msgs, sigs)
+    got, count = _run_source(k1_binary, batch, point=True)
+    assert count == int(got.sum())
+    tens = to_tensors(batch, "cpu")
+    plain = verify_kernel_ref(**tens, check="point").numpy()
+    oracle = np.array([ref.verify(p, m, s) for p, m, s in lanes_in])
+    assert np.array_equal(got.astype(bool), plain)
+    assert np.array_equal(got.astype(bool), oracle)
+    assert np.array_equal(plain, verify_kernel_ref(**tens, check="bytes").numpy())
+    if kind == "modes":
+        ident = (1).to_bytes(32, "little")
+        forgery = [i for i, (p, _m, s) in enumerate(lanes_in)
+                   if p == ident and s == ident + bytes(32)]
+        assert len(forgery) == 1 and got[forgery[0]] == 1
+        assert 0 < oracle.sum() < len(lanes_in)
 
 
 def test_k1_ops_counts_by_hand():
@@ -281,3 +369,9 @@ def test_k1_ops_counts_by_hand():
     }
     want = 3 * decode + 2 * (table + walk + encode) + (2 + 2 + 4 + 0) * add
     assert chip_smoke.k1_ops(batch) == want == 3 * 20792 + 2 * 232_048 + 8 * 1024
+    assert chip_smoke.k1_ops(batch, "bytes") == want
+    # the point check: R's decode (the decode's count) and the two
+    # products Xr*Z, Yr*Z in place of the inversion and encode
+    point = decode + 2 * 128                 # 21,048
+    want = 3 * decode + 2 * (table + walk + point) + (2 + 2 + 4 + 0) * add
+    assert chip_smoke.k1_ops(batch, "point") == want == 3 * 20792 + 2 * 233_144 + 8 * 1024

@@ -575,12 +575,16 @@ def test_config_defaults_to_cuda_and_refuses_unported_planes():
 
     cfg = Config()
     assert (cfg.signature_backend, cfg.hash_backend) == ("cuda", "cuda")
-    assert cfg.verify_backend_opts() == {"mesh": "0", "max_batch": 16384, "device": "cuda"}
+    assert cfg.verify_backend_opts() == {"mesh": "auto", "max_batch": 16384, "device": "cuda"}
     assert Config.from_ini("").signature_backend == "cuda"
+    # the device width parses as the JAX package's (0, N or auto)
+    cfg = Config.from_ini("[signature_backend]\ntype=cuda\nmesh=2\n"
+                          "[hash_backend]\ntype=cuda\nmesh=AUTO\n[paths]\nmesh=4")
+    assert (cfg.verify_mesh, cfg.hash_mesh, cfg.paths_mesh) == ("2", "auto", "4")
     for text in (
         "[signature_backend]\ntype=tpu", "[hash_backend]\ntype=tpu",
-        "[hash_backend]\ntype=cpp", "[signature_backend]\ntype=cuda\nmesh=2",
-        "[hash_backend]\ntype=cuda\nmesh=auto", "[paths]\nmesh=4",
+        "[hash_backend]\ntype=cpp", "[signature_backend]\ntype=cpu\nmesh=2",
+        "[hash_backend]\ntype=cuda\nmesh=wide", "[paths]\nmesh=-4",
         "[spec]\nworkers=2", "[spec]\nworkers=auto", "[node]\nmode=archive",
         "[node]\nmode=follower",
         "[health]\nenabled=1", "[kernel_tuning]\nKERNEL_TUNING.json",

@@ -143,8 +143,8 @@ def test_evaluator_refuses_what_is_not_ported():
     np.testing.assert_array_equal(cost.evaluate(rates[:10]), want[:10])
     np.testing.assert_array_equal(cost.evaluate(rates), want)
     assert (cost.get_json()["host_batches"], cost.get_json()["device_batches"]) == (1, 1)
-    with pytest.raises(ValueError, match="ROADMAP Queue A item 5"):
-        PathQualityEvaluator(mesh=4, device="cpu")
+    with pytest.raises(ValueError, match="mesh="):
+        PathQualityEvaluator(mesh="wide", device="cpu")
     with pytest.raises(ValueError):
         PathQualityEvaluator(routing="bogus")
     if not torch.cuda.is_available():
