@@ -3,12 +3,16 @@
 
     python3 chip_smoke.py
 
-Drives the ledger close's device plane, then a 4-validator consensus
-net in process and a 4-validator private net over TCP, then a
+Drives the ledger close's device plane and times the kernels, then a
 standalone node's closes and its order book and path searches, then the
-catch-up replay of the chain it saved and a node resumed lazily on it,
-through the entry points a node calls, at the sizes a close really has,
-and checks every result:
+catch-up replay of the chain it saved and a node resumed lazily on it;
+meanwhile a second process of this script (`--side`, SideRun) runs a
+4-validator consensus net in process and a 4-validator private net over
+TCP. All of it goes through the entry points a node calls, at the sizes
+a close really has, and every result is checked. In the order of the
+list below, except that phase 9 runs after phase 4, phases 5-6 in the
+side process while phase 7 runs (which joins it before it times K1),
+and phase 7 starts when the side does:
 
 1. device   — the card's name and power limit; builds the four CUDA
               kernels (one nvcc a source, started together) and prints
@@ -100,8 +104,23 @@ and checks every result:
               tests/test_torch_tcp_workload.py); device share 1.0 on all
               four, and no host signature check but the hellos'; on
               validator 0 one readback a tree, and every K1 request it
-              made equal to K1's plain version. `--only tcp` runs this phase
-              alone.
+              made equal to K1's plain version. Validator 3's node store
+              is a segstore that deletes online and seals what it
+              retires into history shards. A follower ([node]
+              mode=follower, dialing the four) and an archive (mode=
+              archive, pinned to validator 3, [archive] rescan_s=5) join
+              as two more children on the card: the follower's ledgers
+              are the validators', its balances TCP_BALANCES_DIGEST, its
+              device share 1.0, its K1 launches and arrival-hash K2
+              batches in the rounds above 0, and its RpcSub (a `url`
+              subscription to a sink in this process) pushes every
+              ledgerClosed in order with no gap; the archive imports
+              every shard validator 3 sealed by the last round within
+              60 s, condemns no peer, and its ledgers below its verified
+              floor are the validators'. Each node's health watchdog is
+              reported (validator 0's, the follower's, the close node's)
+              and every flight dump must parse. `--only tcp` runs this
+              phase alone.
 7. close    — the port's standalone Node under a payment flood
               (CLOSE_SIZES), built from a config beside the chain's store
               (NODE_CONFIG with PORT_NODE_DEVICE: both crypto planes on
@@ -221,8 +240,8 @@ and checks every result:
 
 Launch counts are zeroed just before phases 3-4 and read just after, and
 again around the flood phase's mesh step and the point step's drive of
-the flood, phases 5, 6 (validator 0's launches), 7, 8, 10's replay and
-its resume step;
+the flood, phases 5 and 6 (in the side process; validator 0's
+launches), 7, 8, 10's replay and its resume step;
 the kernels line shows the sum, the launches of the main path alone,
 and for K2 and K3 the consensus, tcp, close and book phases' launches by
 who made them (the seal drainer, the two seal threads, the
@@ -237,6 +256,7 @@ import contextlib
 import gc
 import hashlib
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -367,16 +387,26 @@ def once_ms(fn):
     return start.elapsed_time(end), out
 
 
+# a spin of this many SM cycles (~50 ms at the H100's 1.7-2.0 GHz SM
+# clock) queued ahead of raw_launch_ms's timed launches
+HOLD_CYCLES = 100_000_000
+
+
 def raw_launch_ms(fn, args: list, reps: int) -> float:
     """Mean ms of a C launcher called `reps` times back to back, cycling
     over the prepared argument tuples `args`, by CUDA events (warmed once
-    on each); every call's error code must be 0."""
+    on each); every call's error code must be 0. A spin of HOLD_CYCLES
+    on the stream is queued before the start event, so the host has
+    issued every timed launch before the card reaches the first: they
+    run back to back, and the host's gap between two launches is not
+    timed."""
     import torch
 
     errs = [fn(*a) for a in args]
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for i in range(reps):
         errs.append(fn(*args[i % len(args)]))
@@ -859,19 +889,35 @@ class StageClock:
         return False
 
 
+def sorted_rows(query, table: str, key_cols: tuple, where: str = "", args: tuple = ()) -> list:
+    """The rows of ``table`` (``where`` and ``args`` select them), as
+    ``SELECT * ... ORDER BY key_cols`` gives them (hex and ASCII text,
+    integers; the key's ties are equal rows), through ``query(sql,
+    args) -> rows``. They come in one step, as one JSON array (blobs as
+    hex): sqlite3 releases the GIL at every step, and a persist worker
+    stepping once a row beside a busy thread waits up to 5 ms a row for
+    it back (utils/sqlrows.py)."""
+    cols = [r[1] for r in query(f"PRAGMA table_info({table})", ())]
+    exprs = ",".join(f"CASE typeof({c}) WHEN 'blob' THEN json_array(hex({c})) ELSE {c} END"
+                     for c in cols)
+    [(doc,)] = query(f"SELECT json_group_array(json_array({exprs})) FROM {table}{where}", args)
+    rows = [tuple(bytes.fromhex(v[0]) if isinstance(v, list) else v for v in r)
+            for r in json.loads(doc)]
+    at = [cols.index(c) for c in key_cols]
+    rows.sort(key=lambda r: [r[i] for i in at])
+    return rows
+
+
 def txdb_digest(txdb, seq: int) -> str:
     """SHA-256 over one ledger's txdb rows (either package's
     TxDatabase): its Ledgers header row, its Transactions rows and its
     AccountTransactions rows, each table in key order."""
     h = hashlib.sha256()
     with txdb._lock:
-        for sql in (
-            "SELECT * FROM Ledgers WHERE LedgerSeq = ? ORDER BY LedgerHash",
-            "SELECT * FROM Transactions WHERE LedgerSeq = ? ORDER BY TransID",
-            "SELECT * FROM AccountTransactions WHERE LedgerSeq = ? "
-            "ORDER BY TransID, Account, TxnSeq",
-        ):
-            rows = txdb._conn.execute(sql, (seq,)).fetchall()
+        query = lambda sql, args: txdb._conn.execute(sql, args).fetchall()  # noqa: E731
+        for table, key in (("Ledgers", ("LedgerHash",)), ("Transactions", ("TransID",)),
+                           ("AccountTransactions", ("TransID", "Account", "TxnSeq"))):
+            rows = sorted_rows(query, table, key, " WHERE LedgerSeq = ?", (seq,))
             h.update(len(rows).to_bytes(4, "big"))
             for row in rows:
                 h.update(repr(row).encode())
@@ -883,11 +929,9 @@ def clf_digest(clf) -> str:
     StoreState (the LCL hash and header) and its accounts, trustlines
     and offers tables, each in key order."""
     h = hashlib.sha256()
-    for sql in ("SELECT * FROM StoreState ORDER BY StateName",
-                "SELECT * FROM accounts ORDER BY account_id",
-                "SELECT * FROM trustlines ORDER BY index_hex",
-                "SELECT * FROM offers ORDER BY index_hex"):
-        rows = clf.db.query(sql)
+    for table, key in (("StoreState", "StateName"), ("accounts", "account_id"),
+                       ("trustlines", "index_hex"), ("offers", "index_hex")):
+        rows = sorted_rows(clf.db.query, table, (key,))
         h.update(len(rows).to_bytes(4, "big"))
         for row in rows:
             h.update(repr(row).encode())
@@ -1885,26 +1929,8 @@ def run(dev) -> None:
 
     del state, txmap, base_items, sets, deletes, inners, buf, buf_plain, template, child_rows
 
-    # 5. the consensus phase (BASELINE config #4), counted on its own ---------
-    consensus = consensus_phase(dev, name_power, int32_rate)
-
-    # 6. the tcp phase (config #4 over TCP), counted on its own ---------------
-    tcp = tcp_phase(dev, name_power, int32_rate)
-
-    # 7. the close phase, counted on its own; the chain saved as it closes ---
-    saver = ChainSaver(STORE_DIR)
-    close = close_phase(dev, name_power, saver, int32_rate)
-
-    # 8. the book phase on the same chain, counted on its own -----------------
-    book = book_phase(dev, name_power, close, saver)
-    close_launches, close_k1_err = close["launches"], close["k1_max_abs_err"]
-    k1_batch1 = close["k1_batch1"]
-    roles = launches_by_role(consensus["by_thread"], tcp["by_thread"], close["by_thread"],
-                             book["by_thread"])
-    close_digests = close["close_digests"] + book["close_digests"]
-    del close
-
-    # 9. K1 and K4 against plain, and times -----------------------------------
+    # 5. K1 and K4 against plain, and times, before the other processes start
+    # to use the card -------------------------------------------------------
     # K1 against its plain version on the flood's chunks, the shapes the
     # main path launched it at (the first chunk's calls are the timed ones)
     prep_ms, k1_main_err = [], 0
@@ -1929,8 +1955,7 @@ def run(dev) -> None:
         k1_main_err = max(k1_main_err, err)
         emit("k1_vs_plain_main", chunk_start=lo, lanes=int(got.numel()),
              max_abs_err=err, equal=True)
-    k1_err = max(k1_err, k1_main_err, close_k1_err, consensus["k1_max_abs_err"],
-                 tcp["k1_max_abs_err"])
+    k1_err = max(k1_err, k1_main_err)
     k1_b, k1_by = bound_ms(k1_ops(chunk_host), 130 * CHUNK, int32_rate)
 
     # K1's phases: the same chunk with every S non-canonical (each lane
@@ -1962,7 +1987,6 @@ def run(dev) -> None:
     require(k4_err == 0, "K4 differs from its plain version on the 1,048,576-row matrix")
     require(np.array_equal(k4_got.cpu().numpy(), pathq.path_quality_host(k4_np)),
             "K4 differs from the host arm on the 1,048,576-row matrix")
-    k4_err = max(k4_err, book["k4_max_abs_err"])
     rows, hops = k4_np.shape
     k4_b, k4_by = bound_ms(rows * hops * K4_HOP_OPS, rows * hops * 4 + rows * 4, int32_rate)
     # the kernel alone: raw launches with pointers and stream prepared
@@ -1980,18 +2004,42 @@ def run(dev) -> None:
         k4_err = max(k4_err, err)
     emit("k4_vs_plain", rows=rows, hops=hops, max_abs_err=k4_err, equal_host=True,
          saturated_rows=int((k4_got == pathq.Q16_MAX).sum().item()),
-         kernel_ms=k4_ms, wrapper_ms=k4_wrapper_ms, rotated_matrices=len(mats),
+         kernel_ms=k4_ms, bound_ms=k4_b, ms_over_bound=k4_ms / k4_b,
+         wrapper_ms=k4_wrapper_ms, rotated_matrices=len(mats),
          rotated_mb=sum(m.numel() * 4 for m in mats) / 1e6)
     del k4_t, k4_got, k4_plain, mats, outs
 
-    # 10. catch-up replay of the saved chain, then a node resumed lazily on
-    # it, each counted on its own; the store is removed at the end
+    # 6-7. the consensus and tcp phases in a process of their own (SideRun),
+    # each counted on its own there, while this one drives the chain ---------
+    side = SideRun()
     try:
-        replay = replay_phase(dev, name_power, saver, close_digests)
-        resume = resume_step(dev, name_power, saver)
+        # 8. the close phase, counted on its own; the chain saved as it
+        # closes; it joins the side process before it times K1
+        saver = ChainSaver(STORE_DIR)
+        close = close_phase(dev, name_power, saver, int32_rate, before_timing=side.join)
+
+        # 9. the book phase on the same chain, counted on its own -------------
+        book = book_phase(dev, name_power, close, saver)
+        consensus, tcp = side.join()
+        close_launches, close_k1_err = close["launches"], close["k1_max_abs_err"]
+        k1_batch1 = close["k1_batch1"]
+        roles = launches_by_role(consensus["by_thread"], tcp["by_thread"], close["by_thread"],
+                                 book["by_thread"])
+        close_digests = close["close_digests"] + book["close_digests"]
+        k1_err = max(k1_err, close_k1_err, consensus["k1_max_abs_err"], tcp["k1_max_abs_err"])
+        k4_err = max(k4_err, book["k4_max_abs_err"])
+        del close
+
+        # 10. catch-up replay of the saved chain, then a node resumed lazily
+        # on it, each counted on its own; the store is removed at the end
+        try:
+            replay = replay_phase(dev, name_power, saver, close_digests)
+            resume = resume_step(dev, name_power, saver)
+        finally:
+            shutil.rmtree(saver.path, ignore_errors=True)
+        del saver
     finally:
-        shutil.rmtree(saver.path, ignore_errors=True)
-    del saver
+        side.stop()
 
     emit("times", card=name_power, host_prep_ms_per_chunk=prep_ms, chunk=CHUNK,
          flood_sigs_per_s=N_FLOOD / flood_s,
@@ -2180,7 +2228,8 @@ def point_step(dev, name_power: str, cmp_batch: dict, cmp_expect, chunks: list,
     return out
 
 
-def close_phase(dev, name_power: str, saver, int32_rate: float) -> dict:
+def close_phase(dev, name_power: str, saver, int32_rate: float,
+                before_timing=None) -> dict:
     """The standalone node under a payment flood (CLOSE_SIZES), through
     its doors. The port's Node is built from a config beside the chain's
     store (node_config_text, PORT_NODE_DEVICE: every crypto plane on the
@@ -2201,8 +2250,10 @@ def close_phase(dev, name_power: str, saver, int32_rate: float) -> dict:
     and stop: the card's busy share of it. Every verdict, TER, ledger
     hash, results digest, splice count, adoption, persisted digest, the
     `ledger` stream's hashes and the read RPCs' answers are checked; the
-    launch counts are this phase's alone. Then K1 against its plain
-    version on a close's batch and at batch sizes 1-33."""
+    launch counts are this phase's alone. Then ``before_timing()``, if
+    given (run() passes SideRun.join: the other users of the card end
+    first), and K1 against its plain version on a close's batch and at
+    batch sizes 1-33, timed at batch 1."""
     import numpy as np
 
     from stellard_tpu_torch.interop import ledger_from_items
@@ -2310,6 +2361,8 @@ def close_phase(dev, name_power: str, saver, int32_rate: float) -> dict:
     prof_wall = closes[-1]["wall_ms"]
     busy = busy_share(res["profile"]["trace"], prof_wall)
     other_wall = float(np.mean([c["wall_ms"] for c in closes[:-1]]))
+    if before_timing is not None:
+        before_timing()
 
     # K1 against its plain version at the shapes the close gave it: one
     # close's batch (the harness's shape, and the prewarm's 4,096), and
@@ -2329,12 +2382,17 @@ def close_phase(dev, name_power: str, saver, int32_rate: float) -> dict:
     one = to_tensors(prepare_batch([txs[0].signing_pub_key], [txs[0].signing_hash()],
                                    [txs[0].signature]), dev)
     b1_ms, _ = cuda_ms(lambda: ed25519_cuda.verify(**one), reps=50)
-    b1_plain_ms, _ = cuda_ms(lambda: verify_kernel_ref(**one), reps=3)
+    b1_plain_ms, _ = cuda_ms(lambda: verify_kernel_ref(**one), reps=1)
     b1_bound, b1_by = bound_ms(k1_ops(prepare_batch(
         [txs[0].signing_pub_key], [txs[0].signing_hash()], [txs[0].signature])),
         130, int32_rate)
 
     per_close = [{key: c[key] for key in DOOR_CLOSE_KEYS} for c in closes]
+    door = HttpRpc(node.http_server.port)
+    try:
+        close_health = health_report("close-node", door.call("health"))
+    finally:
+        door.close()
     summary = {
         "card": name_power, "accounts": CLOSE_SIZES["n_accounts"],
         "senders": CLOSE_SIZES["n_senders"], "closes": len(closes), "payments": n_pay,
@@ -2354,7 +2412,7 @@ def close_phase(dev, name_power: str, saver, int32_rate: float) -> dict:
         "k1_prewarm_launches": sum(prewarm_k1.values()), "k1_batch1_submits": n_batch1,
         "watchdog_calls": watchdog["calls"], "watchdog_start_ms": watchdog["start_ms"],
         "launches": launches, "launches_by_thread": by_thread,
-        "txq": counts["txq"], "mesh": widths,
+        "txq": counts["txq"], "mesh": widths, "health": close_health,
     }
     emit("close", **summary)
     emit("door", card=name_power, per_close=[
@@ -2381,7 +2439,9 @@ def k1_small_batches(dev) -> dict:
     """K1 against its plain version and the RFC 8032 oracle at the batch
     sizes the door gives it and around a warp's edge (1, 2, 3, 4, 31, 32,
     33), each batch cycling through a good signature, one with a bad S,
-    one with a non-canonical S (S + l) and one under an undecodable key."""
+    one with a non-canonical S (S + l) and one under an undecodable key.
+    The plain version, lane by lane as K1 is, runs once on the 33 lanes:
+    each batch is their prefix (a plain call costs seconds at any batch)."""
     import numpy as np
 
     from stellard_tpu_torch.ops import ed25519_cuda, ed25519_ref
@@ -2400,17 +2460,17 @@ def k1_small_batches(dev) -> dict:
         elif kind == 3:
             p = bad_key
         lanes.append((p, m, sg))
+    ps, ms, ss = (list(t) for t in zip(*lanes))
+    plain = verify_kernel_ref(**to_tensors(prepare_batch(ps, ms, ss), dev))
+    oracle = [ed25519_ref.verify(p, m, sg) for p, m, sg in lanes]
     err, sizes = 0, {}
     for n in (1, 2, 3, 4, 31, 32, 33):
-        ps, ms, ss = (list(t) for t in zip(*lanes[:n]))
-        tens = to_tensors(prepare_batch(ps, ms, ss), dev)
-        got, plain = ed25519_cuda.verify(**tens), verify_kernel_ref(**tens)
-        e = max_abs_err(got, plain)
-        oracle = [ed25519_ref.verify(p, m, sg) for p, m, sg in lanes[:n]]
-        require(e == 0 and got.cpu().numpy().tolist() == oracle,
+        got = ed25519_cuda.verify(**to_tensors(prepare_batch(ps[:n], ms[:n], ss[:n]), dev))
+        e = max_abs_err(got, plain[:n])
+        require(e == 0 and got.cpu().numpy().tolist() == oracle[:n],
                 f"K1 differs from its plain version or the oracle at batch {n}")
         err = max(err, e)
-        sizes[str(n)] = int(np.sum(oracle))
+        sizes[str(n)] = int(np.sum(oracle[:n]))
     require(sizes["4"] == 1, "the small-batch lanes are not one good signature in four")
     return {"max_abs_err": err, "sizes": sizes}
 
@@ -2922,6 +2982,81 @@ TCP_START_S = 300  # the children's start: torch, CUDA, the built kernels, K1's 
 TCP_ROUND_S = 180
 TCP_SLOW_S = 40  # a wait this long prints the net's state (a `tcp_slow` line)
 TCP_CHILDREN = (1, 2, 3)
+# the fleet roles that join the net as children beside validators 1-3,
+# each with its index among the phase's ports (after the validators')
+TCP_FLEET = {"follower": 4, "archive": 5}
+# the validator that deletes online and seals what it retires into
+# history shards (a segstore node store in place of the memory one), and
+# the archive's upstream
+TCP_SEALER = 3
+TCP_MEMORY_DB = "[node_db]\ntype=memory\n"
+TCP_ARCHIVE_RESCAN_S = 5
+TCP_ARCHIVE_WAIT_S = 60  # the archive's import, after the last round
+
+
+def tcp_node_ini(name: str) -> str:
+    """What every node of the tcp phase adds to its INI: its flight
+    recorder's dumps in TCP_DIR."""
+    return f"\n[health]\nflight_dir={TCP_DIR / ('flight-' + name)}\n"
+
+
+def tcp_sealer_db(path: Path) -> str:
+    """The sealing validator's node store: a segstore that deletes online
+    (4 ledgers kept) and seals what it retires into history shards."""
+    return f"[node_db]\ntype=segstore\npath={path}\nonline_delete=4\nshards=1\n"
+
+
+def tcp_fleet_config(mode: str, keys, peer_ports, peer_port: int, rpc_port: int, ws_port: int,
+                     upstream=None, backend: str = "cuda") -> str:
+    """A follower's or an archive's INI on the tcp phase's net: the
+    validators' UNL and quorum, [peer_ssl] require, a memory node store,
+    both crypto sections ``type=backend``, clock speed 1, and no
+    validation key. It dials every validator, or with ``upstream`` (a
+    peer port) only that one ([node] upstream=). An archive's shards go
+    to TCP_DIR, and it rescans its upstream's manifest every
+    TCP_ARCHIVE_RESCAN_S."""
+    unl = "\n".join(k.human_node_public for k in keys)
+    if upstream is None:
+        node = f"[node]\nmode={mode}\n\n[ips]\n" + "\n".join(
+            f"127.0.0.1 {p}" for p in peer_ports)
+    else:
+        node = f"[node]\nmode={mode}\nupstream=127.0.0.1 {upstream}"
+    archive = (f"\n[archive]\npath={TCP_DIR / 'archive-shards'}\n"
+               f"rescan_s={TCP_ARCHIVE_RESCAN_S}\n" if mode == "archive" else "")
+    return f"""
+[standalone]
+0
+
+{TCP_MEMORY_DB}
+[signature_backend]
+type={backend}
+
+[hash_backend]
+type={backend}
+
+[validators]
+{unl}
+
+[validation_quorum]
+3
+
+[peer_port]
+{peer_port}
+
+[peer_ssl]
+require
+
+{node}
+
+[clock_speed]
+1
+
+[rpc_port]
+{rpc_port}
+
+[websocket_port]
+{ws_port}
+{archive}"""
 
 
 def tcp_workload(n_rounds: int, per_round: int, per_relay: int, bad_share: float,
@@ -3016,26 +3151,27 @@ def tcp_balances(rpc, accounts) -> list:
 
 
 class TcpNet:
-    """Validators 1-3 of the tcp phase: ``python -m stellard_tpu_torch
-    --conf <ini> --start`` children, each logging to TCP_DIR; ``check``
-    fails the smoke, with the tail of every log, once one has exited."""
+    """Validators 1-3 of the tcp phase and its follower and archive:
+    ``python -m stellard_tpu_torch --conf <ini> --start`` children, each
+    logging to TCP_DIR; ``check`` fails the smoke, with the tail of every
+    log, once one has exited."""
 
-    def __init__(self, inis: list):
+    def __init__(self, inis: dict):
         from stellard_tpu_torch.testkit import tcpnet
 
-        self.logs = {i: TCP_DIR / f"validator-{i}.log" for i in TCP_CHILDREN}
-        self.procs = {i: tcpnet.spawn_validator(str(inis[i]), stdout=self.logs[i].open("w"))
-                      for i in TCP_CHILDREN}
+        self.logs = {k: TCP_DIR / f"{tcp_name(k)}.log" for k in inis}
+        self.procs = {k: tcpnet.spawn_validator(str(ini), stdout=self.logs[k].open("w"))
+                      for k, ini in inis.items()}
 
     def tails(self) -> str:
-        return "\n".join(f"--- validator {i} ---\n{self.logs[i].read_text()[-3000:]}"
-                         for i in TCP_CHILDREN)
+        return "\n".join(f"--- {tcp_name(k)} ---\n{log.read_text()[-3000:]}"
+                         for k, log in self.logs.items())
 
     def check(self) -> None:
-        dead = {i: p.poll() for i, p in self.procs.items() if p.poll() is not None}
+        dead = {tcp_name(k): p.poll() for k, p in self.procs.items() if p.poll() is not None}
         if dead:
             print(self.tails(), flush=True)
-            raise SmokeFailure(f"tcp validators exited: {dead}")
+            raise SmokeFailure(f"tcp children exited: {dead}")
 
     def stop(self) -> dict:
         """SIGTERM each child (the node drains and stops), SIGKILL one
@@ -3051,6 +3187,88 @@ class TcpNet:
                 p.kill()
                 codes[i] = p.wait()
         return codes
+
+
+def tcp_name(key) -> str:
+    """A tcp phase node's name: ``validator-<i>``, ``follower``, ``archive``."""
+    return key if isinstance(key, str) else f"validator-{key}"
+
+
+class LedgerSink:
+    """A local HTTP listener for a node's ``subscribe`` with ``url=``
+    (its RpcSub POSTs each event as a JSON-RPC ``event`` request): keeps
+    every event it is sent, in arrival order."""
+
+    def __init__(self):
+        import http.server
+
+        events = self.events = []
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = json.loads(self.rfile.read(int(self.headers.get("Content-Length", "0"))))
+                events.append(body["params"][0])
+                self.send_response(200)
+                self.end_headers()
+                self.wfile.write(b"{}")
+
+            def log_message(self, *args):
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        threading.Thread(target=self.server.serve_forever, name="rpcsub-sink",
+                         daemon=True).start()
+        self.url = f"http://127.0.0.1:{self.server.server_port}/"
+
+    def ledgers(self) -> list:
+        return [e for e in self.events if e.get("type") == "ledgerClosed"]
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def fleet_planes(name: str, counts: dict, counts0: dict) -> dict:
+    """A follower's or an archive's planes over the rounds, from its
+    get_counts before (``counts0``) and after them: no host signature
+    check but the hellos', no signature on the host side of its plane,
+    and the K1/K2 launches and arrival-hash batches of the rounds."""
+    vp, hv = counts["verify_plane"], counts["host_verifies"]
+    require(vp["cpu_sigs"] == 0 and hv["total"] == hv["handshakes"],
+            f"the {name} checked signatures on the host: {vp['cpu_sigs']} plane, "
+            f"{hv['total']} in all, {hv['handshakes']} handshakes")
+    k, k0 = counts["kernels"], counts0["kernels"]
+    acq, acq0 = counts["acquisition"], counts0["acquisition"]
+    return {"device_share": vp["device_share"], "device_batches": vp["device_batches"],
+            "verified": vp["verified"], "host_verifies": hv,
+            "k1_launches": k["ed25519_verify"] - k0["ed25519_verify"],
+            "k2_launches": k["sha512_masked"] - k0["sha512_masked"],
+            "k3_launches": k["tree_inner_level"] - k0["tree_inner_level"],
+            "arrival_hash_batches": acq["hash_batches"] - acq0["hash_batches"],
+            "arrival_hashed_nodes": acq["hashed_nodes"] - acq0["hashed_nodes"],
+            "peers": counts.get("peers")}
+
+
+def health_report(who: str, answer: dict) -> dict:
+    """A node's `health` answer, reported (its status is not gated): the
+    watchdog must have evaluated at least one snapshot, and every flight
+    dump the node wrote must parse as JSON."""
+    h, flight = answer["health"], answer["flight"]
+    require(answer["enabled"] and h["evaluations"] >= 1,
+            f"{who}'s health watchdog evaluated no snapshot: {h}")
+    reasons = []
+    for path in flight["dumps"]:
+        with open(path, encoding="utf-8") as f:
+            dump = json.load(f)
+        require(bool(dump.get("reason")) and "spans" in dump, f"{who}'s flight dump {path}")
+        reasons.append(dump["reason"])
+    out = {"node": who, "status": h["status"], "reasons": h["reasons"],
+           "transitions": h["transitions"], "evaluations": h["evaluations"],
+           "ewma_close_gap_s": h["ewma_close_gap_s"], "closed_seq": h["closed_seq"],
+           "validated_seq": h["validated_seq"], "dumps": len(flight["dumps"]),
+           "dump_reasons": reasons}
+    emit("health", **out)
+    return out
 
 
 class ValidatedView:
@@ -3105,9 +3323,10 @@ def tcp_phase(dev, name_power: str, int32_rate: float) -> dict:
     TCP_INI_EXTRA. Validator 0 is a Node in this process (its K1, K2 and
     K3 launches counted here, every K1 request it makes recorded);
     validators 1-3 are `python -m stellard_tpu_torch --start` children,
-    spawned first. The warm-up funds tcp_workload's second sender at
-    validator 0's HTTP `submit`; then each round submits the master
-    account's payments at validator 0 (a bad copy before ~1% of them,
+    spawned first (validator 0 starts once their doors answer, so the
+    four begin their rounds together). The warm-up funds tcp_workload's
+    second sender at validator 0's HTTP `submit`; then each round submits
+    the master account's payments at validator 0 (a bad copy before ~1% of them,
     which the door refuses) and the second sender's at validator 2, from
     two client threads at once — the second sender's payments reach
     validators 0, 1 and 3 as relayed TCP frames, verified a socket read
@@ -3115,7 +3334,7 @@ def tcp_phase(dev, name_power: str, int32_rate: float) -> dict:
 
     Checked: the same validated hash on all four at every seq from 2;
     every good payment validated tesSUCCESS, read through `tx` on the
-    children; every bad copy answered temINVALID at the door, never
+    children that keep their history; every bad copy answered temINVALID at the door, never
     relayed by validator 0 and never found; the balances and sequences of
     every account the same on all four and equal to the JAX package's
     (TCP_BALANCES_DIGEST); device share 1.0 and no host signature check
@@ -3125,7 +3344,14 @@ def tcp_phase(dev, name_power: str, int32_rate: float) -> dict:
     launched, and every K1
     request it made through K1's plain version on the card: the same
     verdict on every lane. A child that exits, or a net that does not
-    form or validate in time, fails the smoke."""
+    form or validate in time, fails the smoke.
+
+    The fleet roles join the net: validator 3 deletes online into
+    history shards (tcp_sealer_db), a follower and an archive are two
+    more children (tcp_fleet_config); the follower's ledgers, balances,
+    planes and RpcSub, and the archive's import of validator 3's shards
+    and its deep ledgers, are checked, and the health watchdogs of
+    validator 0 and the follower reported (health_report)."""
     import http.client
 
     import numpy as np
@@ -3146,24 +3372,54 @@ def tcp_phase(dev, name_power: str, int32_rate: float) -> dict:
     inputs_s = time.perf_counter() - t_phase
     shutil.rmtree(TCP_DIR, ignore_errors=True)
     TCP_DIR.mkdir(parents=True)
-    ports = tcpnet.free_ports(12)
-    peer_ports, rpc_ports, ws_ports = ports[:4], ports[4:8], ports[8:]
+    ports = tcpnet.free_ports(18)
+    peer_ports, rpc_ports, ws_ports = ports[:6], ports[6:12], ports[12:]
     vkeys = [KeyPair.from_passphrase(f"tcp-val-{i}") for i in range(4)]
-    inis = []
+    inis = {}
     for i in range(4):
-        path = TCP_DIR / f"validator-{i}.cfg"
-        path.write_text(tcpnet.validator_config(
-            i, vkeys, peer_ports, rpc_ports[i], ws_ports[i], quorum=3, speed=1.0,
-            backend="cuda") + TCP_INI_EXTRA)
-        inis.append(path)
+        text = tcpnet.validator_config(
+            i, vkeys, peer_ports[:4], rpc_ports[i], ws_ports[i], quorum=3, speed=1.0,
+            backend="cuda") + TCP_INI_EXTRA + tcp_node_ini(tcp_name(i))
+        if i == TCP_SEALER:
+            require(TCP_MEMORY_DB in text, "the private-net INI's node store")
+            text = text.replace(TCP_MEMORY_DB, tcp_sealer_db(TCP_DIR / f"validator-{i}-ns"))
+        inis[i] = TCP_DIR / f"validator-{i}.cfg"
+        inis[i].write_text(text)
+    for name, k in TCP_FLEET.items():
+        inis[name] = TCP_DIR / f"{name}.cfg"
+        inis[name].write_text(tcp_fleet_config(
+            name, vkeys, peer_ports[:4], peer_ports[k], rpc_ports[k], ws_ports[k],
+            upstream=peer_ports[TCP_SEALER] if name == "archive" else None)
+            + TCP_INI_EXTRA + tcp_node_ini(name))
     parse = SerializedTransaction.from_bytes
 
     t0 = time.perf_counter()
-    net = TcpNet(inis)
+    net = TcpNet({k: inis[k] for k in (*TCP_CHILDREN, *TCP_FLEET)})
     node = None
     rpcs: dict = {}
+    fleet: dict = {}
+    sink = LedgerSink()
     run_errors: list = []
     try:
+        # validator 0 starts once every child's door answers (a node opens
+        # its doors after K1's prewarm), so the four validators begin their
+        # rounds together: two that join late take the first ledgers by
+        # switching, and the net then waits for a quorum (ROADMAP Queue C)
+        children_up = time.monotonic() + TCP_START_S
+        for k in (*TCP_CHILDREN, *TCP_FLEET):
+            port = rpc_ports[TCP_FLEET.get(k, k)]
+            while True:
+                net.check()
+                try:
+                    tcpnet.rpc(port, "server_info", timeout=10)
+                    break
+                except (OSError, ValueError):
+                    if time.monotonic() > children_up:
+                        print(net.tails(), flush=True)
+                        raise SmokeFailure(f"tcp phase: {tcp_name(k)} did not start within "
+                                           f"{TCP_START_S} s") from None
+                    time.sleep(0.5)
+        children_s = time.perf_counter() - t0
         node = Node(Config.from_ini(inis[0].read_text())).setup().serve()
         v0_start_s = time.perf_counter() - t0
         plane, overlay = node.verify_plane, node.overlay
@@ -3195,6 +3451,7 @@ def tcp_phase(dev, name_power: str, int32_rate: float) -> dict:
 
         threading.Thread(target=run_node, name="tcp-validator-0", daemon=True).start()
         rpcs.update({i: HttpRpc(rpc_ports[i], timeout=120) for i in range(4)})
+        fleet.update({name: HttpRpc(rpc_ports[k], timeout=120) for name, k in TCP_FLEET.items()})
         seen = ValidatedView(rpcs)
         answers, bad_ters = [], []  # the doors' engine_result for each submit
 
@@ -3225,6 +3482,9 @@ def tcp_phase(dev, name_power: str, int32_rate: float) -> dict:
                     for i in range(4):
                         rpcs[i].close()
                         rpcs[i] = HttpRpc(rpc_ports[i], timeout=120)
+                    for name, k in TCP_FLEET.items():
+                        fleet[name].close()
+                        fleet[name] = HttpRpc(rpc_ports[k], timeout=120)
                 if time.monotonic() > deadline:
                     print(net.tails(), flush=True)
                     emit("tcp_stalled", **tcp_diagnostics())
@@ -3256,6 +3516,14 @@ def tcp_phase(dev, name_power: str, int32_rate: float) -> dict:
                         "validated_top": seen.top.get(i)}
                 except (OSError, KeyError, ValueError) as exc:
                     out[str(i)] = repr(exc)
+            for name in TCP_FLEET:
+                try:
+                    c = fleet[name].call("get_counts")
+                    out[name] = {"peers": c.get("peers"), "follower": c.get("follower"),
+                                 "archive": c.get("archive"),
+                                 "shards": c.get("history_shards")}
+                except (OSError, KeyError, ValueError) as exc:
+                    out[name] = repr(exc)
             return out
 
         def submit_all(port: int, entries, out: list, bad_out: list) -> None:
@@ -3271,11 +3539,19 @@ def tcp_phase(dev, name_power: str, int32_rate: float) -> dict:
             finally:
                 client.close()
 
-        # the net forms: every validator has its three peers
-        wait(lambda: overlay.peer_count() == 3 and all(
-            rpcs[i].call("server_info")["info"]["peers"] == 3 for i in TCP_CHILDREN),
-            TCP_START_S, "net of four validators")
+        # the net forms: every validator has its three validator peers
+        # (and the follower or the archive beside them), the follower
+        # dials the four, the archive its upstream
+        wait(lambda: overlay.peer_count() >= 3 and all(
+            rpcs[i].call("server_info")["info"]["peers"] >= 3 for i in TCP_CHILDREN)
+            and fleet["follower"].call("server_info")["info"]["peers"] == 4
+            and fleet["archive"].call("server_info")["info"]["peers"] == 1,
+            TCP_START_S, "net of four validators, a follower and an archive")
         join_s = time.perf_counter() - t0
+        # an RpcSub on the follower: its `ledger` stream pushed to the sink
+        sub = fleet["follower"].call("subscribe", url=sink.url, streams=["ledger"])
+        require(sub.get("status") == "success", f"the follower's url subscribe: {sub}")
+        fleet0 = {name: c.call("get_counts") for name, c in fleet.items()}
 
         gc.collect()
         gc_clock = GcClock()
@@ -3321,19 +3597,44 @@ def tcp_phase(dev, name_power: str, int32_rate: float) -> dict:
         host_verifies = keys.host_verifies
         handshakes = overlay.handshake_verifies - handshakes0
 
+        # the archive imports every shard the sealing validator sealed by
+        # the end of the rounds, within TCP_ARCHIVE_WAIT_S of the last one
+        t_last = time.perf_counter()
+        sealed = rpcs[TCP_SEALER].call("get_counts").get("history_shards")
+        require(sealed is not None and sealed["shards"] > 0,
+                f"validator {TCP_SEALER} sealed no history shard by the end of the rounds: "
+                f"{sealed}")
+        sealed_lo, sealed_hi = sealed["range"]
+
+        def archived() -> bool:
+            # a validator's stored history has a gap where it adopted a tip
+            # without the ledgers before it, and so do its shards: every
+            # shard, its range and its contiguous floor
+            hs = fleet["archive"].call("get_counts").get("history_shards") or {}
+            return (hs.get("shards", 0) >= sealed["shards"] and bool(hs.get("range"))
+                    and hs["range"][0] <= sealed_lo and hs["range"][1] >= sealed_hi
+                    and hs["contiguous_floor"] >= sealed["contiguous_floor"])
+
+        wait(archived, TCP_ARCHIVE_WAIT_S, f"the archive's import of validator "
+             f"{TCP_SEALER}'s shards {sealed_lo}-{sealed_hi}")
+        archive_wait_s = time.perf_counter() - t_last
+
         # the same validated tip on all four, and every validated hash
         # from seq 2 the same on every validator that holds that ledger
         wait(lambda: len({seen.tip(i) for i in rpcs}) == 1, TCP_ROUND_S,
              "common validated tip")
         common, _tip_hash = seen.tip(0)
         not_held = 0
+        val_hash = {}  # seq -> the validated hash, validator 0's where it holds it
         for seq in range(2, common + 1):
             got = [seen.ledger_hash(i, seq) for i in rpcs]
             not_held += got.count(None)
             held = set(got) - {None}
             require(len(held) == 1, f"seq {seq}: the validators' validated hashes differ: {got}")
-        # every good payment validated tesSUCCESS, read through `tx` on the
-        # children (each a third of them, the three at once)
+            val_hash[seq] = (got[0] or held.pop()).lower()
+        # every good payment validated tesSUCCESS, read through `tx` on
+        # validators 1 and 2 (each half of them, at once: the sealing
+        # validator deletes its older history), every bad copy on 1-3
         good_ids = [parse(wl["fund"]).txid()] + [
             parse(b).txid() for rnd in wl["rounds"]
             for b in [g for g, _b in rnd["door"]] + rnd["relay"]]
@@ -3353,8 +3654,10 @@ def tcp_phase(dev, name_power: str, int32_rate: float) -> dict:
                 client.close()
 
         t_read = time.perf_counter()
-        readers = [threading.Thread(target=read_txs, args=(i, good_ids[k::3] + bad_ids))
-                   for k, i in enumerate(TCP_CHILDREN)]
+        keep = [i for i in TCP_CHILDREN if i != TCP_SEALER]
+        readers = [threading.Thread(target=read_txs, args=(i, good_ids[k::len(keep)] + bad_ids))
+                   for k, i in enumerate(keep)]
+        readers.append(threading.Thread(target=read_txs, args=(TCP_SEALER, bad_ids)))
         for t in readers:
             t.start()
         for t in readers:
@@ -3423,16 +3726,89 @@ def tcp_phase(dev, name_power: str, int32_rate: float) -> dict:
         tree = node.ledger_master.tree_json()
         absorbed = {k: tree.get(k, 0) for k in ABSORBED}
         require(not any(absorbed.values()), f"validator 0's close absorbed errors: {absorbed}")
+
+        # the follower: at the common tip, every ledger it adopted is the
+        # validators', its balances the JAX package's, its planes on the card
+        fc = fleet["follower"]
+        wait(lambda: fc.call("server_info")["info"].get("validated_ledger", {}).get(
+            "seq", 0) >= common, TCP_ROUND_S, "the follower at the common tip")
+        adopted = 0
+        for seq in range(2, common + 1):
+            answer = fc.call("ledger", ledger_index=seq)
+            if "ledger" in answer:
+                require(answer["ledger"]["hash"].lower() == val_hash[seq],
+                        f"the follower's ledger {seq} is not the validators'")
+                adopted += 1
+        require(adopted > 0, "the follower adopted no validated ledger")
+        follower_digest = balances_digest(tcp_balances(fc, wl["accounts"]))
+        require(follower_digest == TCP_BALANCES_DIGEST,
+                f"the follower's balances digest {follower_digest} differs from the JAX "
+                f"package's")
+        follower = fleet_planes("follower", fc.call("get_counts"), fleet0["follower"])
+        require(follower["device_share"] == 1.0, f"the follower's device share {follower}")
+        require(follower["k1_launches"] > 0 and follower["arrival_hash_batches"] > 0
+                and follower["k2_launches"] > 0,
+                f"the follower launched no K1 or arrival-hash K2 in the rounds: {follower}")
+        follower.update(adopted=adopted, balances_digest=follower_digest)
+
+        # its RpcSub: every ledgerClosed to the tip, in seq order, no gap,
+        # the validators' hashes, no event dropped
+        wait(lambda: any(e["ledger_index"] >= common for e in sink.ledgers()), TCP_ROUND_S,
+             "the follower's RpcSub at the common tip")
+        pushed = sink.ledgers()
+        seqs = [e["ledger_index"] for e in pushed]
+        require(seqs == list(range(seqs[0], seqs[0] + len(seqs))),
+                f"the follower's RpcSub pushed ledgers out of order or with a gap: {seqs}")
+        require([e["seq"] for e in sink.events] == list(range(1, len(sink.events) + 1)),
+                "the follower's RpcSub dropped an event")
+        for e in pushed:
+            if e["ledger_index"] in val_hash:
+                require(e["ledger_hash"].lower() == val_hash[e["ledger_index"]],
+                        f"the follower pushed ledger {e['ledger_index']} with another hash")
+        rpcsub = {"events": len(sink.events), "ledgers": len(pushed), "first": seqs[0],
+                  "last": seqs[-1], "checked": sum(q in val_hash for q in seqs)}
+
+        # the archive: no peer condemned, a verified floor, and its ledgers
+        # below the floor the validators'
+        ac = fleet["archive"].call("get_counts")
+        backfill, shards = ac["archive"]["backfill"], ac["history_shards"]
+        require(backfill["garbage_peers"] == 0 and backfill["import_rejects"] == 0,
+                f"the archive condemned a peer: {backfill}")
+        floor = shards["contiguous_floor"]
+        require(floor > 0, f"the archive's verified floor is {floor}")
+        # every ledger it answers in the sealed range is the validators',
+        # and it answers every one at or below its floor
+        deep = []
+        for seq in range(max(2, sealed_lo), sealed_hi + 1):
+            answer = fleet["archive"].call("ledger", ledger_index=seq)
+            if seq <= floor or "ledger" in answer:
+                require(answer.get("ledger", {}).get("hash", "").lower() == val_hash[seq],
+                        f"the archive's ledger {seq} (floor {floor}): {answer}")
+                deep.append(seq)
+        require(any(q <= floor for q in deep), f"no ledger at or below the archive's floor "
+                                               f"{floor} to read")
+        archive = fleet_planes("archive", ac, fleet0["archive"])
+        archive.update(
+            sealed_by_validator=sealed, imported=backfill["imported"],
+            duplicates=backfill["duplicates"], bytes=backfill["bytes"],
+            requests=backfill["requests"], contiguous_floor=floor,
+            deep_ledgers_checked=len(deep), import_wait_s=archive_wait_s,
+            ledgers_ingested=ac["follower"]["ledgers_ingested"])
+
+        # health, reported: validator 0 and the follower
+        health = [health_report("validator-0", rpcs[0].call("health")),
+                  health_report("follower", fc.call("health"))]
     finally:
         try:
-            for client in rpcs.values():
+            for client in [*rpcs.values(), *fleet.values()]:
                 client.close()
+            sink.close()
             if node is not None:
                 node.stop()
         finally:
             codes = net.stop()
     require(not run_errors, f"validator 0 failed: {run_errors!r}")
-    require(all(c == 0 for c in codes.values()), f"tcp validators exited {codes}")
+    require(all(c == 0 for c in codes.values()), f"tcp children exited {codes}")
     # one K1 launch a plane call, counted once validator 0 has stopped:
     # the net goes on validating while the checks above read it
     require(ed25519_cuda.launches == len(record) - calls0,
@@ -3458,7 +3834,8 @@ def tcp_phase(dev, name_power: str, int32_rate: float) -> dict:
          round_p90_ms=ordered[min(len(ordered) - 1, (len(ordered) * 9) // 10)],
          payments_per_s=(n_door + n_relay) / sum(round_ms) * 1e3,
          phase_s=time.perf_counter() - t_phase, inputs_s=inputs_s,
-         validator0_start_s=v0_start_s, join_s=join_s, warmup_s=warmup_s, run_s=run_s,
+         children_start_s=children_s, validator0_start_s=v0_start_s, join_s=join_s,
+         warmup_s=warmup_s, run_s=run_s,
          read_back_s=read_s, collector_ms=gc_clock.ms, full_collections=gc_clock.full,
          validated_seqs=common - 1, ledgers_not_held=not_held, hashes_equal=True,
          balances_digest=digests[0],
@@ -3469,7 +3846,9 @@ def tcp_phase(dev, name_power: str, int32_rate: float) -> dict:
          host_verifies=host_verifies, handshake_verifies=handshakes,
          dispute_rechecks=rechecks[0], tree_calls=cuda_hasher.tree_calls,
          readbacks=tt.readbacks, verify_device_quantiles=pj["latency_histogram_ms"][
-             "device_quantiles"], children=children, child_exit_codes=codes)
+             "device_quantiles"], children=children, child_exit_codes=codes,
+         follower=follower, archive=archive, rpcsub=rpcsub, health=health,
+         sealed_shards=sealed)
     shutil.rmtree(TCP_DIR, ignore_errors=True)
     return {"launches": launches, "by_thread": by_thread, "k1_max_abs_err": k1_err}
 
@@ -4011,6 +4390,10 @@ def replay_phase(dev, name_power: str, saver: ChainSaver, close_digests: list) -
                 "the store's records are not the saves' nodes")
         digest = store_digest(records)
         digest_ms = (time.perf_counter() - t0) * 1e3
+        # the store holds every record listed: the forged copy's save
+        # below writes only what it lacks, as the node that wrote them
+        # would (a store opened afresh knows none of its nodes)
+        db.flushed.update(key for key, _t, _b in records)
         del records
         require(digest == STORE_DIGEST,
                 f"store digest {digest} differs from the JAX package's {STORE_DIGEST}")
@@ -4498,9 +4881,75 @@ def leaf_blocks(m):
     require(len(oversized) == 0 and len(buckets) == 1, "leaves span ladder sizes")
     return pad_packed(buf, off[:-1], lengths, buckets[0][0])
 
-def run_tcp_alone(dev) -> None:
-    """The tcp phase alone (``--only tcp``): the card, the kernels built
-    in this process first, then tcp_phase; no final ok line."""
+SIDE_OUT = HERE / "build" / "chip_smoke_side.out"
+SIDE_ERR = HERE / "build" / "chip_smoke_side.err"
+SIDE_JOIN_S = 700  # the consensus and tcp phases take 120-180 s on the card's host
+
+
+class SideRun:
+    """The consensus and tcp phases in a second process of this script
+    (``--side``), started in a process group of its own (its tcp children
+    with it), its output and errors into files under build/: they run while
+    this process drives the close chain, which is host-bound. ``join``
+    waits for it, prints what it printed, fails the smoke if it failed
+    and returns its two phases' results; ``stop`` ends what is left of
+    its group."""
+
+    def __init__(self):
+        SIDE_OUT.parent.mkdir(parents=True, exist_ok=True)
+        self.out, self.err = SIDE_OUT.open("w"), SIDE_ERR.open("w")
+        self.proc = subprocess.Popen(
+            [sys.executable, str(HERE / "chip_smoke.py"), "--side", repr(T_IMPORT)],
+            cwd=HERE, stdout=self.out, stderr=self.err, start_new_session=True)
+        self.result = None
+
+    def join(self) -> tuple[dict, dict]:
+        if self.result is None:
+            try:
+                rc = self.proc.wait(timeout=SIDE_JOIN_S)
+            except subprocess.TimeoutExpired:
+                rc = None
+            self.out.close()
+            self.err.close()
+            lines = SIDE_OUT.read_text().splitlines()
+            sys.stderr.write(SIDE_ERR.read_text())
+            sys.stderr.flush()
+            last = json.loads(lines.pop()) if rc == 0 and lines else {}
+            if lines:
+                print("\n".join(lines), flush=True)
+            require(rc == 0 and "side" in last,
+                    f"the consensus and tcp phases' process ended with {rc}")
+            self.result = (last["side"]["consensus"], last["side"]["tcp"])
+        return self.result
+
+    def stop(self) -> None:
+        """SIGTERM what is left of the side's process group (a node drains
+        and stops), then SIGKILL; each waits up to 30 s for the group to
+        empty."""
+        import signal
+
+        for sig in (signal.SIGTERM, signal.SIGKILL):
+            self.proc.poll()  # reaps the side itself once it has ended
+            try:
+                os.killpg(self.proc.pid, sig)
+            except ProcessLookupError:
+                break  # nothing of its group is left
+            deadline = time.monotonic() + 30
+            while time.monotonic() < deadline:
+                self.proc.poll()
+                try:
+                    os.killpg(self.proc.pid, 0)
+                except ProcessLookupError:
+                    break
+                time.sleep(0.5)
+        self.proc.wait()
+        self.out.close()
+        self.err.close()
+
+
+def card_and_build(dev) -> tuple[str, float]:
+    """The card's name and power limit and its INT32 rate; the kernels
+    built (at once when this process's parent has built them)."""
     import torch
 
     from stellard_tpu_torch.ops import build, ed25519_cuda, pathq, treehash
@@ -4508,14 +4957,32 @@ def run_tcp_alone(dev) -> None:
     name_power = nvidia_smi("name,power.limit")
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     props = torch.cuda.get_device_properties(dev)
-    print(name_power, flush=True)
     t0 = time.perf_counter()
     build.build([ed25519_cuda.LIB, treehash.LIB, pathq.LIB])
     emit("build", seconds=time.perf_counter() - t0)
-    tcp_phase(dev, name_power, props.multi_processor_count * INT32_PER_SM_CLOCK * clock_mhz * 1e6)
+    return name_power, props.multi_processor_count * INT32_PER_SM_CLOCK * clock_mhz * 1e6
+
+
+def run_side(dev) -> None:
+    """The consensus and tcp phases (``--side T0``, from SideRun), each
+    counted on its own; the last line gives their results to the
+    parent."""
+    name_power, int32_rate = card_and_build(dev)
+    consensus = consensus_phase(dev, name_power, int32_rate)
+    tcp = tcp_phase(dev, name_power, int32_rate)
+    print(json.dumps({"side": {"consensus": consensus, "tcp": tcp}}), flush=True)
+
+
+def run_tcp_alone(dev) -> None:
+    """The tcp phase alone (``--only tcp``): the card, the kernels built
+    in this process first, then tcp_phase; no final ok line."""
+    name_power, int32_rate = card_and_build(dev)
+    print(name_power, flush=True)
+    tcp_phase(dev, name_power, int32_rate)
 
 
 def main() -> int:
+    global T_IMPORT
     try:
         import torch
     except ImportError:
@@ -4536,13 +5003,18 @@ def main() -> int:
         print("chip_smoke: stellard_tpu_torch was not imported from this checkout",
               file=sys.stderr)
         return 2
-    only = sys.argv[1:] == ["--only", "tcp"]
-    if sys.argv[1:] and not only:
+    args = sys.argv[1:]
+    only = args == ["--only", "tcp"]
+    side = len(args) == 2 and args[0] == "--side"
+    if args and not (only or side):
         print("usage: chip_smoke.py [--only tcp]", file=sys.stderr)
         return 2
     try:
         if only:
             run_tcp_alone(torch.device("cuda", 0))
+        elif side:
+            T_IMPORT = float(args[1])  # the parent's start: one at_s clock
+            run_side(torch.device("cuda", 0))
         else:
             run(torch.device("cuda", 0))
     except Exception as exc:  # noqa: BLE001 — report the failed phase, exit non-zero

@@ -7,9 +7,10 @@ knobs (``[signature_backend]``, ``[hash_backend]``, batch-window tuning)
 following the same pattern as the reference's ``[node_db] type=...``
 pluggable-factory selection (doc/stellard-example.cfg:795-802).
 
-This package's node is the standalone node or a networked validator
-(``[peer_port]`` with ``[standalone] 0``: the TCP overlay, its TLS and
-peer discovery, the TLS doors, SNTP and validator list sources), and
+This package's node is the standalone node or a networked validator,
+follower or archive (``[peer_port]`` with ``[standalone] 0``: the TCP
+overlay, its TLS and peer discovery, the TLS doors, SNTP and validator
+list sources), and
 its device backend is ``cuda``: both crypto sections default to
 ``type=cuda``, so a node runs on the card unless its config says
 ``type=cpu``, and a cuda node's signature, hash and path batches all go
@@ -17,10 +18,12 @@ to the card by default (``routing=device``, device floors of 1 and 0):
 measured-cost routing, which may answer a batch on the host, is an
 explicit ``routing=cost``. ``mesh=`` (0, N or ``auto``, the default of
 both crypto sections, as in the JAX package) is the device width: the
-batches shard over that many cards. A key that would turn on a plane
-this package does not have (the parallel speculation pool, follower and
-archive modes, the health watchdog, kernel tuning files) raises when
-the config is parsed; nothing is dropped silently.
+batches shard over that many cards. The fleet roles (``[node]
+mode=follower|archive``, ``upstream=``, ``[archive]``) and the health
+watchdog (``[health]``, on by default) parse as the JAX package's. A key
+that would turn on a plane this package does not have (the parallel
+speculation pool, kernel tuning files) raises when the config is
+parsed; nothing is dropped silently.
 """
 
 from __future__ import annotations
@@ -389,8 +392,7 @@ class Config:
     # surfacing ok/warn/critical (with reasons) in server_state and
     # get_counts, plus an always-on bounded flight recorder dumped to
     # disk on crash, degradation to TRACKING, or health transitions.
-    # the watchdog is not part of this package: off, and enabled=1 raises
-    health_enabled: bool = False
+    health_enabled: bool = True
     health_stall_warn_s: float = 12.0
     health_stall_crit_s: float = 45.0
     health_drift_factor: float = 2.5
@@ -930,15 +932,11 @@ class Config:
         have. Called by ``from_ini`` and by ``Node``, so a Config built
         in code is held to the same rule as a parsed one."""
         unported = []
-        if self.node_mode != "validator":
-            unported.append(f"[node] mode={self.node_mode}")
         if str(self.spec_workers) != "1":
             unported.append(
                 f"[spec] workers={self.spec_workers} (the parallel "
                 "speculation pool)"
             )
-        if self.health_enabled:
-            unported.append("[health] enabled=1 (the health watchdog)")
         if self.kernel_tuning.strip().lower() not in ("", "none", "off"):
             unported.append(f"[kernel_tuning] {self.kernel_tuning}")
         from ..crypto.backend import parse_mesh

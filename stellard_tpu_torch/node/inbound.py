@@ -18,6 +18,11 @@ wire node-by-node. Faults are first-class: per-request timeout on the
 node's own clock, bounded retries with exponential backoff + seeded
 jitter, peer scoring on failure, and per-peer fallback when a peer
 serves garbage (a record whose bytes do not hash to its key).
+
+Every acquired tree node is checked against its expected hash in one
+batch a reply, on the node's hasher (``InboundLedgers.hash_many``: K2
+on the card for a cuda node); a hasher without the packed door leaves
+the check on the host, as the JAX package always does.
 """
 
 from __future__ import annotations
@@ -51,11 +56,14 @@ class InboundLedger:
     """One acquisition session (reference: InboundLedger.cpp:93-265)."""
 
     def __init__(self, ledger_hash: bytes, hash_batch: Optional[Callable] = None,
-                 now: Optional[float] = None):
+                 now: Optional[float] = None,
+                 hash_many: Optional[Callable] = None):
         import time as _time
 
         self.hash = ledger_hash
         self.hash_batch = hash_batch
+        # batched SHA-512-half of the arriving nodes' blobs (IncompleteMap)
+        self.hash_many = hash_many
         self.header: Optional[bytes] = None
         self.fields: Optional[dict] = None
         self.tx_map: Optional[IncompleteMap] = None
@@ -131,8 +139,10 @@ class InboundLedger:
         self.header = blob
         f = parse_header(blob)
         self.fields = f
-        self.tx_map = IncompleteMap(f["tx_hash"], TNType.TX_MD)
-        self.state_map = IncompleteMap(f["account_hash"], TNType.ACCOUNT_STATE)
+        self.tx_map = IncompleteMap(f["tx_hash"], TNType.TX_MD,
+                                    hash_many=self.hash_many)
+        self.state_map = IncompleteMap(f["account_hash"], TNType.ACCOUNT_STATE,
+                                       hash_many=self.hash_many)
         return True
 
     def take_nodes(self, what: int, pairs: list[tuple[bytes, bytes]]) -> int:
@@ -211,6 +221,10 @@ class InboundLedgers:
         # which once let a dead acquisition pin LCL catch-up forever)
         self.clock = clock if clock is not None else _time.monotonic
         self.hash_batch = hash_batch
+        # arrival hashing: batches of acquired nodes checked on the
+        # hasher, and their nodes
+        self.hash_batches = 0
+        self.hashed_nodes = 0
         # optional hash -> prefix-blob lookup into local storage so
         # acquisitions only fetch the DELTA over the wire
         self.local_fetch = local_fetch
@@ -242,6 +256,23 @@ class InboundLedgers:
             while len(self._recent) > self.RECENT_CAP:
                 del self._recent[next(iter(self._recent))]
 
+    def hash_many(self, blobs) -> list[bytes]:
+        """SHA-512-half of acquired nodes' prefix-format blobs in one
+        batch of the hasher's packed door (each blob carries its 4-byte
+        domain prefix, as a packed message does); on the host where the
+        hasher has no such door."""
+        packed = getattr(self.hash_batch, "hash_packed", None)
+        if packed is None:
+            from ..utils.hashes import sha512_half
+
+            return [sha512_half(b) for b in blobs]
+        offsets = [0]
+        for b in blobs:
+            offsets.append(offsets[-1] + len(b))
+        self.hash_batches += 1
+        self.hashed_nodes += len(blobs)
+        return packed(b"".join(blobs), offsets)
+
     def recently_done(self, ledger_hash: bytes) -> bool:
         t = self._recent.get(ledger_hash)
         return t is not None and self.clock() - t < self.RECENT_TTL
@@ -260,7 +291,7 @@ class InboundLedgers:
             self._callbacks.setdefault(ledger_hash, []).append(callback)
         if il is None:
             il = InboundLedger(ledger_hash, self.hash_batch,
-                               now=self.clock())
+                               now=self.clock(), hash_many=self.hash_many)
             il.for_lcl = for_lcl
             self.live[ledger_hash] = il
             self.trigger(il)

@@ -17,11 +17,19 @@ resumes the chain lazily (the header and two roots are read; every other
 node faults through the hot-node cache, ``[tree] cache_mb``), and so do
 the history fallback and historical reads. ``[node_db] online_delete=``
 sweeps retired history, sealing it first into history shards with
-``[node_db] shards=``, and the ledger cleaner checks stored ledgers. The
-planes whose modules this package does not have stay ``None`` — the
-parallel speculation executor, the health watchdog and flight recorder,
-and the follower and archive tiers — and ``Config.check_ported`` refuses
-a config that would turn one on.
+``[node_db] shards=``, and the ledger cleaner checks stored ledgers.
+
+Fleet roles: ``[node] mode=follower`` joins the net without proposing,
+adopts every validated ledger (each acquired tree node's hash checked
+on the hasher, every trusted validation on the verify plane) and serves
+reads from the validated snapshot; ``mode=archive`` is a follower that
+also backfills the validators' sealed history shards over the
+``GetSegments`` door (node/archive.py) into a txdb that never trims.
+``[node] upstream=`` pins either to named peers. A flight recorder is
+always on and, with ``[health] enabled`` (the default), a health
+watchdog (node/health.py) rides the metrics history. The parallel
+speculation executor is not part of this package, and
+``Config.check_ported`` refuses a config that would turn it on.
 """
 
 from __future__ import annotations
@@ -185,13 +193,17 @@ class Node:
         if cfg.node_db_type == "sqlite" and cfg.node_db_synchronous:
             db_kwargs["synchronous"] = cfg.node_db_synchronous
         self.nodestore = make_database(type=cfg.node_db_type, **db_kwargs)
-        self.txdb = TxDatabase(cfg.database_path or ":memory:")
-        # the JAX node's planes that this package does not have (the
-        # speculation executor, the archive tier, the flight recorder)
-        # are absent: the handlers read them with getattr, and the config
-        # refuses every key that would turn one on. The health watchdog
-        # is read directly.
-        self.health = None
+        # [node] mode=archive (doc/archive.md): the full-history
+        # reporting tier — follower ingest + deep-history shard
+        # backfill + a txdb that NEVER trims + forever-cached
+        # immutable-seq results
+        self.archive = cfg.node_mode == "archive"
+        if self.archive:
+            from .archive import ArchiveTxDatabase
+
+            self.txdb = ArchiveTxDatabase(cfg.database_path or ":memory:")
+        else:
+            self.txdb = TxDatabase(cfg.database_path or ":memory:")
 
         # out-of-core state plane ([tree] cache_mb): the process-wide
         # hot-node cache is the resident set for lazily-faulted trees —
@@ -211,6 +223,19 @@ class Node:
             if shards_path.lower() in ("1", "true", "yes", "on"):
                 shards_path = (cfg.node_db_path or "nodestore") + ".shards"
             self.shardstore = HistoryShardStore(shards_path)
+        elif self.archive:
+            # an archive ALWAYS has a shard store: it is the import
+            # target of the backfill, the serving source for deep
+            # account_tx, and (via the segment manifest) this node's
+            # own advertisement in the shard distribution network —
+            # imported shards re-serve downstream ([archive] path=)
+            from ..nodestore.shards import HistoryShardStore
+
+            self.shardstore = HistoryShardStore(
+                cfg.archive_path
+                or (cfg.node_db_path or cfg.database_path or "archive")
+                + ".archive-shards"
+            )
 
         # stellar CLF plane: SQL mirror + LCL pointer (reference:
         # stellar::gLedgerMaster + workingledger.db, Application.cpp:716)
@@ -244,10 +269,17 @@ class Node:
         # online deletion (rippled SHAMapStore online_delete role): a
         # rotation sweep driven from the validated-close stream keeps a
         # validator's disk bounded near the live set ([node_db]
-        # online_delete=N; requires a backend with liveness — segstore).
-        # A full-history archive would contradict it: check_ported
-        # refuses [node] mode=archive.
+        # online_delete=N; requires a backend with liveness — segstore)
         self.online_deleter = None
+        if self.archive and cfg.node_db_online_delete > 0:
+            # the archive contract is FULL history; a rotation sweep
+            # would silently contradict it (and ArchiveTxDatabase
+            # refuses the SQL trim anyway) — reject the config loudly
+            raise ValueError(
+                "[node_db] online_delete is incompatible with [node] "
+                "mode=archive: the archive tier keeps full history "
+                "(doc/archive.md)"
+            )
         if cfg.node_db_online_delete > 0:
             if not getattr(
                 self.nodestore.backend, "supports_online_delete", False
@@ -393,6 +425,44 @@ class Node:
             self.collector.enable_history(
                 cfg.insight_history_interval, cfg.insight_history_window
             )
+        # SLO health plane ([health], node/health.py): always-on flight
+        # recorder (black box: recent spans + health transitions +
+        # counter snapshots, dumped on crash/degradation) + the EWMA/
+        # threshold watchdog riding the metrics-history sample stream
+        from .health import _RANK, FlightRecorder, HealthWatchdog
+
+        flight_dir = cfg.health_flight_dir or (
+            cfg.database_path + ".flight" if cfg.database_path else ""
+        )
+        self.flight = FlightRecorder(
+            directory=flight_dir, spans_cap=cfg.health_flight_spans
+        )
+        self.tracer.flight = self.flight
+        self._degraded_dump_done = False
+        self.health: Optional[HealthWatchdog] = None
+        if cfg.health_enabled:
+            self.health = HealthWatchdog(
+                stall_warn_s=cfg.health_stall_warn_s,
+                stall_crit_s=cfg.health_stall_crit_s,
+                drift_factor=cfg.health_drift_factor,
+                lag_warn=cfg.health_lag_warn,
+                lag_crit=cfg.health_lag_crit,
+                fanout_p99_warn_ms=cfg.health_fanout_p99_warn_ms,
+                flips_warn=cfg.health_flips_warn,
+                cache_hit_warn=cfg.health_cache_hit_warn,
+                persist_depth_warn=cfg.health_persist_depth_warn,
+                tracer=self.tracer,
+                flight=self.flight,
+            )
+            self.collector.on_sample(self.health.on_snapshot)
+
+            def _dump_on_degrade(old, new, reasons):
+                # the black box ships when health WORSENS; the recovery
+                # transition is an instant in the trace, not a dump
+                if _RANK.get(new, 0) > _RANK.get(old, 0):
+                    self.flight.dump("health-" + new)
+
+            self.health.on_transition.append(_dump_on_degrade)
 
         self.sntp: Optional[SntpClient] = None
         if cfg.sntp_servers:
@@ -421,6 +491,18 @@ class Node:
         # proposal and validation is verified on the verify plane, every
         # tx set and seal hashed on the hasher.
         self.overlay = None
+        # [node] mode=follower (doc/follower.md): the read-only serving
+        # tier — no consensus rounds, validated ledgers ingested from
+        # the net, reads served from the last validated snapshot.
+        # mode=archive (doc/archive.md) runs the follower ingest plane
+        # unchanged and layers deep-history backfill on top.
+        self.follower = cfg.node_mode in ("follower", "archive")
+        if self.follower and (cfg.standalone or not cfg.peer_port):
+            raise ValueError(
+                f"[node] mode={cfg.node_mode} requires a networked node "
+                "([peer_port] set, standalone=0) — it ingests "
+                "validated ledgers from its peers"
+            )
         if cfg.peer_port and not cfg.standalone:
             self._build_overlay()
 
@@ -508,6 +590,14 @@ class Node:
         # closes, status, staleness checks); the SNTP heartbeat COMPOSES
         # its measured correction with this base (see run)
         self.ops.net_time_offset = int(cfg.network_time_offset)
+        if self.health is not None:
+            # close-cadence feed: fires on standalone closes AND on the
+            # networked path (publish_closed_ledger after persist), and
+            # on follower adoption — one seam covers every mode
+            hw2 = self.health
+            self.ops.on_ledger_closed.append(
+                lambda led, _res: hw2.note_close(led.seq)
+            )
 
         # RPC-door resource pricing ([overlay] rpc_resource=1): one
         # decaying charge balance per CLIENT IP, priced with the peer
@@ -536,7 +626,32 @@ class Node:
         )
         self.read_plane = ReadPlane(cache=self.read_cache)
         self.ops.read_plane = self.read_plane
-        self.ledger_master.on_validated = self.read_plane.note_validated
+        if self.archive:
+            # forever-cache eligibility (doc/archive.md): results whose
+            # window closes at or below the verified floor are
+            # immutable. A restarted archive re-publishes the floor of
+            # whatever it already holds before any backfill runs.
+            self._update_archive_floor()
+        # the validated floor: on a quorum net validations land after
+        # the close persisted, and this hook is what opens the epoch
+        # (the read plane publishes min(persisted, validated))
+        if self.health is None:
+            self.ledger_master.on_validated = self.read_plane.note_validated
+        else:
+            # compose: the read plane opens the epoch, the watchdog's
+            # validation-lag rule sees the quorum floor advance
+            hw = self.health
+
+            def _note_validated(led):
+                self.read_plane.note_validated(led)
+                hw.note_validated(led.seq)
+
+            self.ledger_master.on_validated = _note_validated
+        # follower consistency contract (doc/follower.md): selector-less
+        # read RPCs serve the last VALIDATED snapshot, not the open
+        # ledger — the read tier's answers are immutable and identical
+        # across every follower at the same validated seq
+        self.serve_validated_default = self.follower
 
         # liquidity plane ([paths], paths/plane.py): the incremental
         # per-close book index + device-routed candidate pre-ranking
@@ -614,8 +729,8 @@ class Node:
 
     def _build_overlay(self) -> None:
         """The TCP overlay of a networked node: its clocks, TLS, dial set
-        and chain, the catch-up seams on the node store, and persistence
-        through the close pipeline."""
+        and chain, the catch-up seams on the node store, an archive's
+        shard backfill, and persistence through the close pipeline."""
         from ..overlay.tcp import TcpOverlay
 
         cfg = self.config
@@ -672,12 +787,22 @@ class Node:
             peer_tls = PeerTLS.from_state_dir(
                 tls_dir, required=(cfg.peer_ssl == "require")
             )
+        # follower trees (doc/follower.md): [node] upstream= names this
+        # follower's serving tier — usually a peer FOLLOWER one tier up,
+        # not the leader — and replaces [ips] as the dial set, so the
+        # leader's egress is bounded by its direct children instead of
+        # the whole fleet
+        dial_addrs = (
+            _parse_peer_addrs(cfg.node_upstream)
+            if self.follower and cfg.node_upstream
+            else _parse_peer_addrs(cfg.ips)
+        )
         self.overlay = TcpOverlay(
             key=signer,
             unl=unl_keys,
             quorum=cfg.validation_quorum,
             port=cfg.peer_port,
-            peer_addrs=_parse_peer_addrs(cfg.ips),
+            peer_addrs=dial_addrs,
             network_time=ntime,
             clock=clock,
             timer_interval=timer_interval,
@@ -689,6 +814,11 @@ class Node:
                 cfg.database_path + ".bootcache" if cfg.database_path else None
             ),
             proposing=self.validation_keys is not None,
+            follower=self.follower,
+            # upstream-pinned followers never discovery-dial past their
+            # named upstreams (the tree stays a tree even as endpoint
+            # gossip spreads the leader's address)
+            pinned_upstream=bool(self.follower and cfg.node_upstream),
             router=self.hash_router,
             job_dispatch=self._peer_job_dispatch,
             peer_tls=peer_tls,
@@ -757,6 +887,14 @@ class Node:
                 ),
             )
 
+        # archive deep-history backfill (doc/archive.md): a second
+        # fetcher on the same GetSegments door — peers' manifests
+        # advertise sealed shard ranges, the backfill pulls whole
+        # verified shard files for every range this node lacks and fans
+        # each import out to the nodestore + full-history txdb
+        if self.archive and cfg.archive_backfill:
+            self._build_shard_backfill()
+
         # persistence rides the close pipeline's dedicated ORDERED
         # worker, NOT the consensus tick (the hook fires under the
         # master lock and a slow disk must not stall round timing —
@@ -773,6 +911,47 @@ class Node:
             )
 
         self.overlay.accepted_hooks.append(_persist_async)
+
+    def _build_shard_backfill(self) -> None:
+        """An archive's ShardBackfill on the overlay's GetSegments door:
+        each verified import is fed into the node store and the
+        never-trimming txdb (feed_shard), then the verified floor goes to
+        the read plane's forever tier. A peer whose shard fails
+        verification takes the garbage-segment charge on its overlay
+        endpoint (the same stance as segment catch-up)."""
+        from ..nodestore.core import NodeObjectType
+        from ..overlay.resource import FEE_GARBAGE_SEGMENT
+        from .archive import ShardBackfill, feed_shard
+
+        vn = self.overlay.node
+        if vn.segment_source is None:
+            # no segment-capable live backend: the archive still
+            # advertises + re-serves its imported shards (the
+            # distribution network's re-serve half)
+            vn.segment_source = self.shardstore
+
+        def _on_shard_imported(res: dict) -> None:
+            feed_shard(
+                self.shardstore, res["id"],
+                store=lambda tb, key, blob: self.nodestore.store(
+                    NodeObjectType(tb), key, blob
+                ),
+                txdb=self.txdb,
+            )
+            self._update_archive_floor()
+
+        vn.shard_backfill = ShardBackfill(
+            send=self.overlay.send_segments_request,
+            peers=self.overlay.segment_peers,
+            shardstore=self.shardstore,
+            clock=self.overlay._clock,
+            rescan_s=self.config.archive_rescan_s,
+            note_byzantine=vn.note_byzantine,
+            on_imported=_on_shard_imported,
+            on_condemn=lambda pub: self.overlay.charge_peer(
+                pub, FEE_GARBAGE_SEGMENT
+            ),
+        )
 
     def _peer_job_dispatch(self, kind: str, thunk) -> None:
         """Overlay peer-message scheduler: proposals/validations ride
@@ -1059,15 +1238,28 @@ class Node:
         return self
 
     def run(self) -> None:
-        """Block until stopped (reference: ApplicationImp::run)."""
-        import time as _time
-
-        from .jobqueue import JobType
-
+        """Block until stopped (reference: ApplicationImp::run); a crash
+        dumps the flight recorder before it propagates."""
         # watchdog armed only once the run loop drives heartbeats
         # (reference: activateDeadlockDetector from ApplicationImp::run
         # :1028); embedders that drive the node directly never arm it
         self.load_manager.arm()
+        try:
+            self._run_loop()
+        except BaseException:
+            # the flight recorder's whole point: the black box ships
+            # BEFORE the stack unwinds
+            try:
+                self.flight.dump("crash")
+            except Exception:  # noqa: BLE001 — dump must not mask the crash
+                pass
+            raise
+
+    def _run_loop(self) -> None:
+        import time as _time
+
+        from .jobqueue import JobType
+
         last_beat = 0.0
         last_sweep = 0.0
         while self._running.is_set():
@@ -1138,7 +1330,9 @@ class Node:
         operating mode from overlay health (reference:
         NetworkOPs::setMode heuristics): FULL only while rounds are
         actually completing — a node that closed rounds once and then
-        lost its peers must degrade."""
+        lost its peers must degrade. A follower's "round" is an ingested
+        validated ledger. Entering degraded tracking dumps the flight
+        recorder, once an episode."""
         from ..overlay.tcp import DeviceFailed
         from .networkops import OperatingMode
 
@@ -1147,18 +1341,34 @@ class Node:
                 "the card failed under the overlay"
             ) from self.overlay.device_error
         vn = self.overlay.node
-        rounds = vn.rounds_completed
+        # a follower tracks the net without proposing: TRACKING while
+        # its tail advances, CONNECTED/DISCONNECTED from peer health
+        # otherwise
+        rounds = vn.ledgers_ingested if vn.follower else vn.rounds_completed
         if rounds > getattr(self, "_last_rounds", 0):
             self._last_rounds = rounds
             self._last_round_at = now
         recently = now - getattr(self, "_last_round_at", 0.0) < 60.0
-        if vn.degraded:
+        if vn.follower:
+            if rounds > 0 and recently:
+                self.ops.mode = OperatingMode.TRACKING
+            elif self.overlay.peer_count() > 0:
+                self.ops.mode = OperatingMode.CONNECTED
+            else:
+                self.ops.mode = OperatingMode.DISCONNECTED
+        elif vn.degraded:
             # closing without quorum validation: report TRACKING
             # honestly instead of a confident FULL from a node whose
             # ledgers nobody signs
             self.ops.mode = OperatingMode.TRACKING
+            if not self._degraded_dump_done:
+                # black box on entering degraded service — once per
+                # episode, not per heartbeat
+                self._degraded_dump_done = True
+                self.flight.dump("degraded-tracking")
         elif rounds > 0 and recently:
             self.ops.mode = OperatingMode.FULL
+            self._degraded_dump_done = False
         elif self.overlay.peer_count() > 0:
             self.ops.mode = OperatingMode.CONNECTED
         else:
@@ -1212,8 +1422,7 @@ class Node:
         (``HistoryShardStore.contiguous_floor``) to the read plane's
         forever tier: any result whose request window closes at or below
         it is backed by offline-verified shard bytes and immutable, so
-        it is cached forever instead of per epoch. Only the archive tier
-        calls it, and [node] mode=archive is not part of this package."""
+        it is cached forever instead of per epoch."""
         rp = getattr(self, "read_plane", None)
         if rp is not None and self.shardstore is not None:
             rp.set_archive_floor(self.shardstore.contiguous_floor())

@@ -13,6 +13,8 @@ import sqlite3
 import threading
 from typing import Optional
 
+from ..utils import sqlrows
+
 __all__ = ["TxDatabase"]
 
 
@@ -101,7 +103,7 @@ class TxDatabase:
     # -- transactions -----------------------------------------------------
 
     def save_transactions(self, rows: list[tuple]) -> None:
-        """Persist a closed ledger's tx rows: three executemany calls
+        """Persist a closed ledger's tx rows: three multi-row writes
         instead of 3+len(affected) executes per tx (sqlite statement
         dispatch was ~25% of the flood apply path). Each row is
         (txid, tx_type, account, seq, ledger_seq, status, raw, meta,
@@ -231,7 +233,7 @@ class TxDatabase:
         )
 
     def _insert_tx_rows(self, rows: list[tuple]) -> None:
-        """Three executemany calls over pre-built rows; caller holds the
+        """Three multi-row writes over pre-built rows; caller holds the
         lock and owns the commit."""
         tx_rows = []
         del_rows = []
@@ -241,20 +243,17 @@ class TxDatabase:
             h = txid.hex()
             tx_rows.append((h, tx_type, account.hex(), seq, ledger_seq,
                             status, raw, meta))
-            del_rows.append((h,))
+            del_rows.append(h)
             for acct in affected:
                 acct_rows.append((h, acct.hex(), ledger_seq, txn_seq))
-        cur = self._conn.cursor()
-        cur.executemany(
-            "INSERT OR REPLACE INTO Transactions VALUES (?,?,?,?,?,?,?,?)",
-            tx_rows,
-        )
-        cur.executemany(
-            "DELETE FROM AccountTransactions WHERE TransID = ?", del_rows
-        )
-        cur.executemany(
-            "INSERT INTO AccountTransactions VALUES (?,?,?,?)", acct_rows
-        )
+        # multi-row statements (utils/sqlrows.py): the close pipeline's
+        # worker steps once a chunk, not once a row, beside a busy thread
+        sqlrows.insert_rows(self._conn, "INSERT OR REPLACE INTO Transactions VALUES",
+                            tx_rows)
+        sqlrows.delete_in(self._conn, "DELETE FROM AccountTransactions WHERE TransID IN",
+                          del_rows)
+        sqlrows.insert_rows(self._conn, "INSERT INTO AccountTransactions VALUES",
+                            acct_rows)
 
     # -- ledger headers ---------------------------------------------------
 

@@ -26,6 +26,7 @@ from ..consensus.txset import TxSet
 from ..consensus.validation import STValidation
 from ..consensus.validations import ValidationsStore
 from ..engine.engine import TxParams
+from ..nodestore.shards import SHARD_FILE_BASE
 from ..protocol.keys import KeyPair
 from ..protocol.sttx import SerializedTransaction
 from ..protocol.ter import TER
@@ -34,12 +35,6 @@ from .hashrouter import SF_BAD, SF_SIGGOOD, HashRouter
 from .ledgermaster import LedgerMaster
 
 __all__ = ["ValidatorNode"]
-
-# id offset of the whole-file shard door (the JAX package's
-# nodestore/shards.py SHARD_FILE_BASE; the history shards are not part
-# of this package, so the value is kept here): SegmentData ids at or
-# above it are whole shard files for the archive backfill
-SHARD_FILE_BASE = 1 << 31
 
 
 def _locked(method):

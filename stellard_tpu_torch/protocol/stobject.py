@@ -36,12 +36,14 @@ from .sfields import (
     K_VL,
     STI,
     SField,
+    _REGISTRY_BY_CODE as _FIELD_BY_CODE,
     field_by_code,
     sort_key,
 )
 from .stamount import STAmount
 
 _OBJECT_END = (int(STI.OBJECT), 1)  # 0xE1 marker
+_OBJECT_END_CODE = (int(STI.OBJECT) << 16) | 1
 _ARRAY_END = (int(STI.ARRAY), 1)  # 0xF1 marker
 
 # Path-element type bits (reference SerializedTypes.h STPathElement)
@@ -325,31 +327,61 @@ class STObject:
     @classmethod
     def deserialize(cls, p: BinaryParser, *, inner: bool = False) -> "STObject":
         obj = cls()
+        fields = obj._fields
+        data = p._data
+        end = len(data)
         # canonical input (the overwhelmingly common case: our own
         # serializer always writes sorted) seeds the sort memo so the
         # next serialization skips the sort; non-canonical wire input
-        # falls back to sorting in fields()
+        # falls back to sorting in fields(). A field's code
+        # (type << 16 | name) orders as its sort_key does.
         in_order = True
-        prev_key = None
-        while not p.empty():
-            type_id, name = p.read_field_id()
-            if inner and (type_id, name) == _OBJECT_END:
+        prev_code = -1
+        while p._pos < end:
+            # a one-byte header (type and name both 1-15) and the
+            # fixed-width and 20-byte account values are read in place;
+            # the rest, and every short read, through the parser
+            b1 = data[p._pos]
+            if b1 & 0x0F and b1 & 0xF0:
+                p._pos += 1
+                code = ((b1 >> 4) << 16) | (b1 & 0x0F)
+            else:
+                type_id, name = p.read_field_id()
+                code = (type_id << 16) | name
+            if inner and code == _OBJECT_END_CODE:
                 if in_order:
-                    obj._sorted_keys = (obj._version, list(obj._fields))
+                    obj._sorted_keys = (obj._version, list(fields))
                 return obj
-            f = field_by_code(type_id, name)
+            f = _FIELD_BY_CODE.get(code)
             if f is None:
-                raise ValueError(f"unknown field ({type_id}, {name})")
+                raise ValueError(f"unknown field ({code >> 16}, {code & 0xFFFF})")
             if in_order:
-                k = sort_key(f)
-                if prev_key is not None and k < prev_key:
+                if code < prev_code:
                     in_order = False
-                prev_key = k
-            obj._fields[f] = _deserialize_value(p, f)
+                prev_code = code
+            k = f.kind
+            pos = p._pos
+            if 0 <= k <= K_UINT64:
+                nxt = pos + f.width
+                if nxt <= end:
+                    fields[f] = int.from_bytes(data[pos:nxt], "big")
+                    p._pos = nxt
+                    continue
+            elif k == K_HASH:
+                nxt = pos + f.width
+                if nxt <= end:
+                    fields[f] = data[pos:nxt]
+                    p._pos = nxt
+                    continue
+            elif k == K_ACCOUNT and pos + 21 <= end and data[pos] == 20:
+                fields[f] = data[pos + 1 : pos + 21]
+                p._pos = pos + 21
+                continue
+            fields[f] = _deserialize_value(p, f)
         if inner:
             raise ValueError("unterminated inner object")
         if in_order:
-            obj._sorted_keys = (obj._version, list(obj._fields))
+            obj._sorted_keys = (obj._version, list(fields))
         return obj
 
     @classmethod

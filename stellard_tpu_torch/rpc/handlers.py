@@ -694,6 +694,9 @@ def do_get_counts(ctx: Context) -> dict:
             # the segment bulk path's timeout/retry/backoff counters
             acq = {
                 "inbound_live": len(vn.inbound.live),
+                # acquired nodes checked on the hasher (K2 on the card)
+                "hash_batches": vn.inbound.hash_batches,
+                "hashed_nodes": vn.inbound.hashed_nodes,
             }
             sc = getattr(vn, "segment_catchup", None)
             if sc is not None:
@@ -709,6 +712,11 @@ def do_get_counts(ctx: Context) -> dict:
     flight = getattr(node, "flight", None)
     if flight is not None:
         out["flight"] = flight.get_json()
+    # this process's kernel launches on the card (K1, K2, K3), counted
+    # by the wrappers where they launch
+    from ..ops import ed25519_cuda, treehash
+
+    out["kernels"] = {"ed25519_verify": ed25519_cuda.launches, **treehash.launches}
     return out
 
 

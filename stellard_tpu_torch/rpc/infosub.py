@@ -245,12 +245,22 @@ class SubscriptionManager:
 
     def rpc_sub(self, url: str, username: str = "", password: str = ""):
         """Find-or-create the RPCSub for a url (reference: findRpcSub /
-        addRpcSub). The HTTP-push subscriber (rpc/rpcsub.py) is not part
-        of this package (ROADMAP Queue A item 8): a url subscription
-        answers notImpl."""
-        from .errors import RPCError
+        addRpcSub); fresh credentials update an existing sub."""
+        from .rpcsub import RpcSub
 
-        raise RPCError("notImpl", "url subscriptions (RPCSub) are not part of this build")
+        with self._lock:
+            sub = self.rpc_subs.get(url)
+            if sub is None:
+                sub = RpcSub(url, username, password,
+                             max_retries=self.push_retries)
+                self.rpc_subs[url] = sub
+            elif username or password:
+                sub.set_credentials(username, password)
+        # slow-consumer eviction for the HTTP-push side too: a url whose
+        # listener keeps exhausting delivery retries is dead weight and
+        # gets pruned outright (rpcsub.py fires this past its threshold)
+        sub.on_dead = lambda s=sub: self._evict(s, reason="slow_consumer")
+        return sub
 
     def rpc_sub_lookup(self, url: str):
         """Find only (unsubscribe must never create — a typo'd url would

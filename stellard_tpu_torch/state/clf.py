@@ -39,6 +39,7 @@ from ..protocol.sfields import (
     sfTakerPays,
 )
 from ..protocol.stobject import STObject
+from ..utils import sqlrows
 
 __all__ = ["LedgerSqlDatabase", "CLFMirror"]
 
@@ -84,6 +85,57 @@ K_LCL_HASH = "LastClosedLedger"
 K_LCL_CONTENT = "LastClosedLedgerContent"
 
 
+_UPSERT = {
+    "accounts": "INSERT OR REPLACE INTO accounts VALUES",
+    "trustlines": "INSERT OR REPLACE INTO trustlines VALUES",
+    "offers": "INSERT OR REPLACE INTO offers VALUES",
+}
+_DELETE = {
+    "accounts": "DELETE FROM accounts WHERE account_id IN",
+    "trustlines": "DELETE FROM trustlines WHERE index_hex IN",
+    "offers": "DELETE FROM offers WHERE index_hex IN",
+}
+
+
+def _entry_row(index: bytes, sle: STObject) -> Optional[tuple[str, tuple]]:
+    """(table, row) of an entry's typed mirror; None for the
+    directory/amendment/fee singletons, which have no row (reference
+    LedgerEntry::makeEntry returns null for them too)."""
+    letype = LedgerEntryType(sle[_LE_TYPE_FIELD])
+    if letype == LedgerEntryType.ltACCOUNT_ROOT:
+        return "accounts", (
+            sle[sfAccount].hex(),
+            sle[sfBalance].drops(),
+            sle.get(sfSequence, 0),
+            sle.get(sfOwnerCount, 0),
+            sle.get(sfFlags, 0),
+            (sle.get(sfRegularKey) or b"").hex(),
+        )
+    if letype == LedgerEntryType.ltRIPPLE_STATE:
+        low = sle[sfLowLimit]
+        high = sle[sfHighLimit]
+        return "trustlines", (
+            index.hex(),
+            low.issuer.hex(),
+            high.issuer.hex(),
+            low.currency.hex(),
+            sle[sfBalance].value_text(),
+            low.value_text(),
+            high.value_text(),
+            sle.get(sfFlags, 0),
+        )
+    if letype == LedgerEntryType.ltOFFER:
+        return "offers", (
+            index.hex(),
+            sle[sfAccount].hex(),
+            sle.get(sfSequence, 0),
+            repr(sle[sfTakerPays]),
+            repr(sle[sfTakerGets]),
+            sle.get(sfFlags, 0),
+        )
+    return None
+
+
 class LedgerSqlDatabase:
     """SQLite CLF store with explicit scoped transactions."""
 
@@ -126,67 +178,47 @@ class LedgerSqlDatabase:
     # -- typed rows --------------------------------------------------------
 
     def store_entry(self, index: bytes, sle: STObject) -> None:
-        letype = LedgerEntryType(sle[_LE_TYPE_FIELD])
+        entry = _entry_row(index, sle)
+        if entry is not None:
+            table, row = entry
+            with self._lock:
+                sqlrows.insert_rows(self._conn, _UPSERT[table], [row])
+
+    def store_entries(self, entries) -> None:
+        """store_entry over (index, sle) pairs, a table's rows in chunks
+        of multi-row statements (utils/sqlrows.py): the full import's
+        million rows step a few hundred times, not once a row."""
+        pending: dict[str, list] = {table: [] for table in _UPSERT}
         with self._lock:
-            if letype == LedgerEntryType.ltACCOUNT_ROOT:
-                self._conn.execute(
-                    "INSERT OR REPLACE INTO accounts VALUES (?,?,?,?,?,?)",
-                    (
-                        sle[sfAccount].hex(),
-                        sle[sfBalance].drops(),
-                        sle.get(sfSequence, 0),
-                        sle.get(sfOwnerCount, 0),
-                        sle.get(sfFlags, 0),
-                        (sle.get(sfRegularKey) or b"").hex(),
-                    ),
-                )
-            elif letype == LedgerEntryType.ltRIPPLE_STATE:
-                low = sle[sfLowLimit]
-                high = sle[sfHighLimit]
-                self._conn.execute(
-                    "INSERT OR REPLACE INTO trustlines VALUES (?,?,?,?,?,?,?,?)",
-                    (
-                        index.hex(),
-                        low.issuer.hex(),
-                        high.issuer.hex(),
-                        low.currency.hex(),
-                        sle[sfBalance].value_text(),
-                        low.value_text(),
-                        high.value_text(),
-                        sle.get(sfFlags, 0),
-                    ),
-                )
-            elif letype == LedgerEntryType.ltOFFER:
-                self._conn.execute(
-                    "INSERT OR REPLACE INTO offers VALUES (?,?,?,?,?,?)",
-                    (
-                        index.hex(),
-                        sle[sfAccount].hex(),
-                        sle.get(sfSequence, 0),
-                        repr(sle[sfTakerPays]),
-                        repr(sle[sfTakerGets]),
-                        sle.get(sfFlags, 0),
-                    ),
-                )
-            # directory/amendment/fee singletons have no row mirror
-            # (reference LedgerEntry::makeEntry returns null for them too)
+            for index, sle in entries:
+                entry = _entry_row(index, sle)
+                if entry is None:
+                    continue
+                rows = pending[entry[0]]
+                rows.append(entry[1])
+                if len(rows) >= sqlrows.MAX_ROWS:
+                    sqlrows.insert_rows(self._conn, _UPSERT[entry[0]], rows)
+                    rows.clear()
+            for table, rows in pending.items():
+                sqlrows.insert_rows(self._conn, _UPSERT[table], rows)
 
     def delete_entry(self, index: bytes, sle: STObject) -> None:
-        letype = LedgerEntryType(sle[_LE_TYPE_FIELD])
-        with self._lock:
+        self.delete_entries([(index, sle)])
+
+    def delete_entries(self, entries) -> None:
+        """delete_entry over (index, sle) pairs, an IN list a table."""
+        keys: dict[str, list] = {table: [] for table in _DELETE}
+        for index, sle in entries:
+            letype = LedgerEntryType(sle[_LE_TYPE_FIELD])
             if letype == LedgerEntryType.ltACCOUNT_ROOT:
-                self._conn.execute(
-                    "DELETE FROM accounts WHERE account_id=?",
-                    (sle[sfAccount].hex(),),
-                )
+                keys["accounts"].append(sle[sfAccount].hex())
             elif letype == LedgerEntryType.ltRIPPLE_STATE:
-                self._conn.execute(
-                    "DELETE FROM trustlines WHERE index_hex=?", (index.hex(),)
-                )
+                keys["trustlines"].append(index.hex())
             elif letype == LedgerEntryType.ltOFFER:
-                self._conn.execute(
-                    "DELETE FROM offers WHERE index_hex=?", (index.hex(),)
-                )
+                keys["offers"].append(index.hex())
+        with self._lock:
+            for table, ks in keys.items():
+                sqlrows.delete_in(self._conn, _DELETE[table], ks)
 
     def drop_all_entries(self) -> None:
         with self._lock:
@@ -252,23 +284,23 @@ class CLFMirror:
             self.import_ledger_state(new_ledger)
             return
         delta = new_ledger.state_map.compare(prev_ledger.state_map)
+        stores, deletes = [], []
+        for tag, (new_item, old_item) in delta.items():
+            # the engine pinned a parsed mirror on every item it
+            # wrote (Ledger.write_entry); reuse it — re-parsing every
+            # changed entry was the commit's dominant Python cost,
+            # and on the close-pipeline worker it stole GIL time
+            # from the next ledger's apply
+            item, out = (new_item, stores) if new_item is not None else (old_item, deletes)
+            if item is not None:
+                sle = item.parsed
+                out.append((tag, sle if sle is not None else STObject.from_bytes(item.data)))
+        # each entry is one row of one table (an account's row is keyed by
+        # its AccountRoot's tag), so the deletes and the stores touch
+        # different rows and go as two batches (utils/sqlrows.py)
         with self.db.transaction():
-            for tag, (new_item, old_item) in delta.items():
-                # the engine pinned a parsed mirror on every item it
-                # wrote (Ledger.write_entry); reuse it — re-parsing every
-                # changed entry was the commit's dominant Python cost,
-                # and on the close-pipeline worker it stole GIL time
-                # from the next ledger's apply
-                if new_item is not None:
-                    sle = new_item.parsed
-                    if sle is None:
-                        sle = STObject.from_bytes(new_item.data)
-                    self.db.store_entry(tag, sle)
-                elif old_item is not None:
-                    sle = old_item.parsed
-                    if sle is None:
-                        sle = STObject.from_bytes(old_item.data)
-                    self.db.delete_entry(tag, sle)
+            self.db.delete_entries(deletes)
+            self.db.store_entries(stores)
             self._write_lcl_state(new_ledger)
         self.commits += 1
 
@@ -277,11 +309,10 @@ class CLFMirror:
         whole state tree, then swap the LCL pointer — atomically."""
         with self.db.transaction():
             self.db.drop_all_entries()
-            for item in ledger.state_map.items():
-                sle = item.parsed
-                if sle is None:
-                    sle = STObject.from_bytes(item.data)
-                self.db.store_entry(item.tag, sle)
+            self.db.store_entries(
+                (item.tag,
+                 item.parsed if item.parsed is not None else STObject.from_bytes(item.data))
+                for item in ledger.state_map.items())
             self._write_lcl_state(ledger)
         self.full_imports += 1
 

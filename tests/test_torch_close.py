@@ -148,8 +148,10 @@ def _jax_book(lm, bwl: dict, prune_floor: int, first_close: int,
 
 
 # the JAX node's crypto planes on the host (it has no cuda backend), its
-# path plane's prune floor and host-routed evaluator, and no health
-# watchdog or kernel tuning file (planes this package's node has not)
+# path plane's prune floor and host-routed evaluator, and no kernel
+# tuning file (a plane this package's node has not); its health watchdog
+# off, as when the smoke's constants were computed (no answer they hold
+# carries a `health` block, so the watchdog moves none of them)
 JAX_NODE = """
 [signature_backend]
 type=cpu

@@ -119,6 +119,13 @@ WIDTH_SLICE = tuple(f"stellard_tpu_torch.{m}" for m in (
     "ops.ed25519", "ops.ed25519_cuda"))
 
 
+# the modules the fleet roles' slice added: the archive tier, the health
+# watchdog and flight recorder, the HTTP-push subscriber (and the node
+# that wires them), and the txdb's and CLF's multi-row writes
+FLEET_SLICE = tuple(f"stellard_tpu_torch.{m}" for m in (
+    "node.archive", "node.health", "rpc.rpcsub", "node.node", "utils.sqlrows"))
+
+
 def test_the_consensus_slice_imports_neither_jax_nor_the_jax_package():
     """Importing the consensus slice's modules alone (the SimNet and the
     validator pull in the ledger, engine and node modules they run on)
@@ -148,6 +155,14 @@ def test_the_width_slice_imports_neither_jax_nor_the_jax_package():
     with their one-card and N-card arms, K1's point check and
     ``entry.dryrun_multichip``."""
     slice_imports_neither_jax_nor_the_jax_package(WIDTH_SLICE)
+
+
+def test_the_fleet_slice_imports_neither_jax_nor_the_jax_package():
+    """The same for the fleet roles' slice: ``node/archive.py`` (the
+    shard backfill and the never-trimming txdb), ``node/health.py`` and
+    ``rpc/rpcsub.py``, each a copy of the JAX module's behaviour that
+    imports nothing of it."""
+    slice_imports_neither_jax_nor_the_jax_package(FLEET_SLICE)
 
 
 def slice_imports_neither_jax_nor_the_jax_package(modules) -> None:

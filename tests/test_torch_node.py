@@ -76,12 +76,12 @@ PKG = {root: load(root) for root in PACKAGES}
 
 
 def config(pk, **kw):
-    """A cpu node's Config in either package: the JAX node without its
-    health watchdog and kernel tuning file (this package's node has
-    neither)."""
+    """A cpu node's Config in either package, each with its default
+    health watchdog; the JAX node without its kernel tuning file (this
+    package's node has none)."""
     base = {"signature_backend": "cpu", "hash_backend": "cpu"}
     if pk.root == "stellard_tpu":
-        base.update(health_enabled=False, kernel_tuning="none")
+        base.update(kernel_tuning="none")
     return pk.ConfigCls(**{**base, **kw})
 
 
@@ -467,15 +467,15 @@ def test_rpc_account_lines():
 
 def test_rpc_get_counts_and_server_state_blocks():
     """get_counts and server_state answer the JAX node's blocks, but for
-    the planes this package's node has not (the speculation executor,
-    the flight recorder) and the fields that name its device."""
+    the plane this package's node has not (the speculation executor),
+    the fields that name its device and its kernels' launch counts."""
     def scenario(pk, node, log):
         alice = pk.KeyPair.from_passphrase("alice")
         fund(pk, node, alice, log)
         close(pk, node, log)
         counts = call(pk, node, "get_counts")
         assert "verify_plane" in counts
-        log.append(("counts", sorted(set(counts) - {"spec", "flight"}),
+        log.append(("counts", sorted(set(counts) - {"spec", "kernels"}),
                     counts["delta_replay"]["spliced"], counts["held"], scrub(counts["txq"]),
                     counts["close_pipeline"]["persisted"], counts["ledgers_cached"]))
         state = call(pk, node, "server_state")["state"]
@@ -585,9 +585,7 @@ def test_config_defaults_to_cuda_and_refuses_unported_planes():
         "[signature_backend]\ntype=tpu", "[hash_backend]\ntype=tpu",
         "[hash_backend]\ntype=cpp", "[signature_backend]\ntype=cpu\nmesh=2",
         "[hash_backend]\ntype=cuda\nmesh=wide", "[paths]\nmesh=-4",
-        "[spec]\nworkers=2", "[spec]\nworkers=auto", "[node]\nmode=archive",
-        "[node]\nmode=follower",
-        "[health]\nenabled=1", "[kernel_tuning]\nKERNEL_TUNING.json",
+        "[spec]\nworkers=2", "[spec]\nworkers=auto", "[kernel_tuning]\nKERNEL_TUNING.json",
         "[signature_backend]\ntype=cpu\nrouting=device",
         "[signature_backend]\ntype=cpu\nthreads=4",
     ):
@@ -601,6 +599,14 @@ def test_config_defaults_to_cuda_and_refuses_unported_planes():
     # holds each to the JAX Config's value)
     for text in ("[node_db]\nshards=1", "[node_db]\nonline_delete=4", "[tree]\ncache_mb=2"):
         Config.from_ini(text)
+    # and the fleet roles' and the health watchdog's, the watchdog on by
+    # default as in the JAX package (tests/test_torch_tcp_mixed.py holds
+    # each to the JAX Config's value)
+    assert Config().health_enabled
+    assert Config.from_ini("[node]\nmode=follower").node_mode == "follower"
+    assert Config.from_ini("[node]\nmode=archive").node_mode == "archive"
+    assert not Config.from_ini("[health]\nenabled=0").health_enabled
+    assert Config.from_ini("[health]\nenabled=1").health_enabled
     for text in ("[peer_port]\n51235\n[standalone]\n0", "[rpc_secure]\n1",
                  "[websocket_secure]\n1", "[sntp_servers]\npool.example 123",
                  "[validators_file]\nvalidators.txt"):

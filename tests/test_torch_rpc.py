@@ -17,8 +17,6 @@ the port answers differently by design:
 
 - the TLS doors (TestSecureDoors): their twin runs, which read their
   answers over TLS, are in test_torch_tcp_defense.py;
-- the RPCSub URL callbacks (TestRpcSubUrlCallbacks): not part of this
-  package, which answers a `url` subscription notImpl;
 - the ledger cleaner (`test_ledger_cleaner_runs_clean`): its twin run,
   which holds the cleaner's answers but its wall-clock status polls, is
   in test_torch_cleaner.py;
@@ -34,8 +32,11 @@ import inspect
 
 import pytest
 
+import stellard_tpu.node.config as jax_config
+import stellard_tpu.node.node as jax_node
 import stellard_tpu.protocol.sfields as jax_sfields
 import stellard_tpu.protocol.ter as jax_ter
+import stellard_tpu.rpc.handlers as jax_handlers
 import test_rpc_server as trs
 import test_rpc_surface as tsu
 from stellard_tpu_torch.node.node import Node as PortNode
@@ -52,7 +53,6 @@ from test_torch_txq import CpuConfig, run_method
 
 LEFT_OUT = {
     "TestSecureDoors": "run in test_torch_tcp_defense.py",
-    "TestRpcSubUrlCallbacks": "RPCSub URL callbacks are not part of this package",
     "test_ledger_cleaner_runs_clean": "run in test_torch_cleaner.py",
     "test_profile_captures_device_trace": "the port's profile is torch.profiler on the card",
     "test_trace_lifecycle_captures_xplane": "the port's profile is torch.profiler on the card",
@@ -83,9 +83,12 @@ def port_names(module) -> dict:
     return names
 
 
-# names a test body imports from the JAX package inside itself
+# names a test body imports from the JAX package inside itself (the
+# url subscription's test builds its own node and dispatches to it)
 PORT_INLINE = [(jax_sfields, "sfLimitAmount", port_sfields.sfLimitAmount),
-               (jax_ter, "TER", TER)]
+               (jax_ter, "TER", TER), (jax_config, "Config", CpuConfig),
+               (jax_node, "Node", PortNode), (jax_handlers, "Context", Context),
+               (jax_handlers, "Role", Role), (jax_handlers, "dispatch", dispatch)]
 
 
 # besides test_torch_node.VOLATILE: what a node draws at random for an
@@ -203,5 +206,10 @@ def test_profile_without_a_card(port_node, tmp_path):
 
 
 def test_url_subscription_answers_not_implemented(port_node):
+    """A url subscription is part of the port now: it answers as the JAX
+    node's does (success, an RpcSub registered for the url), and never
+    notImpl."""
     r = trs.rpc(port_node, "subscribe", url="http://127.0.0.1:1/", streams=["ledger"])
-    assert r["error"] == "notImpl"
+    assert r["status"] == "success" and "error" not in r
+    assert type(port_node.subs.rpc_subs["http://127.0.0.1:1/"]).__module__ == (
+        "stellard_tpu_torch.rpc.rpcsub")

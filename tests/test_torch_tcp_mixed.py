@@ -12,9 +12,10 @@ port does differently by design.
   require`` pair, one of each package, handshakes over TLS (the hello's
   session hash binds the TLS channel, so HP_SESSION and the binding must
   be equal byte for byte) and closes.
-- **The config.** The keys this slice lifted parse to the JAX
-  ``Config``'s values; the keys of planes the port does not have still
-  raise at parse (the JAX config takes them).
+- **The config.** The keys the port takes parse to the JAX
+  ``Config``'s values (the fleet roles' and the health watchdog's among
+  them); the keys of planes the port does not have still raise at parse
+  (the JAX config takes them).
 - **The pump's prefetch error propagates.** The JAX pump swallows an
   error of its batched prefetch and lets each transaction be verified
   again on its own; the port's ends the session, keeps the error for
@@ -288,9 +289,26 @@ LIFTED = {
         "node_db_online_delete", "node_db_online_delete_interval", "node_db_sql_trim",
         "node_db_shards"),
     "[tree]\ncache_mb=2": ("tree_cache_mb",),
+    # the fleet roles' and the health watchdog's
+    "[node]\nmode=follower": ("node_mode", "node_upstream"),
+    "[node]\nmode=archive": ("node_mode", "archive_path", "archive_backfill",
+                             "archive_rescan_s"),
+    "[health]\nenabled=1": (
+        "health_enabled", "health_stall_warn_s", "health_stall_crit_s", "health_drift_factor",
+        "health_lag_warn", "health_lag_crit", "health_fanout_p99_warn_ms", "health_flips_warn",
+        "health_cache_hit_warn", "health_persist_depth_warn", "health_flight_dir",
+        "health_flight_spans"),
+    "[node]\nmode=follower\nupstream=127.0.0.1 51235\nupstream=10.0.0.2 51236\n": (
+        "node_mode", "node_upstream"),
+    "[node]\nmode=archive\nupstream=127.0.0.1:5005\n[archive]\npath=/a\nbackfill=0\n"
+    "rescan_s=5\n": ("node_mode", "node_upstream", "archive_path", "archive_backfill",
+                     "archive_rescan_s"),
+    "[health]\nenabled=0\nstall_warn_s=20\nstall_crit_s=60\ndrift_factor=3\nlag_warn=5\n"
+    "lag_crit=9\nflight_dir=/f\nflight_spans=64\n": (
+        "health_enabled", "health_stall_warn_s", "health_stall_crit_s", "health_drift_factor",
+        "health_lag_warn", "health_lag_crit", "health_flight_dir", "health_flight_spans"),
 }
-STILL_REFUSED = ("[node]\nmode=follower", "[node]\nmode=archive", "[health]\nenabled=1",
-                 "[kernel_tuning]\nKERNEL_TUNING.json", "[spec]\nworkers=2")
+STILL_REFUSED = ("[kernel_tuning]\nKERNEL_TUNING.json", "[spec]\nworkers=2")
 
 
 @pytest.mark.parametrize("text", sorted(LIFTED))
