@@ -127,7 +127,14 @@ and phase 7 starts when the side does:
               the card at the default width mesh=auto, which get_counts
               must report as every visible card, K1 for a single
               signature, admission caps that
-              never bind), its K1 prewarm joined by serve(): 1,000,000
+              never bind) and CLOSE_NODE_SPEC ([spec] workers=4
+              mode=process transport=ring drain_timeout_s=120: the
+              parallel speculation
+              executor's Block-STM pool of four fork workers over
+              shared-memory rings, forked before the node starts a
+              thread or touches the card, speculating every submit and
+              committing in index order), its K1 prewarm joined by
+              serve(): 1,000,000
               AccountRoots resumed through its LedgerMaster.load_ledger,
               then 4 closes of 4,096 signed Payments (~2% creating
               accounts, ~1% with a bad signature), each payment a
@@ -147,7 +154,18 @@ and phase 7 starts when the side does:
               runs between the `profile` RPC's start and stop, and its
               trace gives the card's busy share of it. Then the read
               RPCs (`ledger_closed`, `account_info`, `tx`, `account_tx`)
-              and `get_counts`. Every answer's TER as expected, no host
+              and `get_counts`, whose `spec` block must show the pool
+              as configured and active, every dispatched transaction
+              committed, no worker death, committer error, execution
+              error, forced drain or torn ring slot, and the pool not
+              failed over to serial (again after the book phase; after
+              the node stops, each worker exited 0 and no ring segment
+              is left in /dev/shm). The `spec` line gives, per close of
+              this phase and the book's, the pool's counter growth, the
+              close's wait on it (the spec.drain span), the door's ms a
+              payment split into verify, open apply and the rest,
+              payments/s and the largest record put on the ring. Every
+              answer's TER as expected, no host
               signature check, K1 launched once a submit at batch 1,
               device share 1.0, nothing wedged, the drainer and both seal
               threads launching K2/K3 (counted by the role of the thread
@@ -173,7 +191,9 @@ and phase 7 starts when the side does:
               and 32 IOU/IOU markets, cancels, AccountSets signed with
               the regular key, cross-currency path payments, merges, ~1%
               bad signatures). Each close verified by K1 on the node's
-              verify plane, applied by the port's transactors, closed
+              verify plane, applied by the port's transactors and
+              speculated on the node's pool (the conflict-heavy traffic
+              its validate/abort/retry machinery exists for), closed
               and persisted as in the close phase, and the node's path
               plane's live book index advanced; then the close pipeline
               is drained, and 32 path searches run on the last ledger,
@@ -1190,6 +1210,25 @@ prune_floor={floor}
 """
 
 
+# the close node's speculation pool (phases 7 and 8): four fork workers
+# over the shared-memory rings, fixed at 4 rather than auto so the run is
+# the same on every host (the top of the JAX bench's worker counts); the
+# resume step's node, the SimNet and the TCP net keep the serial inline
+# path of [spec] workers=1. The book's conflict-heavy windows (4,096-5,120
+# transactions, nearly each aborted once) take 12-32 s to commit on the
+# pool, past the default 10 s drain, which would complete them serially
+# (as the JAX pool does on the same windows on a CPU); at 120 s the pool
+# commits them, and a hung worker still forces a drain and fails the run
+CLOSE_NODE_SPEC = """
+[spec]
+workers=4
+mode=process
+transport=ring
+drain_timeout_s=120
+"""
+SPEC_WORKERS = 4
+
+
 def node_config_text(store: Path, extra: str) -> str:
     return NODE_CONFIG.format(store=store, extra=extra)
 
@@ -1350,10 +1389,13 @@ def drive_node_closes(node, wl: dict, profile_close: Optional[int] = None) -> di
     ledger hash, the results digest, the answers' TERs, what the delta
     replay did and the times: the submits' wall, and within it the
     verify plane's and the open apply's (LedgerMaster.do_transaction,
-    through the TxQ) ms, then the ledger_accept's."""
+    through the TxQ) ms, then the ledger_accept's; and, with the node's
+    speculation pool, its counters' growth over the close and the wait
+    of the close on it (LedgerMaster._drain_spec, the `spec.drain` span)."""
     from stellard_tpu_torch.protocol.sttx import SerializedTransaction
 
     lm = node.ledger_master
+    ex = getattr(node, "spec_executor", None)
     closed: list = []
     node.ops.on_ledger_closed.append(lambda led, res: closed.append((led, res)))
     http = HttpRpc(node.http_server.port)
@@ -1361,6 +1403,7 @@ def drive_node_closes(node, wl: dict, profile_close: Optional[int] = None) -> di
     sub = ws.call("subscribe", streams=["ledger"])
     require(sub.get("status") == "success", f"ledger stream subscription failed: {sub}")
     apply, verify = Timed(lm, "do_transaction"), Timed(node.verify_plane, "verify_many")
+    drain = Timed(lm, "_drain_spec")
     gc_clock = GcClock()
     gc.callbacks.append(gc_clock)
     out, profile = [], None
@@ -1371,8 +1414,9 @@ def drive_node_closes(node, wl: dict, profile_close: Optional[int] = None) -> di
             blobs = [blob.hex().upper() for blob, _kind, _good in entries]
             txids = [SerializedTransaction.from_bytes(blob).txid() for blob, _k, _g in entries]
             gc_ms, gc_full = gc_clock.ms, gc_clock.full
-            apply.ms = verify.ms = 0.0
+            apply.ms = verify.ms = drain.ms = 0.0
             before = lm.delta_stats.snapshot()
+            spec0 = ex.counters.snapshot() if ex is not None else None
             if k == profile_close:
                 profile = http.call("profile", action="start")
                 require("error" not in profile and profile.get("dir"), f"profile start: {profile}")
@@ -1401,6 +1445,7 @@ def drive_node_closes(node, wl: dict, profile_close: Optional[int] = None) -> di
                 "wall_ms": (tc - ta) * 1e3, "submit_ms": (tb - ta) * 1e3,
                 "door_ms_per_tx": (tb - ta) * 1e3 / len(entries),
                 "verify_ms": verify.ms, "apply_ms": apply.ms, "close_ms": (tc - tb) * 1e3,
+                "spec_drain_ms": drain.ms, "spec": spec_growth(ex, spec0),
                 # (the JAX package's LedgerMaster keeps no per-tree seal times)
                 **{key: last.get(key) for key in (
                     "seal_tx_ms", "seal_tx_nodes", "seal_state_ms", "seal_state_nodes")},
@@ -1414,6 +1459,7 @@ def drive_node_closes(node, wl: dict, profile_close: Optional[int] = None) -> di
         gc.callbacks.remove(gc_clock)
         apply.restore()
         verify.restore()
+        drain.restore()
         http.close()
         ws.close()
     stream = [m["ledger_hash"].lower() for m in ws.messages if m.get("type") == "ledgerClosed"]
@@ -2277,8 +2323,9 @@ def close_phase(dev, name_power: str, saver, int32_rate: float,
     devicewatch.reset_call_stats()
     t_node = time.perf_counter()
     cfg = Config.from_ini(node_config_text(
-        saver.path, PORT_NODE_DEVICE.format(dev=dev, floor=BOOK_PRUNE_FLOOR)))
-    node = Node(cfg)  # starts the K1 prewarm
+        saver.path, PORT_NODE_DEVICE.format(dev=dev, floor=BOOK_PRUNE_FLOOR) + CLOSE_NODE_SPEC))
+    wire = WireMax()  # restored by book_phase, once the node has stopped
+    node = Node(cfg)  # forks the speculation pool, then starts the K1 prewarm
     hasher = node.hasher.inner  # the CudaHasher behind the watchdog
     t1 = time.perf_counter()
     start = ledger_from_items(start_header(), account_root_items(wl["accounts"]),
@@ -2423,13 +2470,26 @@ def close_phase(dev, name_power: str, saver, int32_rate: float,
         for c, e in zip(closes, wl["closes"])],
         k1_batch1_ms=b1_ms, k1_batch1_plain_ms=b1_plain_ms, k1_batch1_bound_ms=b1_bound,
         k1_small_batches=k1_small["sizes"])
+    spec = counts["spec"]
+    emit("spec", of="close", card=name_power, workers=spec["workers"], mode=spec["mode"],
+         transport=spec["transport"], payments_per_s=summary["payments_per_s"],
+         per_close=[{"seq": c["seq"], "counters": c["spec"], "drain_ms": c["spec_drain_ms"],
+                     "door_ms_per_tx": c["door_ms_per_tx"],
+                     "verify_ms_per_tx": c["verify_ms"] / len(e),
+                     "open_apply_ms_per_tx": c["apply_ms"] / len(e),
+                     "door_only_ms_per_tx": (c["submit_ms"] - c["verify_ms"] - c["apply_ms"])
+                     / len(e), "payments_per_s": len(e) / c["wall_ms"] * 1e3}
+                    for c, e in zip(closes, wl["closes"])],
+         totals={k: spec[k] for k in SPEC_COUNTERS}, ring=spec["ring"],
+         max_record_bytes=dict(wire.by_kind))
+    check_spec_pool(spec, node.spec_executor, "close phase")
     emit("busy", card=name_power, seq=closes[-1]["seq"], **busy,
          profiled_close_wall_ms=prof_wall, other_closes_mean_wall_ms=other_wall,
          profiler_overhead=prof_wall / other_wall - 1.0)
     emit("delta", of="close", per_close=[dict(c["delta"], seq=c["seq"]) for c in closes],
          tree=tree)
     return {"launches": launches, "by_thread": by_thread, "k1_max_abs_err": k1_err,
-            "wl": wl, "node": node, "hasher": hasher,
+            "wl": wl, "node": node, "hasher": hasher, "wire": wire,
             "close_digests": [c["close_digest"] for c in closes],
             "k1_batch1": dict(ms=b1_ms, plain_ms=b1_plain_ms, bound_ms=b1_bound,
                               bound_by=b1_by, launches=n_batch1)}
@@ -3959,6 +4019,79 @@ ABSORBED = ("drain_errors", "seal_thread_errors", "persist_prep_errors", "fold_e
             "spec_errors", "adopt_errors")
 
 
+# the speculation pool's counters (engine/specexec.py SpecExecutor); those
+# that mean a broken pool must stay 0 on the card, the others (retries,
+# validation_aborts, serial_fallbacks, no_records: the book's crossings
+# are expected to abort) are reported
+SPEC_COUNTERS = ("windows", "dispatched", "executed", "committed", "retries",
+                 "validation_aborts", "serial_fallbacks", "exec_errors", "no_records",
+                 "drains_forced", "reads_served", "deltas_sent", "worker_deaths",
+                 "committer_errors")
+SPEC_BROKEN = ("worker_deaths", "committer_errors", "exec_errors", "drains_forced")
+
+
+def spec_growth(ex, before: Optional[dict]) -> Optional[dict]:
+    """How far each of a speculation pool's counters grew since the
+    snapshot ``before`` (None without a pool)."""
+    if ex is None or before is None:
+        return None
+    after = ex.counters.snapshot()
+    return {k: after[k] - before[k] for k in SPEC_COUNTERS}
+
+
+class WireMax:
+    """The largest record this process puts on the pool's wire, by message
+    kind (engine/specring.encode_msg wrapped: the parent's side, whose
+    `exec` chunks carry the committed deltas a retry ships); ``restore()``
+    unwraps."""
+
+    def __init__(self):
+        from stellard_tpu_torch.engine import specring
+
+        self.mod, self.orig, self.by_kind = specring, specring.encode_msg, {}
+
+        def encode(obj):
+            out = self.orig(obj)
+            kind = obj[0] if type(obj) is tuple and obj else "?"
+            if len(out) > self.by_kind.get(kind, 0):
+                self.by_kind[kind] = len(out)
+            return out
+
+        specring.encode_msg = encode
+
+    def restore(self) -> None:
+        self.mod.encode_msg = self.orig
+
+
+def check_spec_pool(spec: dict, ex, what: str) -> None:
+    """The close node's pool, from get_counts' `spec` block (``spec``) and
+    the executor (``ex``): the configured pool, running; every dispatched
+    transaction committed; no worker death, committer error, execution
+    error, forced drain or torn ring slot; not failed over to serial."""
+    got = (spec["workers"], spec["mode"], spec["transport"], spec["active"])
+    require(got == (SPEC_WORKERS, "process", "ring", True),
+            f"{what}: the speculation pool is {got}")
+    require(spec["dispatched"] > 0 and spec["committed"] == spec["dispatched"],
+            f"{what}: {spec['committed']} committed of {spec['dispatched']} dispatched")
+    require(all(spec[k] == 0 for k in SPEC_BROKEN),
+            f"{what}: the pool broke: {({k: spec[k] for k in SPEC_BROKEN})}")
+    torn = [w.res.counters["torn_slots"] + w.cmd.counters["torn_slots"] for w in ex._procs]
+    require(spec["ring"]["torn_slots"] == 0 and torn == [0] * SPEC_WORKERS,
+            f"{what}: torn ring slots {torn}")
+    require(ex.can_accept and all(w.alive for w in ex._procs),
+            f"{what}: the pool failed over to the serial path")
+
+
+def check_spec_stopped(procs: list, segments: list) -> dict:
+    """After Node.stop(): every worker of the pool exited with code 0 and
+    every ring segment it used is unlinked (no /dev/shm name left)."""
+    codes = [w.proc.exitcode for w in procs]
+    require(codes == [0] * SPEC_WORKERS, f"the pool's workers exited with {codes}")
+    left = [name for name in segments if os.path.exists(f"/dev/shm/{name}")]
+    require(not left, f"ring segments left in /dev/shm: {left}")
+    return {"exit_codes": codes, "segments_unlinked": len(segments)}
+
+
 def check_default_close(closes: list, first: int, saver, what: str) -> None:
     """Each close's splice split and adoption, and its persisted txdb
     rows and CLF, equal to the JAX package's (closes[i] is close
@@ -4102,8 +4235,15 @@ def book_phase(dev, name_power: str, close: dict, saver) -> dict:
     keys.host_verifies = 0
 
     drain_ms = []
+    # the pool's counters and the closes' waits on it, close by close
+    ex = node.spec_executor
+    spec_drain = Timed(lm, "_drain_spec")
+    spec_rows, spec_prev = [], [ex.counters.snapshot(), 0.0]
 
     def on_close(k, ledger, results):
+        spec_rows.append({"seq": ledger.seq, "counters": spec_growth(ex, spec_prev[0]),
+                          "drain_ms": spec_drain.ms - spec_prev[1]})
+        spec_prev[:] = [ex.counters.snapshot(), spec_drain.ms]
         k1_per_close.append(ed25519_cuda.launches)
         saver.persist.submit(ledger, results)
         if k == len(bwl["closes"]) - 1:
@@ -4114,8 +4254,11 @@ def book_phase(dev, name_power: str, close: dict, saver) -> dict:
             drain_ms.append((time.perf_counter() - t) * 1e3)
 
     t0 = time.perf_counter()
-    res = run_book({"lm": lm, "router": node.hash_router}, bwl, plane.verify_many, paths,
-                   first_close=len(CLOSE_HASHES), on_close=on_close)
+    try:
+        res = run_book({"lm": lm, "router": node.hash_router}, bwl, plane.verify_many, paths,
+                       first_close=len(CLOSE_HASHES), on_close=on_close)
+    finally:
+        spec_drain.restore()
     phase_s = time.perf_counter() - t0
     # 4 of the searches again, through the node's `ripple_path_find` door
     t0 = time.perf_counter()
@@ -4126,6 +4269,18 @@ def book_phase(dev, name_power: str, close: dict, saver) -> dict:
     by_thread = {k: dict(v) for k, v in treehash.launches_by_thread.items()}
     host_verifies = keys.host_verifies
     tree = lm.tree_json()
+    http = HttpRpc(node.http_server.port)
+    spec = http.call("get_counts")["spec"]
+    http.close()
+    emit("spec", of="book", card=name_power, workers=spec["workers"], mode=spec["mode"],
+         transport=spec["transport"],
+         per_close=[dict(row, wall_ms=c["wall_ms"], transactions=len(e),
+                         open_apply_ms_per_tx=c["apply_ms"] / len(e),
+                         transactions_per_s=len(e) / c["wall_ms"] * 1e3)
+                    for row, c, e in zip(spec_rows, res["closes"], bwl["closes"])],
+         totals={k: spec[k] for k in SPEC_COUNTERS}, ring=spec["ring"],
+         max_record_bytes=dict(close["wire"].by_kind))
+    check_spec_pool(spec, ex, "book phase")
     t0 = time.perf_counter()
     saver.persist.stop()
     lm.stop_seal_drainer()
@@ -4213,9 +4368,17 @@ def book_phase(dev, name_power: str, close: dict, saver) -> dict:
          drain_after_closes_ms=drain_ms[0], stop_ms=stop_ms,
          per_ledger=[dict(clock.get(seq, {}), seq=seq) for seq in sorted(clock)],
          clf=saver.clf.get_json(), txdb=saver.txdb.counts())
-    # the node stops (its doors, planes and stores; the CLF's database
-    # closes beside it) and drops the chain: the replay loads its own
+    # the node stops (its pool, doors, planes and stores; the CLF's
+    # database closes beside it) and drops the chain: the replay loads
+    # its own. The pool's workers must exit 0 and leave no ring segment.
+    procs = list(ex._procs)
+    segments = [conn._ring.shm.name for w in procs for conn in (w.cmd, w.res)]
+    t0 = time.perf_counter()
     node.stop()
+    node_stop_ms = (time.perf_counter() - t0) * 1e3
+    stopped = check_spec_stopped(procs, segments)
+    close["wire"].restore()
+    emit("spec_stop", card=name_power, node_stop_ms=node_stop_ms, **stopped)
     saver.close_sql()
     saver.persist = None
     close["node"] = None

@@ -20,10 +20,11 @@ explicit ``routing=cost``. ``mesh=`` (0, N or ``auto``, the default of
 both crypto sections, as in the JAX package) is the device width: the
 batches shard over that many cards. The fleet roles (``[node]
 mode=follower|archive``, ``upstream=``, ``[archive]``) and the health
-watchdog (``[health]``, on by default) parse as the JAX package's. A key
-that would turn on a plane this package does not have (the parallel
-speculation pool, kernel tuning files) raises when the config is
-parsed; nothing is dropped silently.
+watchdog (``[health]``, on by default) and the parallel speculation
+pool (``[spec] workers=N|auto``, sized by ``resolve_spec_workers`` at
+node build) parse as the JAX package's. A key that would turn on a plane
+this package does not have (kernel tuning files) raises when the config
+is parsed; nothing is dropped silently.
 """
 
 from __future__ import annotations
@@ -54,6 +55,29 @@ def _backend_type(section: str, value: str) -> str:
             f"got {backend!r}"
         )
     return backend
+
+
+def resolve_spec_workers(workers, cpu_count=None, log=None) -> int:
+    """Resolve ``[spec] workers`` to a concrete pool size at node setup.
+
+    Integers pass through. ``"auto"`` resolves from ``os.cpu_count()``
+    capped at 8 — and below 4 physical cores it LOUDLY disables the
+    pool (returns 1, the inline serial path) instead of silently losing
+    throughput: on a small box the pool's submit+committer overhead
+    exceeds the serial speculation cost it replaces."""
+    if workers != "auto":
+        return int(workers)
+    ncpu = cpu_count if cpu_count is not None else (os.cpu_count() or 1)
+    if ncpu < 4:
+        if log is not None:
+            log.warning(
+                "[spec] workers=auto: %d core(s) < 4 — parallel "
+                "speculation pool DISABLED (inline serial path); the "
+                "pool's IPC overhead would exceed the serial cost on "
+                "this box", ncpu,
+            )
+        return 1
+    return min(8, ncpu)
 
 
 def parse_ini_sections(text: str) -> dict[str, list[str]]:
@@ -323,9 +347,8 @@ class Config:
     # drain_timeout_s bounds how long a close waits on the pool before
     # completing the window serially itself. transport selects the
     # process-worker wire: "ring" (shared-memory SPSC rings + pickle-free
-    # codec) or "pipe". The pool is not part of this package: any
-    # workers but 1 raises (check_ported), and the other keys parse as
-    # the JAX node's do.
+    # codec) or "pipe". workers=auto resolves at node build
+    # (resolve_spec_workers).
     spec_workers: int | str = 1
     spec_mode: str = "process"
     spec_max_retries: int = 3
@@ -932,11 +955,6 @@ class Config:
         have. Called by ``from_ini`` and by ``Node``, so a Config built
         in code is held to the same rule as a parsed one."""
         unported = []
-        if str(self.spec_workers) != "1":
-            unported.append(
-                f"[spec] workers={self.spec_workers} (the parallel "
-                "speculation pool)"
-            )
         if self.kernel_tuning.strip().lower() not in ("", "none", "off"):
             unported.append(f"[kernel_tuning] {self.kernel_tuning}")
         from ..crypto.backend import parse_mesh

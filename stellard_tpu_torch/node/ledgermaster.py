@@ -35,8 +35,10 @@ absorbed into it and its queued ones promoted at each close. The
 consensus paths (``close_with_txset``, ``switch_lcl``,
 ``set_validated``, ``check_accept``) serve a validator's rounds
 (node/validator.py); with ``min_validations`` at 0, the standalone
-default, every close is its own validation. The parallel speculation
-executor is not part of this package yet.
+default, every close is its own validation. With a ``spec_executor``
+(engine/specexec.py, ``[spec] workers>1``) the open window's
+speculation is dispatched to its Block-STM worker pool, and the close
+drains the window before it splices.
 """
 
 from __future__ import annotations
@@ -160,8 +162,11 @@ class LedgerMaster:
         # the last close's splice split and stage times (ms) and, per
         # tree, the seal's wall ms and the number of nodes it hashed
         self.last_close: dict = {}
-        # parallel speculative executor: not part of this package yet;
-        # None keeps the serial inline speculation
+        # parallel speculative executor ([spec] workers=N, engine/
+        # specexec.py): when active, _speculate_open dispatches to the
+        # worker pool instead of executing inline, and the close drains
+        # the window before consuming the records. None/inactive keeps
+        # the serial inline path byte-for-byte.
         self.spec_executor = None
         # incremental O(dirty) seal: speculated writes fold into a
         # pre-seal "building" tree on the SpecState, and a background
@@ -333,7 +338,10 @@ class LedgerMaster:
                         origin: str = "submit") -> None:
         """Close-mode dry run of an open-accepted tx against the open
         window's speculative overlay (engine/deltareplay.py), creating
-        the SpecState on first use, inline on this thread."""
+        the SpecState on first use: dispatched to the parallel
+        executor's pool when it is active, else inline on this thread.
+        ``origin`` tags the record so the queue's promotion counters can
+        tell spliced-promoted txs apart from submit-time speculation."""
         if not self.delta_replay:
             return
         spec = getattr(open_ledger, "_spec_state", None)
@@ -351,6 +359,25 @@ class LedgerMaster:
                 )
         if tx.txid() in spec.records:
             return
+        ex = self.spec_executor
+        if ex is not None and ex.active:
+            # parallel plane: dispatch to the worker pool (O(1) under
+            # the chain lock — the execution itself runs on workers and
+            # commits in index order off this thread). Folding into the
+            # building tree rides the commit step via _note_fold.
+            session = getattr(spec, "_exec_session", None)
+            if session is None and ex.can_accept:
+                session = spec._exec_session = ex.begin_window(
+                    spec, open_ledger, on_fold=self._note_fold,
+                )
+            if session is not None:
+                if ex.dispatch(session, tx, origin):
+                    return
+                # executor refused (stopping / pool dead): seal the
+                # window so no late commit races the serial path, then
+                # fall through
+                ex.end_window(session, timeout=ex.drain_timeout_s)
+                spec._exec_session = None
         with self.tracer.span("open.speculate", "apply",
                               txid=tx.txid(), origin=origin):
             spec.speculate(tx, origin=origin)
@@ -746,9 +773,13 @@ class LedgerMaster:
                     self._hold(tx, expire)
 
     def _drain_spec(self, spec) -> None:
-        """Seal the open window's parallel-speculation session before the
-        close consumes its records. A no-op on the serial inline path,
-        the only one here while ``spec_executor`` is None."""
+        """Seal the open window's parallel-speculation session before
+        the close consumes its records: every dispatched task commits
+        (in-flight work finishes through the pool; a wedged pool's
+        remainder is executed serially in index order on this thread).
+        No-op on the serial path. Caller holds the chain lock; the
+        commit machinery never takes it, so waiting here cannot
+        deadlock."""
         ex = self.spec_executor
         session = getattr(spec, "_exec_session", None) if spec else None
         if ex is None or session is None:
@@ -1038,4 +1069,6 @@ class LedgerMaster:
                 for stage, hist in self.close_stage_hist.items():
                     out[f"{stage}_p50_ms"] = hist.quantile(0.5)
                     out[f"{stage}_p90_ms"] = hist.quantile(0.9)
+        if self.spec_executor is not None:
+            out["spec"] = self.spec_executor.get_json()
         return out

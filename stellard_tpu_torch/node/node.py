@@ -27,9 +27,11 @@ also backfills the validators' sealed history shards over the
 ``GetSegments`` door (node/archive.py) into a txdb that never trims.
 ``[node] upstream=`` pins either to named peers. A flight recorder is
 always on and, with ``[health] enabled`` (the default), a health
-watchdog (node/health.py) rides the metrics history. The parallel
-speculation executor is not part of this package, and
-``Config.check_ported`` refuses a config that would turn it on.
+watchdog (node/health.py) rides the metrics history. ``[spec]
+workers>1`` (or ``auto``) runs the open window's speculation on the
+parallel executor's Block-STM worker pool (engine/specexec.py), whose
+process workers fork before anything else of the node starts a thread
+or touches the card.
 """
 
 from __future__ import annotations
@@ -175,6 +177,42 @@ class Node:
 
         self.tracer = Tracer.from_config(cfg)
 
+        # [spec]: parallel speculative executor — workers>1 dispatches
+        # open-window speculation to a Block-STM worker pool with
+        # optimistic validation and ordered commit (engine/specexec.py);
+        # workers=1 keeps the serial inline path byte-for-byte.
+        # workers=auto resolves HERE (loudly disabling the pool below 4
+        # cores); transport picks the shared-memory ring wire or the
+        # pickled pipe. The process workers fork NOW, before anything of
+        # this node starts a thread or touches the card (the verify
+        # plane's K1 prewarm, the watched hasher): a fork while another
+        # thread is inside CUDA leaves that thread's locks held in the
+        # child. The JAX node forks later, after its prewarm; only the
+        # start order differs, and nothing observable changes.
+        import logging
+
+        from ..engine.specexec import SpecExecutor
+        from .config import resolve_spec_workers
+
+        self.spec_executor = SpecExecutor(
+            workers=resolve_spec_workers(
+                cfg.spec_workers, log=logging.getLogger("stellard.spec")),
+            mode=cfg.spec_mode,
+            max_retries=cfg.spec_max_retries, tracer=self.tracer,
+            drain_timeout_s=cfg.spec_drain_timeout_s,
+            transport=cfg.spec_transport,
+        )
+        if self.spec_executor.active:
+            self.spec_executor.start()
+        try:
+            self._build_planes(cfg)
+        except BaseException:
+            # a node that fails to build leaves no worker behind
+            self.spec_executor.stop()
+            raise
+
+    def _build_planes(self, cfg: Config) -> None:
+        """Everything of ``__init__`` after the tracer and the pool."""
         # storage plane (reference: NodeStore Manager + main db :330)
         db_kwargs = {}
         if cfg.node_db_path:
@@ -567,6 +605,7 @@ class Node:
         # automatic fallback (incremental=0 is the kill-switch)
         self.ledger_master.incremental_seal = cfg.tree_incremental_seal
         self.ledger_master.seal_drain_batch = cfg.tree_drain_batch
+        self.ledger_master.spec_executor = self.spec_executor
         # [txq]: the ledger chain promotes queued txs at _open_next and
         # the queue's deferred (off-close-path) speculation rides the
         # job queue
@@ -1221,6 +1260,17 @@ class Node:
         # span-derived per-stage latency percentiles (trace.<stage>.p50_ms
         # et al.): the unified latency surface the tracing plane feeds
         self.collector.hook("trace", self.tracer.statsd_hook)
+        if self.spec_executor.active:
+            self.collector.hook(
+                "spec",
+                lambda: {
+                    k: v
+                    for k, v in self.spec_executor.counters.snapshot()
+                    .items()
+                    if k in ("dispatched", "committed", "retries",
+                             "validation_aborts", "serial_fallbacks")
+                },
+            )
         self.collector.hook(
             "delta_replay",
             # snapshot via delta_replay_json: it takes the chain lock, so
@@ -1377,6 +1427,9 @@ class Node:
     def stop(self) -> None:
         self._running.clear()
         self.load_manager.stop()
+        # the executor first: any open speculation window completes
+        # serially before the chain machinery below winds down
+        self.spec_executor.stop()
         self.ledger_master.stop_seal_drainer()
         if self.overlay is not None:
             stop = getattr(self.overlay, "stop", None)

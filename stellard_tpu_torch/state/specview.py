@@ -22,9 +22,7 @@ and the succ records against the closing ledger's real state map (phantom
 protection for book walks: an entry INSERTED between cursor and the
 recorded next key must invalidate, which no per-key version can see).
 
-The parallel apply plane (the JAX package's engine/specexec.py, not part
-of this package yet: the serial inline path below is the default with
-one speculation worker) reuses this view as the
+The parallel apply plane (engine/specexec.py) reuses this view as the
 COMMITTED state of its Block-STM scheduler: worker executions capture
 against a read-only alias of the overlay, and the commit step folds
 validated records back in through ``apply_record`` — in speculation-index

@@ -126,6 +126,40 @@ FLEET_SLICE = tuple(f"stellard_tpu_torch.{m}" for m in (
     "node.archive", "node.health", "rpc.rpcsub", "node.node", "utils.sqlrows"))
 
 
+# the modules the speculation pool's slice added: the Block-STM executor
+# and its ring transport
+SPEC_SLICE = tuple(f"stellard_tpu_torch.{m}" for m in ("engine.specexec", "engine.specring"))
+
+
+def test_the_spec_slice_imports_neither_jax_nor_the_jax_package():
+    """The same for the speculation pool's slice: ``engine/specexec.py``
+    and ``engine/specring.py``, copies of the JAX modules' behaviour that
+    import nothing of them."""
+    assert set(SPEC_SLICE) <= set(_modules())
+    slice_imports_neither_jax_nor_the_jax_package(SPEC_SLICE)
+
+
+def test_the_spec_slice_imports_no_torch():
+    """A process worker of the pool is a fork of a node that may hold a
+    CUDA context, and must never reach the card: importing the executor
+    and its ring (everything a worker runs) leaves ``torch`` out of
+    sys.modules, as it does the JAX package and ``jax``."""
+    code = (
+        "import importlib, json, sys\n"
+        f"sys.path.insert(0, {str(REPO)!r})\n"
+        f"for m in {list(SPEC_SLICE)!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('torch', 'jax', 'jaxlib', 'stellard_tpu'))\n"
+        "print(json.dumps(bad))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, env=env, cwd=str(REPO))
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == []
+
+
 def test_the_consensus_slice_imports_neither_jax_nor_the_jax_package():
     """Importing the consensus slice's modules alone (the SimNet and the
     validator pull in the ledger, engine and node modules they run on)

@@ -466,21 +466,22 @@ def test_rpc_account_lines():
 
 
 def test_rpc_get_counts_and_server_state_blocks():
-    """get_counts and server_state answer the JAX node's blocks, but for
-    the plane this package's node has not (the speculation executor),
-    the fields that name its device and its kernels' launch counts."""
+    """get_counts and server_state answer the JAX node's blocks, the
+    speculation executor's too, but for the fields that name its device
+    and its kernels' launch counts."""
     def scenario(pk, node, log):
         alice = pk.KeyPair.from_passphrase("alice")
         fund(pk, node, alice, log)
         close(pk, node, log)
         counts = call(pk, node, "get_counts")
         assert "verify_plane" in counts
-        log.append(("counts", sorted(set(counts) - {"spec", "kernels"}),
+        log.append(("counts", sorted(set(counts) - {"kernels"}),
                     counts["delta_replay"]["spliced"], counts["held"], scrub(counts["txq"]),
-                    counts["close_pipeline"]["persisted"], counts["ledgers_cached"]))
+                    counts["close_pipeline"]["persisted"], counts["ledgers_cached"],
+                    counts["spec"], counts["delta_replay"]["spec"]))
         state = call(pk, node, "server_state")["state"]
-        log.append(("state", sorted(set(state) - {"spec"}), state["server_state"],
-                    state["complete_ledgers"], state.get("validated_ledger")))
+        log.append(("state", sorted(state), state["server_state"],
+                    state["complete_ledgers"], state.get("validated_ledger"), state["spec"]))
 
     run_both(scenario)
 
@@ -585,7 +586,7 @@ def test_config_defaults_to_cuda_and_refuses_unported_planes():
         "[signature_backend]\ntype=tpu", "[hash_backend]\ntype=tpu",
         "[hash_backend]\ntype=cpp", "[signature_backend]\ntype=cpu\nmesh=2",
         "[hash_backend]\ntype=cuda\nmesh=wide", "[paths]\nmesh=-4",
-        "[spec]\nworkers=2", "[spec]\nworkers=auto", "[kernel_tuning]\nKERNEL_TUNING.json",
+        "[spec]\nworkers=lots", "[spec]\ntransport=tcp", "[kernel_tuning]\nKERNEL_TUNING.json",
         "[signature_backend]\ntype=cpu\nrouting=device",
         "[signature_backend]\ntype=cpu\nthreads=4",
     ):
@@ -593,6 +594,12 @@ def test_config_defaults_to_cuda_and_refuses_unported_planes():
             Config.from_ini(text)
     with pytest.raises(ValueError, match="type=cuda"):
         Config.from_ini("[signature_backend]\ntype=tpu")
+    # the speculation pool's keys parse as the JAX Config's
+    # (tests/test_torch_specring.py holds each to its value)
+    from stellard_tpu.node.config import Config as JaxConfig
+
+    for text in ("[spec]\nworkers=2", "[spec]\nworkers=auto"):
+        assert Config.from_ini(text).spec_workers == JaxConfig.from_ini(text).spec_workers
     # the networked validator's keys parse (tests/test_torch_tcp_mixed.py
     # holds each to the JAX Config's value)
     # and so do the out-of-core state's (tests/test_torch_tcp_mixed.py
@@ -618,11 +625,22 @@ def test_config_defaults_to_cuda_and_refuses_unported_planes():
                           "[peer_port]\n51235\n[standalone]\n1")
     assert cfg.verify_backend_opts()["device"] == "cpu"
     assert (cfg.hash_device, cfg.hash_min_device_nodes, cfg.hash_routing) == ("cpu", 0, "device")
-    # a Config built in code is held to the same rule at Node(...)
+    # a Config built in code is held to the same rule at Node(...), and
+    # [spec] workers=4 builds the speculation pool
     from stellard_tpu_torch.node.node import Node
 
-    with pytest.raises(ValueError, match="spec"):
-        Node(Config(signature_backend="cpu", hash_backend="cpu", spec_workers=4))
+    with pytest.raises(ValueError, match="kernel_tuning"):
+        Node(Config(signature_backend="cpu", hash_backend="cpu",
+                    kernel_tuning="KERNEL_TUNING.json"))
+    node = Node(Config(signature_backend="cpu", hash_backend="cpu", spec_workers=4))
+    try:
+        ex = node.spec_executor
+        assert node.ledger_master.spec_executor is ex
+        assert (ex.workers, ex.mode, ex.transport, ex.active) == (4, "process", "ring", True)
+        assert len(ex._procs) == 4 and all(w.proc.is_alive() for w in ex._procs)
+    finally:
+        node.stop()
+    assert [w.proc.exitcode for w in ex._procs] == [0] * 4
 
 
 def test_cuda_node_without_a_card_raises():

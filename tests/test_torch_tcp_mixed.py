@@ -308,7 +308,9 @@ LIFTED = {
         "health_enabled", "health_stall_warn_s", "health_stall_crit_s", "health_drift_factor",
         "health_lag_warn", "health_lag_crit", "health_flight_dir", "health_flight_spans"),
 }
-STILL_REFUSED = ("[kernel_tuning]\nKERNEL_TUNING.json", "[spec]\nworkers=2")
+LIFTED["[spec]\nworkers=2"] = ("spec_workers", "spec_mode", "spec_max_retries",
+                               "spec_drain_timeout_s", "spec_transport")
+STILL_REFUSED = ("[kernel_tuning]\nKERNEL_TUNING.json",)
 
 
 @pytest.mark.parametrize("text", sorted(LIFTED))
