@@ -8,11 +8,14 @@ standalone node's closes and its order book and path searches, then the
 catch-up replay of the chain it saved and a node resumed lazily on it;
 meanwhile a second process of this script (`--side`, SideRun) runs a
 4-validator consensus net in process and a 4-validator private net over
-TCP. All of it goes through the entry points a node calls, at the sizes
-a close really has, and every result is checked. In the order of the
-list below, except that phase 9 runs after phase 4, phases 5-6 in the
-side process while phase 7 runs (which joins it before it times K1),
-and phase 7 starts when the side does:
+TCP, and once the close phase has returned a third (`--side-scenarios`)
+runs the scenario kit's fault matrix and chaos over real processes. All
+of it goes through the entry points a node calls, at the sizes a close
+really has, and every result is checked. In the order of the list below,
+except that phase 9 runs after phase 4, phases 5-6 in the side process
+while phase 7 runs (which joins it before it times K1), phase 7 starts
+when the side does, and phase 11 runs in the third process beside
+phases 8 and 10 (joined after the resume step):
 
 1. device   — the card's name and power limit; builds the four CUDA
               kernels (one nvcc a source, started together) and prints
@@ -257,12 +260,41 @@ and phase 7 starts when the side does:
               test); nodes faulted, none inside a seal; no host
               signature check; the host hashes only what K2/K3 cannot.
               The store is removed at the end.
+11. scenarios — the scenario kit (testkit/), in its own process
+              (`--side-scenarios T0`, its output in
+              build/chip_smoke_scenarios.out/.err, printed at the join):
+              every MATRIX scenario at SCENARIO_SEED and every corpus
+              entry at its own seed through testkit.run_simnet(device=
+              cuda) — byzantine validators and relay flooders,
+              partitions and rotating kills, cold catch-up over segments
+              and history shards, archive backfill from a garbage peer,
+              follower trees, the TxQ under fee gaming, the thread-mode
+              speculation pool, and the mesh leg hashing every honest
+              validator's trees on K2 across the visible cards. Each
+              converges on one hash and its scorecard (less the spec
+              pool's counters and the mesh's resolved width) is the JAX
+              package's (SCENARIO_CARDS, recomputed by
+              JAX_PLATFORMS=cpu python -m pytest tests/test_torch_scenario_matrix.py -m slow -q -s);
+              chaos_spec2's final hash is chaos's; mesh_hash's mesh leg
+              active, not wedged, at the cards' width, K2 launched. Then
+              testkit.tcpnet.run_tcp(scenario_chaos(seed=1), backend=
+              "cuda"): four `python -m stellard_tpu_torch` validators on
+              the card over TCP, validators 0 and 2 killed (steps 14 and
+              54) and revived 5 steps later (each revived process builds
+              its CUDA context and runs K1's prewarm again), the workload
+              submitted over the doors; one hash, 2 kills, 0 errors,
+              every transaction submitted. The `scenarios` line gives
+              each scenario's wall ms and match, the `scenario_tcp` line
+              the boot s, each revive's s until its door answers, the
+              validated seqs and the walls; the children's logs stay in
+              build/chip_smoke_scenario_tcp/.
 
 Launch counts are zeroed just before phases 3-4 and read just after, and
 again around the flood phase's mesh step and the point step's drive of
 the flood, phases 5 and 6 (in the side process; validator 0's
-launches), 7, 8, 10's replay and its resume step;
-the kernels line shows the sum, the launches of the main path alone,
+launches), 7, 8, 10's replay and its resume step, and phase 11 (in its
+process: K2 in the mesh leg; the run_tcp children's counts are reported
+in its line, not summed); the kernels line shows the sum, the launches of the main path alone,
 and for K2 and K3 the consensus, tcp, close and book phases' launches by
 who made them (the seal drainer, the two seal threads, the
 closing or consensus thread). Any
@@ -277,6 +309,7 @@ import gc
 import hashlib
 import json
 import os
+import random
 import shutil
 import subprocess
 import sys
@@ -2058,15 +2091,22 @@ def run(dev) -> None:
     # 6-7. the consensus and tcp phases in a process of their own (SideRun),
     # each counted on its own there, while this one drives the chain ---------
     side = SideRun()
+    scenario_side = None
     try:
         # 8. the close phase, counted on its own; the chain saved as it
         # closes; it joins the side process before it times K1
         saver = ChainSaver(STORE_DIR)
         close = close_phase(dev, name_power, saver, int32_rate, before_timing=side.join)
 
+        # 11. the scenario kit in a third process (SideRun), counted on its
+        # own, beside the book, the replay and the resume
+        scenario_side = SideRun("--side-scenarios", "chip_smoke_scenarios", SCENARIOS_JOIN_S,
+                                "the scenarios phase")
+
         # 9. the book phase on the same chain, counted on its own -------------
         book = book_phase(dev, name_power, close, saver)
-        consensus, tcp = side.join()
+        sides = side.join()
+        consensus, tcp = sides["consensus"], sides["tcp"]
         close_launches, close_k1_err = close["launches"], close["k1_max_abs_err"]
         k1_batch1 = close["k1_batch1"]
         roles = launches_by_role(consensus["by_thread"], tcp["by_thread"], close["by_thread"],
@@ -2084,8 +2124,11 @@ def run(dev) -> None:
         finally:
             shutil.rmtree(saver.path, ignore_errors=True)
         del saver
+        scenarios = scenario_side.join()["scenarios"]
     finally:
         side.stop()
+        if scenario_side is not None:
+            scenario_side.stop()
 
     emit("times", card=name_power, host_prep_ms_per_chunk=prep_ms, chunk=CHUNK,
          flood_sigs_per_s=N_FLOOD / flood_s,
@@ -2094,7 +2137,7 @@ def run(dev) -> None:
          k1_shape=[CHUNK], k2_shape=k2_shape, k3_nodes=n3, k4_shape=[rows, hops],
          int32_ops_per_s=int32_rate, total_s=time.perf_counter() - t_start)
     phases = (launches, consensus["launches"], tcp["launches"], close_launches,
-              book["launches"], replay["launches"], resume["launches"])
+              book["launches"], replay["launches"], resume["launches"], scenarios["launches"])
     main_launches = lambda name: sum(ph.get(name, 0) for ph in phases)  # noqa: E731
     kernels = [
         dict(name="ed25519_verify", route="cuda",
@@ -2136,6 +2179,7 @@ def run(dev) -> None:
              source="stellard_tpu_torch/csrc/sha512.cu",
              replaces="stellard_tpu/ops/treehash_jax.py:49",
              launches=main_launches("sha512_masked"), launches_by_role=roles["sha512_masked"],
+             launches_scenarios=scenarios["launches"]["sha512_masked"],
              max_abs_err=k2_err,
              ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=k2_b, bound_by=k2_by,
              library_ms=None),
@@ -5044,45 +5088,245 @@ def leaf_blocks(m):
     require(len(oversized) == 0 and len(buckets) == 1, "leaves span ladder sizes")
     return pad_packed(buf, off[:-1], lengths, buckets[0][0])
 
-SIDE_OUT = HERE / "build" / "chip_smoke_side.out"
-SIDE_ERR = HERE / "build" / "chip_smoke_side.err"
+# -- the scenario kit (phase 11) ----------------------------------------------
+
+# every MATRIX scenario at this seed, and every corpus entry at its own
+SCENARIO_SEED = 7
+# name -> (digest of the scorecard less its wall-clock `spec` block and its
+# mesh's resolved `width`, final hash), as the JAX package's run_simnet
+# gives them on the CPU at 8 host devices, re-applying in the port's order
+# (jax_reapply_parity); recomputed by
+# JAX_PLATFORMS=cpu python -m pytest tests/test_torch_scenario_matrix.py -m slow -q -s
+SCENARIO_CARDS = {
+    "partition_kills": (
+        "902951e04a6bd26c52ac29db79f3ef92e785b83399d970af8fad183869b9f4ee",
+        "f5f278ec7779bcf927aecb89173ac398184a251beb0c9e4a6ef4d5f222d55f9a"),
+    "chaos": (
+        "f4c728f1e5759a8434df918259049abaf0ac0b4afe396f7b4dccaba5a13a36eb",
+        "a09bf4267afe91b8907d2bbfe6ac496cdcb569600d4b6a7207e39af97b7b7f64"),
+    "chaos_spec2": (
+        "1f3ccb74bc7a3ac3fe09519d31636f1c16cc6bbce73eb1a460f0f3245fbf4475",
+        "a09bf4267afe91b8907d2bbfe6ac496cdcb569600d4b6a7207e39af97b7b7f64"),
+    "byzantine": (
+        "9ac2c33f0328716cabcc74e184bb964a63c9be83c91d82a9344ba3c934ddd8e3",
+        "a9401b03b87570761aeac556fc5ec9e5430415e471e28e2449ea24f16ca909b2"),
+    "cold_catchup": (
+        "2939808248b00939feaaae751ab6e13702c714318b9f4394d8870d7501be4840",
+        "c272d38a1e38adef31a49451e19304ad9a8b929a9c0332bc24a1aa5e53cfd19f"),
+    "shard_cold_catchup": (
+        "5a6adf009b4a270eae2d0dc947e1a20a06d70e5ce0107482ef598a3dcccff399",
+        "8020e754af85e046dd38d05f5b76a87f4662e75fdbc6e4417217f0140a86f36f"),
+    "archive_backfill": (
+        "bd74977ab9c5538407e8a04d2474f0d18367913a7681961df96d3dfbc93f1328",
+        "8020e754af85e046dd38d05f5b76a87f4662e75fdbc6e4417217f0140a86f36f"),
+    "hot_account": (
+        "04306815a92efc02cef68dfccf592a12584ec476b18ce54fac1909430a65db75",
+        "763cb5ce3612f245bfb3ff2a3328e52c7140d28d94fc6714d034ec57766a03ac"),
+    "order_books": (
+        "00a33de38919b0343e65b0d69b7c14afa98ff627f644bce2ececa995ebf5c625",
+        "a448a05b49b68b86017a97aa52dbb75a3206f5a53313104955eaabf383fd80a8"),
+    "follower_partition": (
+        "70db0735e0ec3f30438c26e5c1163a9047e60f8319e4466e6b8b0ea383ff0f92",
+        "6757b82ef01ba2c1868f033b7a30742897d19eac5efc2dc60fd07391d7a99c71"),
+    "follower_tree": (
+        "ee04d59e11477b66f2c8c8b7430e98f1d1f5cea07fc18152d3b9b525c4f2b29d",
+        "b47544b52a3b8f13d3064b5c10229382337f09ad990478ef40250c28a4acaccd"),
+    "mesh_hash": (
+        "2355e59f3c7bc944c38e2d05c3775a53b33388a848af2cba9494d9082359b73c",
+        "01027236e94031079e96489c5cdbba01c0c1748609bf344cef9b3c4be654d091"),
+    "fee_gaming": (
+        "0b3090317d1c44a407a4a8b7b43cfa2064413f6619b505d152e1b6d4bedb737b",
+        "b998a1d87994cac10bced3ea5047504ec94217deec95e4dd98d3f688d1610cf4"),
+    "flood_survival": (
+        "4cd6758adec3e295780d64a323445037acbcabc6829754f0fe67333c1c2b3386",
+        "15c684166a15044166da977ef8fa82ab3f637dffe3ffd17092b1e4a238fd0820"),
+    "squelch_rotation_flood": (
+        "90bf4f02508af0347929ff63b376eff57450fc5ef9d3a033c233a46ba20dcaed",
+        "fa9baaf9e3c4fcbfbe023715bde6cc13be1471fe6df42b5f8bb1912c45af01e1"),
+    "fuzz_committed_floor_6997bab0": (
+        "6336e1d1ae14f27b2fe6bc27c664602f9426181cda9f374d57877e9153cc8d9e",
+        "c2408b1836ef26b441afcc2a31986fa807cf778da649b4519576c5f5d6ae27e8"),
+    "fuzz_committed_floor_e715bfd6": (
+        "3035a0200577f78af385757a820f2d7942eb9900a0cf3c01eda528f071b295b9",
+        "467c092b21301abf1578c0412a8556a21d8cf8bdd63caedbf0ec2e93b50e7f81"),
+    "fuzz_convergence_3364bc2e": (
+        "ef933ffa31db7836dee17eef112016114165c68d454a1f6cbe77c9c627413d4f",
+        "6304fa211e3cf9476757ceab3b283d23b4f4bad69152d41be9afcb3bfee58ae7"),
+    "fuzz_single_hash_6859444c": (
+        "42d1c88ba2842756abeba29cfc01b307559c073d5576ae8d8ab97cbf239c8778",
+        "f24cbc6156e31bfb3cd6935168d971dfd4a8464b662a11ef0463dfffde6252b7"),
+    "fuzz_single_hash_history_c08731d2": (
+        "1012dedcf549423561870631f8c574f6f87c1ade7aa806878302c40186616acb",
+        "3380838566137497db24b18c447cb4930b9c5b88f492973805bd6334cba084a8"),
+}
+# scenarios whose scorecard is wall-clock beyond `spec` (the splice counts
+# follow the thread pool's timing): held by hash identity with another
+# scenario at the same seed, as search._strip_nondeterministic allows
+SCENARIO_SAME_HASH = {"chaos_spec2": "chaos"}
+SCENARIO_TCP_SEED = 1
+SCENARIO_TCP_DIR = HERE / "build" / "chip_smoke_scenario_tcp"
+
+
+def scenario_digest(card: dict) -> str:
+    """A run_simnet scorecard's digest as the smoke holds it: without the
+    spec pool's counters and the mesh's resolved width (the JAX tests see
+    8 host devices, the card 1)."""
+    out = {k: v for k, v in card.items() if k != "spec"}
+    if out.get("mesh") is not None:
+        out["mesh"] = {k: v for k, v in out["mesh"].items() if k != "width"}
+    return hashlib.sha256(json.dumps(out, sort_keys=True).encode()).hexdigest()
+
+
+def scenarios_phase(dev, name_power: str) -> dict:
+    """The port's scenario kit on the card (in its own process, beside the
+    book, the replay and the resume). Every matrix scenario at
+    SCENARIO_SEED and every corpus entry at its own seed through
+    ``testkit.run_simnet(device=dev)``: each converges on one hash, its
+    scorecard digest is the JAX package's (SCENARIO_CARDS), chaos_spec2's
+    final hash chaos's; mesh_hash's mesh leg hashes on K2 across the
+    visible cards (its width), active and not wedged. Then
+    ``testkit.tcpnet.run_tcp(scenario_chaos(seed=1), backend="cuda")``:
+    four validator children on the card, two killed and revived, every
+    transaction of the workload submitted, one hash, no error; their logs
+    in SCENARIO_TCP_DIR. Launches are this process's (K2 in the mesh
+    leg); the children's launch counts are reported, not summed."""
+    import torch
+
+    from stellard_tpu_torch.ops import ed25519_cuda, pathq, treehash
+    from stellard_tpu_torch.testkit import MATRIX, build_scenario, load_corpus, run_simnet
+    from stellard_tpu_torch.testkit.scenarios import scenario_chaos
+    from stellard_tpu_torch.testkit.tcpnet import run_tcp
+    from stellard_tpu_torch.testkit.workloads import TxFactory, build_spec_workload
+
+    t_phase = time.perf_counter()
+    ed25519_cuda.reset_launches()
+    treehash.reset_launches()
+    pathq.launches = 0
+    names = list(MATRIX) + list(load_corpus())
+    require(sorted(names) == sorted(SCENARIO_CARDS),
+            f"scenarios {sorted(set(names) ^ set(SCENARIO_CARDS))} lack a JAX constant")
+    rows, hashes = {}, {}
+    for name in names:
+        scn = build_scenario(name, SCENARIO_SEED)
+        k2_before = treehash.launches["sha512_masked"]
+        t0 = time.perf_counter()
+        card = run_simnet(scn, device=dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        digest = scenario_digest(card)
+        want_digest, want_hash = SCENARIO_CARDS[name]
+        hashes[name] = card["final_hash"]
+        require(card["converged"] and card["single_hash"],
+                f"scenario {name} did not converge on one hash: {card['validated_seqs']}")
+        row = {"wall_ms": wall_ms, "final_seq": card["final_seq"],
+               "digest_equal": digest == want_digest}
+        if name in SCENARIO_SAME_HASH:
+            row["match"] = "hash"
+        else:
+            require(digest == want_digest, f"scenario {name}'s scorecard differs from the "
+                    f"JAX package's: {digest} (final hash {card['final_hash']})")
+            row["match"] = "digest"
+        require(card["final_hash"] == want_hash,
+                f"scenario {name}'s final hash {card['final_hash']} is not {want_hash}")
+        if scn.mesh_width:
+            mesh = card["mesh"]
+            k2 = treehash.launches["sha512_masked"] - k2_before
+            require(mesh["device_active"] and not mesh["wedged"],
+                    f"scenario {name}'s mesh leg: {mesh}")
+            require(mesh["width"] == torch.cuda.device_count(),
+                    f"scenario {name}'s mesh width {mesh['width']} for "
+                    f"{torch.cuda.device_count()} cards")
+            require(k2 > 0, f"scenario {name} launched K2 no time")
+            row.update(mesh=mesh, k2_launches=k2)
+        if card.get("spec"):
+            row["spec"] = card["spec"]
+        rows[name] = row
+    for name, other in SCENARIO_SAME_HASH.items():
+        require(hashes[name] == hashes[other],
+                f"{name}'s final hash {hashes[name]} is not {other}'s {hashes[other]}")
+    simnet_s = time.perf_counter() - t_phase
+    emit("scenarios", card=name_power, seed=SCENARIO_SEED, scenarios=len(rows),
+         matrix=len(MATRIX), corpus=len(rows) - len(MATRIX), all_match=True,
+         wall_s=simnet_s, rows=rows)
+
+    # chaos over real processes on the card
+    scn = scenario_chaos(seed=SCENARIO_TCP_SEED)
+    workload = build_spec_workload(scn.workload)(
+        TxFactory(seed=scn.seed), random.Random(0x301C ^ scn.seed), scn)
+    shutil.rmtree(SCENARIO_TCP_DIR, ignore_errors=True)
+    timeline: dict = {}
+    t0 = time.perf_counter()
+    card = run_tcp(scn, backend="cuda", mesh_timeout=TCP_START_S,
+                   log_dir=str(SCENARIO_TCP_DIR), timeline=timeline)
+    tcp_s = time.perf_counter() - t0
+    require(card["converged"] and card["single_hash"],
+            f"chaos over TCP did not converge on one hash: {card['validated_seqs']}")
+    require(card["kills"] == 2 and card["errors"] == 0,
+            f"chaos over TCP: {card['kills']} kills, {card['errors']} errors")
+    require(card["submitted"] == len(workload),
+            f"chaos over TCP submitted {card['submitted']} of {len(workload)}")
+    require(all(r["door_s"] is not None for r in timeline["revive_door_s"]),
+            f"a revived validator's door never answered: {timeline['revive_door_s']}")
+    emit("scenario_tcp", card=name_power, scenario=card["scenario"], seed=card["seed"],
+         validators=scn.n_validators, steps=card["steps"], kills=card["kills"],
+         submitted=card["submitted"], errors=card["errors"], converged=card["converged"],
+         single_hash=card["single_hash"], final_seq=card["final_seq"],
+         validated_seqs=card["validated_seqs"], fault_digest=card["fault_digest"],
+         boot_s=timeline["boot_s"], revive_door_s=timeline["revive_door_s"],
+         steps_s=timeline["steps_s"], tail_s=timeline["tail_s"], wall_s=tcp_s,
+         children_kernels=timeline["kernels"], logs=str(SCENARIO_TCP_DIR))
+    launches = {"ed25519_verify": ed25519_cuda.launches, **treehash.launches,
+                "path_quality": pathq.launches}
+    emit("scenarios_done", phase_s=time.perf_counter() - t_phase, simnet_s=simnet_s,
+         tcp_s=tcp_s, launches=launches)
+    return {"launches": launches}
+
+
 SIDE_JOIN_S = 700  # the consensus and tcp phases take 120-180 s on the card's host
+# the scenarios process runs beside the book, the replay and the resume
+# (434 s in PR 14's run C); it is joined after the resume, and waited for
+# at most this long from then
+SCENARIOS_JOIN_S = 600
 
 
 class SideRun:
-    """The consensus and tcp phases in a second process of this script
-    (``--side``), started in a process group of its own (its tcp children
-    with it), its output and errors into files under build/: they run while
-    this process drives the close chain, which is host-bound. ``join``
-    waits for it, prints what it printed, fails the smoke if it failed
-    and returns its two phases' results; ``stop`` ends what is left of
-    its group."""
+    """Phases in another process of this script (``flag T0``), started in
+    a process group of its own (its children with it), its output and
+    errors into ``build/<name>.out`` and ``.err``: they run while this
+    process drives the close chain, which is host-bound. ``--side`` runs
+    the consensus and tcp phases, ``--side-scenarios`` the scenarios
+    phase. ``join`` waits for it (at most ``join_s``), prints what it
+    printed, fails the smoke if it failed and returns its phases'
+    results (its last line's ``side`` object); ``stop`` ends what is left
+    of its group."""
 
-    def __init__(self):
-        SIDE_OUT.parent.mkdir(parents=True, exist_ok=True)
-        self.out, self.err = SIDE_OUT.open("w"), SIDE_ERR.open("w")
+    def __init__(self, flag: str = "--side", name: str = "chip_smoke_side",
+                 join_s: float = SIDE_JOIN_S, what: str = "the consensus and tcp phases"):
+        self.out_path = HERE / "build" / f"{name}.out"
+        self.err_path = HERE / "build" / f"{name}.err"
+        self.join_s, self.what = join_s, what
+        self.out_path.parent.mkdir(parents=True, exist_ok=True)
+        self.out, self.err = self.out_path.open("w"), self.err_path.open("w")
         self.proc = subprocess.Popen(
-            [sys.executable, str(HERE / "chip_smoke.py"), "--side", repr(T_IMPORT)],
+            [sys.executable, str(HERE / "chip_smoke.py"), flag, repr(T_IMPORT)],
             cwd=HERE, stdout=self.out, stderr=self.err, start_new_session=True)
         self.result = None
 
-    def join(self) -> tuple[dict, dict]:
+    def join(self) -> dict:
         if self.result is None:
             try:
-                rc = self.proc.wait(timeout=SIDE_JOIN_S)
+                rc = self.proc.wait(timeout=self.join_s)
             except subprocess.TimeoutExpired:
                 rc = None
             self.out.close()
             self.err.close()
-            lines = SIDE_OUT.read_text().splitlines()
-            sys.stderr.write(SIDE_ERR.read_text())
+            lines = self.out_path.read_text().splitlines()
+            sys.stderr.write(self.err_path.read_text())
             sys.stderr.flush()
             last = json.loads(lines.pop()) if rc == 0 and lines else {}
             if lines:
                 print("\n".join(lines), flush=True)
-            require(rc == 0 and "side" in last,
-                    f"the consensus and tcp phases' process ended with {rc}")
-            self.result = (last["side"]["consensus"], last["side"]["tcp"])
+            require(rc == 0 and "side" in last, f"the process of {self.what} ended with {rc}")
+            self.result = last["side"]
         return self.result
 
     def stop(self) -> None:
@@ -5136,12 +5380,27 @@ def run_side(dev) -> None:
     print(json.dumps({"side": {"consensus": consensus, "tcp": tcp}}), flush=True)
 
 
+def run_side_scenarios(dev) -> None:
+    """The scenarios phase (``--side-scenarios T0``, from SideRun),
+    counted on its own; the last line gives its result to the parent."""
+    name_power, _int32_rate = card_and_build(dev)
+    scenarios = scenarios_phase(dev, name_power)
+    print(json.dumps({"side": {"scenarios": scenarios}}), flush=True)
+
+
 def run_tcp_alone(dev) -> None:
     """The tcp phase alone (``--only tcp``): the card, the kernels built
     in this process first, then tcp_phase; no final ok line."""
     name_power, int32_rate = card_and_build(dev)
     print(name_power, flush=True)
     tcp_phase(dev, name_power, int32_rate)
+
+
+def run_scenarios_alone(dev) -> None:
+    """The scenarios phase alone (``--only scenarios``), as run_tcp_alone."""
+    name_power, _int32_rate = card_and_build(dev)
+    print(name_power, flush=True)
+    scenarios_phase(dev, name_power)
 
 
 def main() -> int:
@@ -5167,17 +5426,19 @@ def main() -> int:
               file=sys.stderr)
         return 2
     args = sys.argv[1:]
-    only = args == ["--only", "tcp"]
-    side = len(args) == 2 and args[0] == "--side"
+    alone = {"tcp": run_tcp_alone, "scenarios": run_scenarios_alone}
+    only = alone.get(args[1]) if len(args) == 2 and args[0] == "--only" else None
+    sides = {"--side": run_side, "--side-scenarios": run_side_scenarios}
+    side = sides.get(args[0]) if len(args) == 2 else None
     if args and not (only or side):
-        print("usage: chip_smoke.py [--only tcp]", file=sys.stderr)
+        print("usage: chip_smoke.py [--only tcp|scenarios]", file=sys.stderr)
         return 2
     try:
-        if only:
-            run_tcp_alone(torch.device("cuda", 0))
-        elif side:
+        if only is not None:
+            only(torch.device("cuda", 0))
+        elif side is not None:
             T_IMPORT = float(args[1])  # the parent's start: one at_s clock
-            run_side(torch.device("cuda", 0))
+            side(torch.device("cuda", 0))
         else:
             run(torch.device("cuda", 0))
     except Exception as exc:  # noqa: BLE001 — report the failed phase, exit non-zero

@@ -1,7 +1,7 @@
 """The port's archive tier (node/archive.py, the archive ``Node``) against
 the JAX package's.
 
-Every test of tests/test_archive.py but the classes in ``LEFT_OUT`` runs
+Every test of tests/test_archive.py runs
 twice here, in one test: once as it is (the JAX package) and once on its
 port twin (its source with ``stellard_tpu.`` read as
 ``stellard_tpu_torch.``, the port's Config on host crypto planes, as the
@@ -30,10 +30,6 @@ import test_archive as jt
 from test_torch_consensus import cases, port_twin
 from test_torch_txq import CpuConfig, run_method
 
-LEFT_OUT = {
-    "TestFuzzerArchiveLeg": "drives testkit/scenario.py's fuzzer, which is not part of "
-                            "the port (ROADMAP Queue A item 9)",
-}
 WATCHED = {
     "jax": ((jax_shards.HistoryShardStore, "shards"), (jax_archive.ShardBackfill, "backfills"),
             (jax_readplane.ResultCache, "caches")),
@@ -74,7 +70,7 @@ def shard_files(root) -> dict:
     return {str(p.relative_to(root)): p.read_bytes() for p in sorted(root.rglob("*.shard"))}
 
 
-@pytest.mark.parametrize(("cname", "mname", "kwargs"), cases(jt, skip=tuple(LEFT_OUT)))
+@pytest.mark.parametrize(("cname", "mname", "kwargs"), cases(jt))
 def test_archive_case_equal_to_jax(cname, mname, kwargs, tmp_path):
     logs, files = {}, {}
     for pkg in ("jax", "port"):
@@ -89,9 +85,9 @@ def test_archive_case_equal_to_jax(cname, mname, kwargs, tmp_path):
 
 
 def test_twin_runs_cover_the_file():
-    covered = {p.values[0] for p in cases(jt, skip=tuple(LEFT_OUT))}
-    assert covered | set(LEFT_OUT) == {n for n in vars(jt) if n.startswith("Test")}
-    assert len(cases(jt, skip=tuple(LEFT_OUT))) >= 34
+    covered = {p.values[0] for p in cases(jt)}
+    assert covered == {n for n in vars(jt) if n.startswith("Test")}
+    assert len(cases(jt)) >= 34
 
 
 # -- the archive node ------------------------------------------------------------

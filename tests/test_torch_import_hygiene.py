@@ -131,6 +131,23 @@ FLEET_SLICE = tuple(f"stellard_tpu_torch.{m}" for m in (
 SPEC_SLICE = tuple(f"stellard_tpu_torch.{m}" for m in ("engine.specexec", "engine.specring"))
 
 
+# the modules the scenario kit's slice added: the hostile slots, the
+# runner and its scorecard, the matrix and corpus, the search plane
+SCENARIO_SLICE = tuple(f"stellard_tpu_torch.{m}" for m in (
+    "testkit.byzantine", "testkit.scenario", "testkit.scenarios", "testkit.search"))
+
+
+def test_the_scenario_slice_imports_neither_jax_nor_the_jax_package():
+    """The same for the scenario kit's slice, and its corpus is the
+    port's own copy: ``CORPUS_DIR`` lies inside the port's package."""
+    assert set(SCENARIO_SLICE) <= set(_modules())
+    slice_imports_neither_jax_nor_the_jax_package(SCENARIO_SLICE)
+    from stellard_tpu_torch.testkit.scenarios import CORPUS_DIR
+
+    assert Path(CORPUS_DIR).resolve().is_relative_to(PKG.resolve())
+    assert sorted(Path(CORPUS_DIR).glob("*.json"))
+
+
 def test_the_spec_slice_imports_neither_jax_nor_the_jax_package():
     """The same for the speculation pool's slice: ``engine/specexec.py``
     and ``engine/specring.py``, copies of the JAX modules' behaviour that
