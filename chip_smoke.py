@@ -19,7 +19,14 @@ phases 8 and 10 (joined after the resume step):
 
 1. device   — the card's name and power limit; builds the four CUDA
               kernels (one nvcc a source, started together) and prints
-              ptxas' registers and spills.
+              ptxas' registers and spills; beside them (g++, under a
+              build lock of its own) the port's host libraries from
+              native/src/*.cc: the node store, the host crypto (K1's h
+              prep, the `native` verifier) and the
+              `_stser` extension (the STObject codec, the SHAMap pack
+              and merge), so that no later process compiles one. The
+              `native` line gives each arm, native or why not, what
+              `cpu` resolves to, the libraries and `g++ --version`.
 2. kernels  — K1 (Ed25519 verify) on the adversarial corpus and 4,096
               random lanes, K2 (masked SHA-512) on 4,096 messages at
               every ladder size, against their plain PyTorch versions
@@ -46,6 +53,12 @@ phases 8 and 10 (joined after the resume step):
               verifier's sharded call in point mode with the bytes
               check's verdicts; K1's point, bytes and bytes-with-count
               ms at 16,384 with their bounds.
+              host_verify — K1's host prep (h) by the native library
+              held byte-equal to hashlib's on all 32,768 signatures; the
+              `native` and `openssl` host verifiers against K1's verdicts
+              on the adversarial corpus and a flood chunk, equal (every
+              verifier of the port rejects a key whose y encoding is
+              >= p), each timed on the chunk.
 4. seal     — a 1,000,000-leaf state SHAMap and a 32,768-leaf
               transaction SHAMap sealed by CudaHasher.hash_tree, then a
               3,000-write / 300-delete delta re-sealed: every root equal
@@ -640,6 +653,90 @@ def seal_both(m, cuda_hasher, cpu_hasher) -> dict:
     return {"dirty_nodes": len(dirty), "root": root_cuda.hex(),
             "seal_ms": t_cuda * 1e3, "seal_phases_ms": dict(cuda_hasher.last_tree_ms),
             "hashlib_seal_ms": t_cpu * 1e3}
+
+
+def native_line() -> dict:
+    """The `native` line: each host arm, native or why not, the libraries
+    and the compiler; -> the arms."""
+    from stellard_tpu_torch import native
+    from stellard_tpu_torch.crypto.backend import make_verifier
+    from stellard_tpu_torch.protocol import keys
+
+    arms = native.arms()
+    try:
+        gxx = subprocess.run([native._compiler() or "g++", "--version"], capture_output=True,
+                             text=True, timeout=30).stdout.splitlines()[0]
+    except (OSError, IndexError, subprocess.SubprocessError) as exc:
+        gxx = f"unavailable: {exc}"
+    emit("native", h_prep=arms["h_prep"], host_verify=make_verifier("cpu").impl,
+         codec=arms["codec"], pack=arms["pack"], merge=arms["merge"],
+         have_cryptography=keys.HAVE_CRYPTOGRAPHY, libraries=arms["libraries"], gxx=gxx)
+    return arms
+
+
+def python_prep_ms(pubs, msgs, sigs, native_batch: dict) -> dict:
+    """The Python mirror's host prep of one chunk, for the record: h alone
+    (``_h_scalars``) and the whole ``prepare_batch``, ms; its arrays
+    equal to the native arm's."""
+    import numpy as np
+
+    from stellard_tpu_torch.ops import ed25519
+
+    r_packed = b"".join(s[:32] for s in sigs)
+    t0 = time.perf_counter()
+    ed25519._h_scalars(r_packed, pubs, msgs)
+    h_ms = (time.perf_counter() - t0) * 1e3
+    native_prep = ed25519._native_prep
+    ed25519._native_prep = lambda: None
+    try:
+        t0 = time.perf_counter()
+        mirror = ed25519.prepare_batch(pubs, msgs, sigs)
+        prep_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ed25519._native_prep = native_prep
+    require(all(np.array_equal(mirror[k], native_batch[k]) for k in mirror),
+            "the Python host prep differs from the native one")
+    return {"h_ms": h_ms, "prepare_batch_ms": prep_ms}
+
+
+def host_verify_step(name_power: str, arms: dict, cases, k1_cases, flood, flood_verdicts) -> dict:
+    """The flood's native h held to hashlib's on all 32,768 signatures; the
+    ``native`` and ``openssl`` host verifiers held to K1's verdicts on the
+    adversarial corpus and on one flood chunk; ``native`` timed on the
+    chunk. A `host_verify` line."""
+    import numpy as np
+
+    from stellard_tpu_torch.crypto.backend import VerifyRequest, make_verifier
+    from stellard_tpu_torch.native import Ed25519HostPrep
+    from stellard_tpu_torch.ops import ed25519
+
+    t0 = time.perf_counter()
+    pubs, msgs, sigs = flood
+    out = {}
+    if arms["h_prep"]:
+        r_packed = b"".join(s[:32] for s in sigs)
+        h_native = Ed25519HostPrep().h_batch(r_packed, b"".join(pubs), msgs, len(pubs))
+        require(np.array_equal(h_native, ed25519._h_scalars(r_packed, pubs, msgs)),
+                "the native h differs from hashlib's on the flood")
+        out["h_equal_on"] = len(pubs)
+    corpus = [VerifyRequest(p, m, s) for _k, p, m, s in cases]
+    chunk = [VerifyRequest(p, m, s) for p, m, s in zip(pubs[:CHUNK], msgs[:CHUNK], sigs[:CHUNK])]
+    names = ["openssl"] + (["native"] if arms["native_verify"] else [])
+    for reqs, k1, what in ((corpus, k1_cases, "corpus"),
+                           (chunk, flood_verdicts[:CHUNK], "chunk")):
+        for name in names:
+            verifier = make_verifier(name)
+            t1 = time.perf_counter()
+            got = verifier.verify_batch(reqs)
+            ms = (time.perf_counter() - t1) * 1e3
+            require(np.array_equal(got, k1), f"the {name} host verifier differs from K1 "
+                    f"on the {what}: lanes {np.nonzero(got != k1)[0][:8].tolist()}")
+            out[f"{name}_{what}"] = {"lanes": len(reqs), "accepted": int(got.sum()),
+                                     "k1_accepts_rejected": int((k1 & ~got).sum()),
+                                     "ms": ms, "sigs_per_s": len(reqs) / (ms / 1e3)}
+    out["seconds"] = time.perf_counter() - t0
+    emit("host_verify", card=name_power, **out)
+    return out
 
 
 def launches_by_role(*phases) -> dict:
@@ -1811,6 +1908,7 @@ def run(dev) -> None:
     import numpy as np
     import torch
 
+    from stellard_tpu_torch import native
     from stellard_tpu_torch.crypto.backend import CpuHasher, CudaHasher, VerifyRequest
     from stellard_tpu_torch.node.verifyplane import VerifyPlane
     from stellard_tpu_torch.ops import build, ed25519_cuda, ed25519_ref, pathq, treehash
@@ -1832,14 +1930,21 @@ def run(dev) -> None:
          sms=props.multi_processor_count, max_sm_clock_mhz=clock_mhz,
          torch=torch.__version__, cuda=torch.version.cuda)
     t0 = time.perf_counter()
+    # the host libraries (g++) in a thread beside the kernels (nvcc), so
+    # that no process started later compiles them; each takes a file lock
+    # of its own in the build directory, so neither waits for the other
+    host_build = threading.Thread(target=native.build_all, name="native-build")
+    host_build.start()
     build.build([ed25519_cuda.LIB, treehash.LIB, pathq.LIB])
     build_s = time.perf_counter() - t0
+    host_build.join()
     ptxas = {
         lib: [ln.strip() for ln in log.splitlines()
               if "Used" in ln or "spill" in ln or "Compiling entry" in ln]
         for lib, log in build.PTXAS_LOG.items()
     }
     emit("build", seconds=build_s, ptxas=ptxas)
+    arms = native_line()
 
     # 2. K1 and K2 against their plain versions -----------------------------
     pubs, msgs, sigs = sign_pairs(N_DISTINCT, seed=1)
@@ -1954,6 +2059,8 @@ def run(dev) -> None:
     point = point_step(dev, name_power, cmp_batch, np.concatenate([oracle, expect_lanes]),
                        chunks, verdicts, int32_rate)
     del chunks
+    host_verify = host_verify_step(name_power, arms, cases, got_np[: len(cases)],
+                                   (f_pubs, f_msgs, f_sigs), verdicts)
 
     # K2 and K3 against their plain versions on the seal phase's trees, and
     # their times; then the trees go (a smaller heap for the collector)
@@ -2018,6 +2125,8 @@ def run(dev) -> None:
         t0 = time.perf_counter()
         host = prepare_batch(f_pubs[sl], f_msgs[sl], f_sigs[sl])
         prep_ms.append((time.perf_counter() - t0) * 1e3)
+        if lo == 0:
+            mirror_prep = python_prep_ms(f_pubs[sl], f_msgs[sl], f_sigs[sl], host)
         tens = to_tensors(host, dev)
         if lo == 0:
             # the plain version's flags and time on this chunk are the
@@ -2131,6 +2240,8 @@ def run(dev) -> None:
             scenario_side.stop()
 
     emit("times", card=name_power, host_prep_ms_per_chunk=prep_ms, chunk=CHUNK,
+         h_prep="native" if arms["h_prep"] else "python", python_prep=mirror_prep,
+         host_verify=host_verify,
          flood_sigs_per_s=N_FLOOD / flood_s,
          seal_ms={k: v["seal_ms"] for k, v in seals.items()},
          hashlib_seal_ms={k: v["hashlib_seal_ms"] for k, v in seals.items()},
@@ -3264,6 +3375,7 @@ class TcpNet:
         from stellard_tpu_torch.testkit import tcpnet
 
         self.logs = {k: TCP_DIR / f"{tcp_name(k)}.log" for k in inis}
+        self.printed = False
         self.procs = {k: tcpnet.spawn_validator(str(ini), stdout=self.logs[k].open("w"))
                       for k, ini in inis.items()}
 
@@ -3271,10 +3383,17 @@ class TcpNet:
         return "\n".join(f"--- {tcp_name(k)} ---\n{log.read_text()[-3000:]}"
                          for k, log in self.logs.items())
 
+    def print_tails(self) -> None:
+        """Print every child's log tail, once (the phase clears the logs'
+        directory at its next start)."""
+        if not self.printed:
+            self.printed = True
+            print(self.tails(), flush=True)
+
     def check(self) -> None:
         dead = {tcp_name(k): p.poll() for k, p in self.procs.items() if p.poll() is not None}
         if dead:
-            print(self.tails(), flush=True)
+            self.print_tails()
             raise SmokeFailure(f"tcp children exited: {dead}")
 
     def stop(self) -> dict:
@@ -3902,6 +4021,10 @@ def tcp_phase(dev, name_power: str, int32_rate: float) -> dict:
         # health, reported: validator 0 and the follower
         health = [health_report("validator-0", rpcs[0].call("health")),
                   health_report("follower", fc.call("health"))]
+    except BaseException:
+        # any failed check: the children's logs, while they still run
+        net.print_tails()
+        raise
     finally:
         try:
             for client in [*rpcs.values(), *fleet.values()]:
@@ -3911,6 +4034,8 @@ def tcp_phase(dev, name_power: str, int32_rate: float) -> dict:
                 node.stop()
         finally:
             codes = net.stop()
+    if run_errors or any(c != 0 for c in codes.values()):
+        net.print_tails()
     require(not run_errors, f"validator 0 failed: {run_errors!r}")
     require(all(c == 0 for c in codes.values()), f"tcp children exited {codes}")
     # one K1 launch a plane call, counted once validator 0 has stopped:
@@ -4117,11 +4242,16 @@ def check_spec_pool(spec: dict, ex, what: str) -> None:
             f"{what}: the speculation pool is {got}")
     require(spec["dispatched"] > 0 and spec["committed"] == spec["dispatched"],
             f"{what}: {spec['committed']} committed of {spec['dispatched']} dispatched")
+    # each worker as the parent sees it: alive, its exit code (negative:
+    # the signal that ended it), the last torn slot's reason on either ring
+    workers = [(w.alive, w.proc.exitcode, getattr(w.res, "torn_error", None),
+                getattr(w.cmd, "torn_error", None)) for w in ex._procs]
     require(all(spec[k] == 0 for k in SPEC_BROKEN),
-            f"{what}: the pool broke: {({k: spec[k] for k in SPEC_BROKEN})}")
+            f"{what}: the pool broke: {({k: spec[k] for k in SPEC_BROKEN})}; "
+            f"workers {workers}; ring {spec['ring']}")
     torn = [w.res.counters["torn_slots"] + w.cmd.counters["torn_slots"] for w in ex._procs]
     require(spec["ring"]["torn_slots"] == 0 and torn == [0] * SPEC_WORKERS,
-            f"{what}: torn ring slots {torn}")
+            f"{what}: torn ring slots {torn}; workers {workers}")
     require(ex.can_accept and all(w.alive for w in ex._procs),
             f"{what}: the pool failed over to the serial path")
 

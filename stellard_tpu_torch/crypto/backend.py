@@ -5,8 +5,15 @@ The factory-registry pattern the reference uses for NodeStore backends
 hot path: a backend name selects which implementation coalesced
 verification batches and the ledger seal run on.
 
-- ``cpu``: per-signature verification with the pure-Python RFC 8032
-  oracle (``ops.ed25519_ref``), and hashlib SHA-512-half.
+- host verifiers: ``native``, the whole batch in one call to the C++
+  verifier (``native/src/ed25519_verify.cc``); ``openssl``, one
+  ``protocol.keys.verify_signature`` a signature (the ``cryptography``
+  wheel, else the native single verify), threaded; and ``cpu``, which
+  resolves to ``native`` where the host library builds, else to
+  ``openssl`` (``STELLARD_HOST_VERIFY`` overrides).
+- host hasher: ``cpu``, hashlib SHA-512-half; ``cpp`` (the JAX
+  package's C SHA-512 name) is served by it, since the C batch ran
+  slower than hashlib on the card's host (PERF.md).
 - ``cuda``: the hand-written CUDA kernels — K1 batch verify
   (``ops.ed25519_cuda``), K2/K3 masked and inner-level SHA-512
   (``ops.treehash``) — with the digests of a whole tree seal resident
@@ -33,6 +40,7 @@ from __future__ import annotations
 import logging
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Callable, Iterable, Optional, Sequence
@@ -210,21 +218,86 @@ def make_hasher(name: str, **kwargs) -> BatchHasher:
 
 
 class CpuVerifier(BatchVerifier):
-    """Per-signature host verification with the RFC 8032 oracle and the
-    reference's checks (StellarPublicKey::verifySignature): 32-byte key
-    and signing hash, 64-byte signature, canonical S."""
+    """Host-library per-signature verification (the libsodium role of the
+    reference: StellarPublicKey::verifySignature), threaded over the
+    batch: ``protocol.keys.verify_signature`` for each, which counts it
+    in ``keys.host_verifies``."""
 
     name = "cpu"
-    impl = "ed25519_ref"
+    impl = "openssl"
+
+    _shared_pool: ThreadPoolExecutor | None = None
+
+    def __init__(self, threads: int = 4):
+        if threads > 1:
+            if CpuVerifier._shared_pool is None:
+                CpuVerifier._shared_pool = ThreadPoolExecutor(
+                    max_workers=threads, thread_name_prefix="cpu-verify"
+                )
+            self._pool = CpuVerifier._shared_pool
+        else:
+            self._pool = None
 
     def verify_batch(self, batch: Sequence[VerifyRequest]) -> np.ndarray:
-        from ..ops.ed25519_ref import verify
+        from ..protocol.keys import verify_signature
 
-        return np.array(
-            [len(r.signing_hash) == 32
-             and verify(r.public, r.signing_hash, r.signature) for r in batch],
-            bool,
+        def one(req: VerifyRequest) -> bool:
+            return verify_signature(req.public, req.signing_hash, req.signature)
+
+        if self._pool is None or len(batch) < 64:
+            return np.array([one(r) for r in batch], bool)
+        return np.array(list(self._pool.map(one, batch)), bool)
+
+
+class NativeVerifier(BatchVerifier):
+    """Batched C++ verification (native/src/ed25519_verify.cc): the whole
+    batch crosses into native code in one call, the GIL released. The
+    host side of the verify plane where the library builds. It bypasses
+    ``verify_signature``, so it counts its batch in
+    ``keys.host_verifies`` itself."""
+
+    name = "cpu"  # fills the host role; .impl says which implementation
+    impl = "native"
+
+    def __init__(self, **_):
+        from ..native import Ed25519NativeVerify
+
+        self._impl = Ed25519NativeVerify()
+
+    def verify_batch(self, batch: Sequence[VerifyRequest]) -> np.ndarray:
+        from ..protocol import keys
+
+        keys.host_verifies += len(batch)
+        return self._impl.verify_batch(
+            [r.public for r in batch],
+            [r.signing_hash for r in batch],
+            [r.signature for r in batch],
         )
+
+
+def _host_verifier_factory(**kwargs) -> BatchVerifier:
+    """The ``cpu`` backend: native C++ batch verify where the host
+    library builds, else the per-signature host-library path.
+    ``STELLARD_HOST_VERIFY`` overrides: ``python`` / ``openssl`` force
+    the host-library path, ``native`` requires the C++ kernel (raises
+    if it does not build), ``auto`` (default) prefers native. Any other
+    value raises: a switch must not silently do nothing."""
+    import os
+
+    choice = os.environ.get("STELLARD_HOST_VERIFY", "auto").lower()
+    if choice in ("python", "openssl"):
+        return CpuVerifier(**kwargs)
+    if choice == "native":
+        return NativeVerifier()
+    if choice not in ("auto", ""):
+        raise ValueError(
+            f"STELLARD_HOST_VERIFY={choice!r}: expected auto|native|"
+            "python|openssl"
+        )
+    try:
+        return NativeVerifier()
+    except Exception:  # noqa: BLE001 — no compiler: the host library
+        return CpuVerifier(**kwargs)
 
 
 class CpuHasher(BatchHasher):
@@ -649,9 +722,14 @@ class _RowIndex:
         return np.where(self.ids[pos] == ids, self.rows[pos], -1).astype(np.int32)
 
 
-register_verifier("cpu", CpuVerifier)
+register_verifier("cpu", _host_verifier_factory, options=("threads",))
+# strict: raises if the host library does not build
+register_verifier("native", NativeVerifier)
+register_verifier("openssl", CpuVerifier, options=("threads",))
 register_verifier("cuda", CudaVerifier, options=("max_batch", "mesh", "device", "devices"))
 register_hasher("cpu", CpuHasher)
+# a config written for the JAX package's C hasher loads and hashes the same
+register_hasher("cpp", CpuHasher)
 register_hasher("cuda", CudaHasher, options=("mesh", "device", "devices"))
 
 

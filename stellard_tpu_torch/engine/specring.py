@@ -348,6 +348,7 @@ class RingConn:
         self._closed = False
         self.counters = {"msgs": 0, "bytes": 0, "full_waits": 0,
                          "torn_slots": 0}
+        self.torn_error: str | None = None  # the last torn slot's reason
 
     # -- Connection API ----------------------------------------------------
 
@@ -368,17 +369,13 @@ class RingConn:
             raise EOFError("ring peer closed")
         try:
             payload = self._ring.pop()
-        except TornSlotError:
-            self.counters["torn_slots"] += 1
-            raise
-        if payload is None:
-            # the doorbell byte promises a published record
-            self.counters["torn_slots"] += 1
-            raise TornSlotError("doorbell rang on an empty ring")
-        try:
+            if payload is None:
+                # the doorbell byte promises a published record
+                raise TornSlotError("doorbell rang on an empty ring")
             msg = decode_msg(payload)
-        except TornSlotError:
+        except TornSlotError as exc:
             self.counters["torn_slots"] += 1
+            self.torn_error = str(exc)
             raise
         self.counters["msgs"] += 1
         self.counters["bytes"] += len(payload)

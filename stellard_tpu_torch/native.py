@@ -1,17 +1,31 @@
-"""Loader for the node store's native primitives (native/src/nodestore.cc).
+"""Loader for the repo's native host code (``native/src/*.cc``).
 
-The repo's ``native/src/nodestore.cc`` holds the C++ side of the node
-store: the segstore key index (``segidx_*``), its record packer and log
-replay (``segstore_pack``, ``segstore_replay``), the record-range scanner
-(``segrecs_scan``) and the flat cpplog backend (``cpplog_*``). It needs
-only libc, so this package compiles that one source with ``g++`` at first
-use into ``build/stellard_tpu_torch/`` beside the package (git-ignored),
-named by a digest of the source and flags, and binds only those symbols.
-It never runs ``make`` and never writes under ``native/``.
+Three builds, each compiled with ``g++`` at first use into
+``build/stellard_tpu_torch/`` beside the package (git-ignored), named by
+a digest of its sources and flags, under a file lock of the build
+directory (``ops.build._build_lock``, on a file of its own so that g++
+runs beside nvcc: several processes of one host may start together,
+and one builds while the others wait and load it). It never runs
+``make`` and never writes under ``native/``:
 
-Every consumer keeps a pure-Python mirror (nodestore/segstore.py), so
-``load_native()`` returns None when no compiler is found or the build
-fails, and the store runs the same semantics slower.
+- ``libnodestore-<digest>.so`` from ``nodestore.cc``: the segstore key
+  index, its record packer and log replay, the record-range scanner and
+  the flat cpplog backend (``load_native``);
+- ``libnativehost-<digest>.so`` from ``sha512.cc``, ``ed25519_host.cc``
+  and ``ed25519_verify.cc``, linked together (the verifier calls the
+  other two's ``sha512_parts`` and ``sc_reduce_batch``): h =
+  SHA512(R||A||M) mod l and full Ed25519 verification (``load_host``;
+  ``Ed25519HostPrep``, ``Ed25519NativeVerify``);
+- ``_stser-<digest>.so`` from ``stser.cc``, a CPython extension built
+  against the running interpreter's headers: the STObject codec and the
+  SHAMap node pack and merge (``load_stser``). The file is this
+  package's own: the extension keeps its field table and callbacks in
+  file-static globals, so a process that also loads the JAX package's
+  copy must not share one library with it.
+
+Every consumer keeps a pure-Python mirror, so each loader returns None
+when no compiler is found or the build fails (``status`` says why), and
+the same semantics run slower.
 """
 
 from __future__ import annotations
@@ -21,69 +35,210 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sysconfig
 import threading
 from pathlib import Path
 from typing import Optional
 
+from .ops.build import _build_lock
+
 __all__ = [
     "load_native",
+    "load_host",
+    "load_stser",
+    "native_available",
+    "build_all",
+    "arms",
+    "status",
     "CppLogLib",
     "SegIdxNative",
+    "Ed25519HostPrep",
+    "Ed25519NativeVerify",
     "scan_segment_records",
 ]
 
 _REPO = Path(__file__).resolve().parent.parent
-SOURCE = _REPO / "native" / "src" / "nodestore.cc"
+_SRC = _REPO / "native" / "src"
+SOURCE = _SRC / "nodestore.cc"
+HOST_SOURCES = (_SRC / "sha512.cc", _SRC / "ed25519_host.cc", _SRC / "ed25519_verify.cc")
+STSER_SOURCE = _SRC / "stser.cc"
 BUILD_DIR = _REPO / "build" / "stellard_tpu_torch"
 CXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-pthread"]
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-_tried = False
+# library name -> the loaded library or module, None once it failed
+_loaded: dict[str, object] = {}
+# library name -> why it is unavailable
+_why: dict[str, str] = {}
+
+
+def _stser_flags() -> list[str]:
+    # the running interpreter's headers: an extension built for another
+    # Python dlopens anyway and misreads the object layouts
+    return [*CXX_FLAGS, f"-I{sysconfig.get_paths()['include']}"]
+
+
+def _digest_path(stem: str, sources, flags, tag: str = "") -> Path:
+    digest = hashlib.sha256()
+    for src in sources:
+        digest.update(src.read_bytes())
+    digest.update(" ".join(flags).encode())
+    digest.update(tag.encode())
+    return BUILD_DIR / f"{stem}-{digest.hexdigest()[:16]}.so"
 
 
 def lib_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes())
-    digest.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"libnodestore-{digest.hexdigest()[:16]}.so"
+    return _digest_path("libnodestore", [SOURCE], CXX_FLAGS)
 
 
-def _build(out: Path) -> bool:
-    cxx = shutil.which(os.environ.get("CXX", "g++")) or shutil.which("g++")
+def host_lib_path() -> Path:
+    return _digest_path("libnativehost", HOST_SOURCES, CXX_FLAGS)
+
+
+def stser_path() -> Path:
+    # the interpreter's ABI tag too: one checkout, several Pythons
+    return _digest_path("_stser", [STSER_SOURCE], _stser_flags(),
+                        sysconfig.get_config_var("SOABI") or "")
+
+
+def _compiler() -> Optional[str]:
+    return shutil.which(os.environ.get("CXX", "g++")) or shutil.which("g++")
+
+
+def _build(out: Path, sources, flags) -> Optional[str]:
+    """Compile `sources` into `out` unless it is there; None when it is,
+    else why not."""
+    if out.exists():
+        return None
+    missing = [str(s) for s in sources if not s.exists()]
+    if missing:
+        return f"missing source {missing[0]}"
+    cxx = _compiler()
     if cxx is None:
-        return False
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    try:
-        subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
-                       check=True, capture_output=True, timeout=300)
-    except (OSError, subprocess.SubprocessError):
-        tmp.unlink(missing_ok=True)
-        return False
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    return True
+        return "no C++ compiler (g++) on PATH"
+    with _build_lock(".host.lock"):
+        if out.exists():  # another process built it while this one waited
+            return None
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        try:
+            r = subprocess.run([cxx, *flags, "-o", str(tmp), *map(str, sources)],
+                               capture_output=True, text=True, timeout=300)
+        except (OSError, subprocess.SubprocessError) as exc:
+            tmp.unlink(missing_ok=True)
+            return f"{type(exc).__name__}: {exc}"
+        if r.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            return f"g++ failed: {r.stderr.strip()[-400:]}"
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    return None
+
+
+def _load(name: str, path_fn, sources, flags, open_fn):
+    """Build (once) and open one library; None (and `_why[name]`) when
+    it is unavailable. A library already tried is read without the lock,
+    so a process forked while another thread builds does not wait on a
+    lock that no thread of its own holds."""
+    if name in _loaded:
+        return _loaded[name]
+    with _lock:
+        if name in _loaded:
+            return _loaded[name]
+        path = path_fn()
+        why = _build(path, sources, flags)
+        lib = None
+        if why is None:
+            try:
+                lib = open_fn(path)
+            except (OSError, AttributeError, ImportError) as exc:
+                why = f"{type(exc).__name__}: {exc}"
+        if why is not None:
+            _why[name] = why
+        _loaded[name] = lib
+        return lib
+
+
+def _open_nodestore(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    _bind(lib)
+    return lib
+
+
+def _open_host(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    _bind_host(lib)
+    return lib
+
+
+def _open_stser(path: Path):
+    import importlib.machinery
+    import importlib.util
+
+    loader = importlib.machinery.ExtensionFileLoader("_stser", str(path))
+    spec = importlib.util.spec_from_loader("_stser", loader)
+    mod = importlib.util.module_from_spec(spec)
+    loader.exec_module(mod)
+    return mod
 
 
 def load_native() -> Optional[ctypes.CDLL]:
     """Build (once) and dlopen the node-store library; None if
     unavailable."""
-    global _lib, _tried
-    with _lock:
-        if _lib is not None or _tried:
-            return _lib
-        _tried = True
-        if not SOURCE.exists():
-            return None
-        out = lib_path()
-        if not out.exists() and not _build(out):
-            return None
-        try:
-            lib = ctypes.CDLL(str(out))
-            _bind(lib)
-        except (OSError, AttributeError):
-            return None
-        _lib = lib
-        return _lib
+    return _load("nodestore", lib_path, [SOURCE], CXX_FLAGS, _open_nodestore)
+
+
+def load_host() -> Optional[ctypes.CDLL]:
+    """Build (once) and dlopen the host crypto library (Ed25519 h prep
+    and verify); None if unavailable."""
+    return _load("host", host_lib_path, HOST_SOURCES, CXX_FLAGS, _open_host)
+
+
+def load_stser():
+    """Build (once) and import this package's ``_stser`` extension (the
+    STObject codec and the SHAMap pack and merge); None if
+    unavailable."""
+    return _load("stser", stser_path, [STSER_SOURCE], _stser_flags(), _open_stser)
+
+
+def native_available() -> bool:
+    """Whether the host crypto library builds and loads here."""
+    return load_host() is not None
+
+
+def build_all() -> dict:
+    """Build and load all three (a process that starts others builds
+    them first, so that no child compiles); -> ``status()``."""
+    load_native()
+    load_host()
+    load_stser()
+    return status()
+
+
+def arms() -> dict:
+    """Which host paths run in C in this process: K1's h prep and the
+    native verifier (the host library), the STObject codec (off with
+    ``STELLARD_NATIVE_STSER=0``), the SHAMap node pack and merge; with
+    each library's path or why it is unavailable. Builds nothing: a
+    library this process has not loaded yet reads as not native
+    (``build_all`` first, where that matters)."""
+    from .protocol.stobject import _get_stser
+    from .state.shamap import _resolve_native_merge, _resolve_native_pack
+
+    host = _loaded.get("host") is not None
+    stser = _loaded.get("stser") is not None
+    return {"h_prep": host, "native_verify": host,
+            "codec": stser and _get_stser() is not None,
+            "pack": stser and _resolve_native_pack() is not None,
+            "merge": stser and _resolve_native_merge() is not None,
+            "libraries": status()}
+
+
+def status() -> dict:
+    """Each library tried so far: its path, or why it is unavailable.
+    Takes no lock: a build in progress does not hold a status read."""
+    paths = {"nodestore": lib_path, "host": host_lib_path, "stser": stser_path}
+    return {name: (str(paths[name]()) if lib is not None
+                   else f"unavailable: {_why.get(name, '?')}")
+            for name, lib in dict(_loaded).items()}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -129,6 +284,115 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.has_segstore = True
     lib.has_segrecs_scan = True
     lib.has_cpplog_iterate = True
+
+
+def _bind_host(lib: ctypes.CDLL) -> None:
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    sigs = {
+        # packed 32B R, packed 32B A, packed messages, offsets[n+1], out (32B LE h), n
+        "ed25519_h_batch": ([ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p, u64p, u8p,
+                             ctypes.c_uint64], None),
+        "sc_reduce_batch": ([ctypes.c_char_p, u8p, ctypes.c_uint64], None),
+        # packed 32B keys, packed messages, offsets[n+1], packed 64B signatures,
+        # out (n bytes, 1 = valid), n
+        "ed25519_verify_batch": ([ctypes.c_char_p, ctypes.c_char_p, u64p, ctypes.c_char_p,
+                                  u8p, ctypes.c_uint64], None),
+    }
+    for name, (argtypes, restype) in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+
+
+def _offsets(messages):
+    """The n+1 boundaries of `messages` packed back to back (uint64)."""
+    import numpy as np
+
+    offsets = np.zeros(len(messages) + 1, np.uint64)
+    np.cumsum(np.fromiter(map(len, messages), np.uint64, len(messages)), out=offsets[1:])
+    return offsets
+
+
+def _ptr(arr, ctype=ctypes.c_uint64):
+    return arr.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def _require_host() -> ctypes.CDLL:
+    lib = load_host()
+    if lib is None:
+        raise RuntimeError(f"native host library unavailable: {_why.get('host', '?')}")
+    return lib
+
+
+class Ed25519HostPrep:
+    """Batched h = SHA512(R||A||M) mod l over the C kernel
+    (ed25519_host.cc, up to 8 threads a call, started and joined inside
+    it): K1's host prep in one ctypes call, the GIL released."""
+
+    def __init__(self):
+        self.lib = _require_host()
+
+    def h_batch(self, rs: bytes, pubs: bytes, messages, n: int):
+        """rs/pubs: packed 32-byte-per-element buffers; messages: a
+        sequence of bytes. -> [n, 32] uint8 h scalars (LE, mod l)."""
+        import numpy as np
+
+        if not isinstance(messages, list):
+            messages = list(messages)
+        if len(messages) != n or len(rs) != 32 * n or len(pubs) != 32 * n:
+            raise ValueError(
+                f"h_batch: inconsistent batch (n={n}, msgs={len(messages)}, "
+                f"rs={len(rs)}, pubs={len(pubs)})"
+            )
+        out = np.empty((n, 32), np.uint8)
+        offsets = _offsets(messages)
+        self.lib.ed25519_h_batch(rs, pubs, b"".join(messages), _ptr(offsets),
+                                 _ptr(out, ctypes.c_uint8), n)
+        return out
+
+    def sc_reduce(self, wide: bytes, n: int):
+        """n 64-byte LE integers (packed) mod l -> [n, 32] uint8."""
+        import numpy as np
+
+        if len(wide) != 64 * n:
+            raise ValueError(f"sc_reduce: {len(wide)} bytes for n={n}")
+        out = np.empty((n, 32), np.uint8)
+        self.lib.sc_reduce_batch(wide, _ptr(out, ctypes.c_uint8), n)
+        return out
+
+
+class Ed25519NativeVerify:
+    """Batched full Ed25519 verification over the C++ kernel
+    (ed25519_verify.cc): the libsodium role of the reference
+    (StellarPublicKey::verifySignature, canonical S included), the whole
+    batch in one call with the GIL released."""
+
+    def __init__(self):
+        self.lib = _require_host()
+
+    def verify_batch(self, publics, messages, signatures):
+        """publics/signatures: sequences of 32/64-byte strings; messages:
+        sequence of bytes. -> bool ndarray of each item's validity.
+        Items of the wrong length are rejected without reaching C."""
+        import numpy as np
+
+        n = len(publics)
+        if not (len(messages) == len(signatures) == n):
+            raise ValueError("verify_batch: ragged batch")
+        idx = [i for i in range(n) if len(publics[i]) == 32 and len(signatures[i]) == 64]
+        out = np.zeros(n, bool)
+        if not idx:
+            return out
+        msgs = [messages[i] for i in idx]
+        offsets = _offsets(msgs)
+        raw = np.zeros(len(idx), np.uint8)
+        self.lib.ed25519_verify_batch(
+            b"".join(publics[i] for i in idx), b"".join(msgs), _ptr(offsets),
+            b"".join(signatures[i] for i in idx), _ptr(raw, ctypes.c_uint8), len(idx),
+        )
+        out[idx] = raw.astype(bool)
+        return out
 
 
 class SegIdxNative:

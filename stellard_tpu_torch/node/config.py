@@ -35,12 +35,16 @@ from typing import Optional
 
 __all__ = ["Config", "parse_ini_sections"]
 
-# the crypto-plane backends of this package (crypto/backend.py registry)
-BACKENDS = ("cpu", "cuda")
+# the crypto-plane backends of this package (crypto/backend.py registry):
+# the host verifiers and hashers, and the one device type, cuda
+BACKENDS = {
+    "signature_backend": ("cpu", "native", "openssl", "cuda"),
+    "hash_backend": ("cpu", "cpp", "cuda"),
+}
 
 
 def _backend_type(section: str, value: str) -> str:
-    """Validated ``type=`` of a crypto section: ``cpu`` or ``cuda``.
+    """Validated ``type=`` of a crypto section, one of ``BACKENDS[section]``.
     ``tpu`` names the JAX package's device and raises with the name of
     this package's one."""
     backend = value.strip().lower()
@@ -49,9 +53,9 @@ def _backend_type(section: str, value: str) -> str:
             f"[{section}] type=tpu is the JAX package's device backend; "
             "this package's is type=cuda"
         )
-    if backend not in BACKENDS:
+    if backend not in BACKENDS[section]:
         raise ValueError(
-            f"[{section}] type must be one of {list(BACKENDS)}, "
+            f"[{section}] type must be one of {list(BACKENDS[section])}, "
             f"got {backend!r}"
         )
     return backend
@@ -172,8 +176,10 @@ def _crypto_backend_gate(section: str, backend: str, kv: dict,
             )
 
 
-# [kernel_tuning] off: the JAX package's tuning files set XLA/Pallas
-# knobs that no kernel of this package reads, so a path raises at parse
+# [kernel_tuning] off, for good: the JAX package's tuning files set
+# XLA/Pallas knobs (unroll, comb, hoist, group, impl, block, wire) that no
+# kernel of this package reads, and K1's lane group is fixed, so a path
+# raises at parse rather than be silently ignored
 DEFAULT_KERNEL_TUNING = "none"
 
 

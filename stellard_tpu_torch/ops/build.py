@@ -62,10 +62,12 @@ def _lib_path(name: str) -> Path:
 
 
 @contextlib.contextmanager
-def _build_lock():
-    """Hold the build directory's file lock (across processes)."""
+def _build_lock(name: str = ".build.lock"):
+    """Hold one of the build directory's file locks (across processes):
+    ``.build.lock`` for nvcc, another name for builds that may run
+    beside it."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / ".build.lock", "w") as fh:
+    with open(BUILD_DIR / name, "w") as fh:
         fcntl.flock(fh, fcntl.LOCK_EX)
         try:
             yield

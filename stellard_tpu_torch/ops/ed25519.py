@@ -1,9 +1,11 @@
 """Batched Ed25519 verification: host prep and the plain PyTorch verify.
 
-Accept iff encode([S]B + [h](-A)) == R and S < l, with
+Accept iff encode([S]B + [h](-A)) == R, S < l and A's y < p, with
 h = SHA512(R || A || M) mod l computed on the host (reference:
 SerializedTransaction::checkSign -> libsodium crypto_sign_verify_detached,
-src/ripple_app/misc/SerializedTransaction.cpp:192-230).
+src/ripple_app/misc/SerializedTransaction.cpp:192-230): in one native call
+(``native.Ed25519HostPrep``) where the host library builds, else in Python
+(``_h_scalars``), byte for byte the same.
 
 ``prepare_batch`` packs a batch into the raw 32-byte wire that the CUDA
 kernel (``ops.ed25519_cuda``) takes: public keys and R as [B, 8] u32
@@ -378,8 +380,19 @@ def final_check(rp, rw, valid, s_canonical, check: str = "bytes"):
 _L_BYTES = np.frombuffer(L.to_bytes(32, "little"), np.uint8)
 
 
+def _native_prep():
+    """The native h prep (``native.Ed25519HostPrep``: native/src/
+    ed25519_host.cc, threaded, the GIL released), or None where the
+    host library does not build; then ``_h_scalars`` computes the same
+    bytes."""
+    from ..native import Ed25519HostPrep, load_host
+
+    return Ed25519HostPrep() if load_host() is not None else None
+
+
 def _h_scalars(r_packed: bytes, publics, messages) -> np.ndarray:
-    """h = SHA512(R || A || M) mod l for every signature -> [B, 32] u8.
+    """h = SHA512(R || A || M) mod l for every signature -> [B, 32] u8:
+    the Python mirror of ``_native_prep``.
 
     One Python pass, joined once. Not threaded: hashlib holds the GIL
     for messages this short (96 bytes), and so does the int mod l, so
@@ -396,14 +409,18 @@ def _h_scalars(r_packed: bytes, publics, messages) -> np.ndarray:
 def prepare_batch(publics, messages, signatures) -> dict:
     """Host prep -> dict of numpy arrays on the raw wire:
     a_words/r_words [B, 8] u32, s_bytes/h_bytes [B, 32] u8,
-    s_canonical [B] bool. Malformed entries (key not 32 bytes, signature
-    not 64) become zero rows with s_canonical False."""
+    s_canonical [B] bool: S < l and the key's y < p
+    (``ed25519_ref.key_is_canonical``), the lanes K1 may accept.
+    Malformed entries (key not 32 bytes, signature not 64) become zero
+    rows with s_canonical False."""
     B = len(publics)
-    bad = [
-        i
-        for i, (pk, sig) in enumerate(zip(publics, signatures))
-        if len(pk) != 32 or len(sig) != 64
-    ]
+    bad = []
+    if set(map(len, publics)) != {32} or set(map(len, signatures)) != {64}:
+        bad = [
+            i
+            for i, (pk, sig) in enumerate(zip(publics, signatures))
+            if len(pk) != 32 or len(sig) != 64
+        ]
     if bad:
         publics = list(publics)
         signatures = list(signatures)
@@ -423,10 +440,20 @@ def prepare_batch(publics, messages, signatures) -> dict:
     any_diff = rev_diff.any(axis=1)
     msb = 31 - np.argmax(rev_diff, axis=1)
     s_canonical = any_diff & (s_bytes[np.arange(B), msb] < _L_BYTES[msb])
+    # canonical key y < p: with the sign bit masked, y >= p only where
+    # byte 31 is 0x7f, bytes 1-30 are 0xff and byte 0 is at least 0xed
+    a_bytes = np.frombuffer(pk_packed, np.uint8).reshape(B, 32)
+    s_canonical &= ~(((a_bytes[:, 31] & 0x7F) == 0x7F)
+                     & (a_bytes[:, 1:31] == 0xFF).all(axis=1)
+                     & (a_bytes[:, 0] >= 0xED))
     if bad:
         s_canonical[bad] = False
 
-    h_bytes = _h_scalars(r_bytes.tobytes(), publics, messages)
+    native = _native_prep()
+    if native is not None:
+        h_bytes = native.h_batch(r_bytes.tobytes(), pk_packed, messages, B)
+    else:
+        h_bytes = _h_scalars(r_bytes.tobytes(), publics, messages)
     return dict(
         a_words=a_words,
         r_words=r_words,

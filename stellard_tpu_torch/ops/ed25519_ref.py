@@ -159,8 +159,19 @@ def sign(seed: bytes, public: bytes, msg: bytes) -> bytes:
     return r_bytes + s.to_bytes(32, "little")
 
 
+def key_is_canonical(public: bytes) -> bool:
+    """Whether a key's y encoding (sign bit masked) is below p: libsodium's
+    ge25519_is_canonical, which the reference's verify relies on. Every
+    verifier of this package rejects a key that is not, so that no two
+    of them (K1, its plain version, this oracle, the host library, the
+    C++ host verifier) split on a crafted key whose y is decoded mod p."""
+    return int.from_bytes(public, "little") & ((1 << 255) - 1) < P
+
+
 def verify(public: bytes, msg: bytes, sig: bytes) -> bool:
     if len(public) != 32 or len(sig) != 64:
+        return False
+    if not key_is_canonical(public):
         return False
     a = pt_decompress(public)
     if a is None:

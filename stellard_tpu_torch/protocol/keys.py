@@ -34,6 +34,7 @@ try:  # pragma: no cover - exercised by whichever env runs the suite
 except ImportError:  # pragma: no cover
     HAVE_CRYPTOGRAPHY = False
 
+from ..ops.ed25519_ref import key_is_canonical
 from ..utils.base58 import b58check_decode, b58check_encode
 from ..utils.hashes import hash160, sha512_half
 
@@ -101,10 +102,26 @@ def signature_is_canonical(sig: bytes) -> bool:
     return int.from_bytes(sig[32:], "little") < ED25519_L
 
 
-# host single-signature verifications (verify_signature calls) since the
-# last reset: a close whose verdicts all came from the batched verify
-# plane leaves this at 0
+# host signature verifications since the last reset: every
+# verify_signature call, and every signature of a native host batch
+# (crypto.backend.NativeVerifier); a close whose verdicts all came from
+# the card leaves this at 0
 host_verifies = 0
+
+# -- the no-wheel path (no `cryptography`) -----------------------------------
+
+
+def _fallback_verify(public: bytes, msg: bytes, sig: bytes) -> bool:
+    """Single-signature verify without the `cryptography` wheel: the
+    native C++ batch kernel where the host library builds (a batch of
+    one), else the pure-Python RFC 8032 oracle."""
+    from ..native import Ed25519NativeVerify, load_host
+
+    if load_host() is None:
+        from ..ops import ed25519_ref
+
+        return ed25519_ref.verify(public, msg, sig)
+    return bool(Ed25519NativeVerify().verify_batch([public], [msg], [sig])[0])
 
 
 @dataclass(frozen=True)
@@ -173,17 +190,16 @@ class KeyPair:
 
 def verify_signature(public: bytes, signing_hash: bytes, sig: bytes) -> bool:
     """CPU-path single verification with the canonical-S rule
-    (StellarPublicKey::verifySignature)."""
+    (StellarPublicKey::verifySignature) and the canonical key (y < p,
+    which the `cryptography` wheel does not check)."""
     global host_verifies
     host_verifies += 1
     if len(public) != 32 or len(sig) != 64 or len(signing_hash) != 32:
         return False
-    if not signature_is_canonical(sig):
+    if not signature_is_canonical(sig) or not key_is_canonical(public):
         return False
     if not HAVE_CRYPTOGRAPHY:
-        from ..ops import ed25519_ref
-
-        return bool(ed25519_ref.verify(public, signing_hash, sig))
+        return _fallback_verify(public, signing_hash, sig)
     try:
         Ed25519PublicKey.from_public_bytes(public).verify(sig, signing_hash)
         return True

@@ -18,6 +18,7 @@ Python value representation per serialized type:
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field as _dcfield
 from typing import Any, Iterator
 
@@ -203,6 +204,86 @@ def _deserialize_value(p: BinaryParser, f: SField) -> Any:
     raise ValueError(f"cannot deserialize field type {f.type_id}")
 
 
+# -- native fast path ------------------------------------------------------
+# The _stser CPython extension (native/src/stser.cc, this package's own
+# build: native.load_stser) encodes the sorted pair list in C and parses
+# wire bytes into STObjects; container kinds call back into
+# _container_chunk, which recurses through the same machinery per nesting
+# level. STELLARD_NATIVE_STSER=0 keeps the Python loops below, which
+# give the same bytes and objects.
+
+_STSER = None
+_STSER_TRIED = False
+
+
+def _container_chunk(f: SField, v: Any) -> bytes:
+    s = Serializer()
+    _serialize_value(s, f, v)
+    return s.data()
+
+
+def _obj_from_parse(fields: dict, in_order: bool) -> "STObject":
+    """Native-parser factory: wrap a C-built fields dict; canonical wire
+    order seeds the sort memo exactly like the Python loop."""
+    obj = STObject()
+    obj._fields = fields
+    if in_order:
+        obj._sorted_keys = (0, list(fields))
+    return obj
+
+
+def _arr_from_parse(items: list) -> "STArray":
+    return STArray(items)
+
+
+def _amount_from_wire(b: bytes) -> "STAmount":
+    # the full validation lives in STAmount.deserialize: the C parser
+    # only slices the 8- or 48-byte region
+    return STAmount.deserialize(BinaryParser(b))
+
+
+def _pathset_from_wire(b: bytes) -> "STPathSet":
+    return STPathSet.deserialize(BinaryParser(b))
+
+
+def _get_stser():
+    """The registered native codec, or None (switched off, or no
+    compiler). Resolved once a process; ``_reset_stser`` resolves it
+    again (the switch read anew)."""
+    global _STSER, _STSER_TRIED
+    if not _STSER_TRIED:
+        _STSER_TRIED = True
+        if os.environ.get("STELLARD_NATIVE_STSER", "1") != "0":
+            try:
+                from ..native import load_stser
+                from .sfields import all_fields
+
+                mod = load_stser()
+                if mod is not None:
+                    mod.register_fields(
+                        [(f.cid, f.header, f.kind, f.width, 1 if f.signing else 0)
+                         for f in all_fields() if f.kind >= 0],
+                        _container_chunk,
+                    )
+                    mod.register_parse(
+                        [(f.code, f, f.kind, f.width)
+                         for f in all_fields() if f.kind >= 0],
+                        _obj_from_parse,
+                        _arr_from_parse,
+                        _amount_from_wire,
+                        _pathset_from_wire,
+                    )
+                    _STSER = mod
+            except Exception:  # noqa: BLE001 — the Python loops
+                _STSER = None
+    return _STSER
+
+
+def _reset_stser() -> None:
+    global _STSER, _STSER_TRIED
+    _STSER, _STSER_TRIED = None, False
+
+
 def _copy_value(v: Any) -> Any:
     if isinstance(v, list):
         return [_copy_value(x) for x in v]
@@ -306,6 +387,10 @@ class STObject:
         ``signing``, non-signing fields (signatures) are omitted
         (reference STObject::getSerializer / getSigningHash,
         SerializedObject.cpp:444)."""
+        st = _get_stser()
+        if st is not None:
+            s._buf += st.serialize(self._pairs_list(), 1 if signing else 0)
+            return
         buf = s._buf
         for f, v in self.fields():
             if signing and not f.signing:
@@ -326,6 +411,13 @@ class STObject:
 
     @classmethod
     def deserialize(cls, p: BinaryParser, *, inner: bool = False) -> "STObject":
+        st = _get_stser()
+        if st is not None and cls is STObject:
+            # the native parser builds base STObjects; a subclass takes
+            # the Python loop
+            obj, pos = st.parse(p._data, p._pos, 1 if inner else 0)
+            p._pos = pos
+            return obj
         obj = cls()
         fields = obj._fields
         data = p._data
@@ -449,6 +541,12 @@ class STArray:
         return isinstance(other, STArray) and self.items == other.items
 
     def serialize_to(self, s: Serializer) -> None:
+        st = _get_stser()
+        if st is not None:
+            # the items ride the same native loop: K_OBJECT goes through
+            # the container callback (header, body, end marker)
+            s._buf += st.serialize(self.items, 0)
+            return
         for f, obj in self.items:
             s._buf += f.header
             obj.serialize_to(s)

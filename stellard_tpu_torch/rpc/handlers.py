@@ -555,6 +555,10 @@ def _crypto_json(node) -> dict:
             total_b += int(block.get("bytes_moved", 0))
     out["transfers"] = total_t
     out["bytes_moved"] = total_b
+    # the host paths that run in C (native/src/*.cc), or why not
+    from ..native import arms
+
+    out["native"] = dict(arms(), host_verify=vp.get("host_impl"))
     if torch.cuda.is_initialized():
         try:
             out["devices"] = [

@@ -20,8 +20,12 @@ node's hashed bytes) and a tree is rebuilt from one (``from_store``,
 every node content-checked): eagerly, or lazily as the out-of-core tree,
 whose unmaterialized slots (``Stub``, ``LazyInner``) fault through a
 ``NodeSource`` and the bounded hot-node cache on first descent. This is
-the JAX package's state/shamap.py with the Python merge only (no native
-pack or merge).
+the JAX package's state/shamap.py: the node pack (``encode_nodes``) and
+the write-set merge (``SHAMap.bulk_update``) run in C where this
+package's ``_stser`` extension builds (``native.load_stser``), else in
+Python, with the same bytes and roots. Unlike the JAX package, the
+native merge is given the ``Stub`` type on every tree, so a building
+tree over a lazy root (no source of its own, stubs inside) merges.
 """
 
 from __future__ import annotations
@@ -537,11 +541,29 @@ _PFX_INNER = HP_INNER_NODE.to_bytes(4, "big")
 _PFX_LEAF = {t: p.to_bytes(4, "big") for t, p in _LEAF_PREFIX.items()}
 
 
-def encode_nodes(nodes) -> tuple[bytes, list[int]]:
-    """Pack the prefix-format bytes of `nodes` (Leaf | Inner; inner
-    children must already carry hashes) into one contiguous buffer.
-    Returns (buffer, offsets[n+1]); node i's message is
-    buffer[offsets[i]:offsets[i+1]]."""
+def _resolve_native_pack():
+    """The C node pack (native/src/stser.cc ``pack_nodes``), or None:
+    the Python loop."""
+    from ..native import load_stser
+
+    return getattr(load_stser(), "pack_nodes", None)
+
+
+def _resolve_native_merge():
+    """The C write-set merge (``bulk_merge``) where it has its stub door
+    (its optional 5th argument, faulting stubs on the op path, probed
+    through the module's ``BULK_MERGE_STUB_DOOR``), else None: a library
+    without it leaves every tree that can hold a stub to the Python
+    merge."""
+    from ..native import load_stser
+
+    mod = load_stser()
+    if getattr(mod, "BULK_MERGE_STUB_DOOR", 0) < 1:
+        return None
+    return getattr(mod, "bulk_merge", None)
+
+
+def _encode_nodes_py(nodes) -> tuple[bytes, list[int]]:
     buf = bytearray()
     ext = buf.extend
     offsets = [0]
@@ -559,6 +581,19 @@ def encode_nodes(nodes) -> tuple[bytes, list[int]]:
                 ext(node.item.tag)
         app(len(buf))
     return bytes(buf), offsets
+
+
+def encode_nodes(nodes) -> tuple[bytes, list[int]]:
+    """Pack the prefix-format bytes of `nodes` (Leaf | Inner; inner
+    children must already carry hashes) into one contiguous buffer.
+    Returns (buffer, offsets[n+1]); node i's message is
+    buffer[offsets[i]:offsets[i+1]]."""
+    nodes = nodes if isinstance(nodes, list) else list(nodes)
+    pack = _resolve_native_pack()
+    if pack is not None:
+        return pack(nodes, int(HP_INNER_NODE), int(HP_TXN_ID),
+                    int(HP_TX_NODE), int(HP_LEAF_NODE))
+    return _encode_nodes_py(nodes)
 
 
 def compute_hashes(root, hash_batch: Callable = _default_hasher) -> int:
@@ -868,10 +903,16 @@ class SHAMap:
         if not ops:
             return 0
         sorted_ops = sorted(ops.items())
-        dels = [0] * (len(sorted_ops) + 1)
-        for i, (_k, leaf) in enumerate(sorted_ops):
-            dels[i + 1] = dels[i] + (leaf is None)
-        root = _bulk_merge(self.root, sorted_ops, 0, len(sorted_ops), 0, dels)
+        merge_c = _resolve_native_merge()
+        if merge_c is not None:
+            # every tree takes the stub door, not only one with a source:
+            # a building tree over a lazy root has none and holds stubs
+            root = merge_c(self.root, sorted_ops, Leaf, Inner, Stub)
+        else:
+            dels = [0] * (len(sorted_ops) + 1)
+            for i, (_k, leaf) in enumerate(sorted_ops):
+                dels[i + 1] = dels[i] + (leaf is None)
+            root = _bulk_merge(self.root, sorted_ops, 0, len(sorted_ops), 0, dels)
         self.root = self._normalize_root(root)
         return len(ops)
 

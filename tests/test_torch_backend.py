@@ -74,7 +74,10 @@ def test_chunked_cuda_verifier_matches_tpu_verifier():
     got = v.verify_batch(reqs)
     jreqs = [JaxVerifyRequest(p, m, s) for _, p, m, s in cases]
     want = TpuVerifier(min_batch=32, max_batch=32).verify_batch(jreqs)
-    assert np.array_equal(got, want)
+    # the port rejects a key whose y encoding is >= p, which the JAX
+    # kernel reduces mod p (tests/test_torch_native_host.py)
+    canonical = np.array([tref.key_is_canonical(p) for _, p, _, _ in cases])
+    assert np.array_equal(got, want & canonical) and int((want & ~canonical).sum()) == 1
     assert np.array_equal(got, _oracle(cases))
     assert v.transfers.uploads == v.transfers.readbacks == 3
     assert np.array_equal(CpuVerifier().verify_batch(reqs), got)

@@ -334,6 +334,66 @@ def test_native_loader_never_writes_under_native(tmp_path):
     assert after == before
 
 
+def test_host_libraries_build_into_the_build_dir_and_never_under_native(tmp_path):
+    """The native host code (the host crypto library and the ``_stser``
+    extension) builds with g++ into the port's build directory, never
+    with ``make`` and never under native/; each arm then runs (h prep,
+    the native verifier, the codec, the pack and the merge; the ``cpp``
+    hasher name too) with nothing of JAX imported; a status read before
+    the builds builds nothing."""
+    native = REPO / "native"
+    before = {p: (p.stat().st_size, p.stat().st_mtime_ns) for p in native.rglob("*")}
+    code = (
+        "import json, subprocess, sys\n"
+        "from pathlib import Path\n"
+        f"sys.path.insert(0, {str(REPO)!r})\n"
+        "ran = []\n"
+        "real_run = subprocess.run\n"
+        "def run(cmd, *a, **k):\n"
+        "    ran.append(Path(cmd[0]).name)\n"
+        "    return real_run(cmd, *a, **k)\n"
+        "subprocess.run = run\n"
+        "import stellard_tpu_torch.native as n\n"
+        f"n.BUILD_DIR = Path({str(tmp_path)!r})\n"
+        "unbuilt = (n.arms(), n.status())\n"
+        "status = n.build_all()\n"
+        "arms = n.arms()\n"
+        "from stellard_tpu_torch.crypto.backend import VerifyRequest, make_hasher, make_verifier\n"
+        "from stellard_tpu_torch.protocol.keys import KeyPair\n"
+        "from stellard_tpu_torch.protocol.stobject import STObject\n"
+        "from stellard_tpu_torch.protocol.sfields import sfSequence\n"
+        "from stellard_tpu_torch.state.shamap import SHAMap, SHAMapItem\n"
+        "from stellard_tpu_torch.ops.ed25519 import prepare_batch\n"
+        "k = KeyPair.from_passphrase('hygiene'); m = bytes(32); s = k.sign(m)\n"
+        "ok = bool(make_verifier('native').verify_batch([VerifyRequest(k.public, m, s)])[0])\n"
+        "h = prepare_batch([k.public], [m], [s])['h_bytes'].tobytes().hex()\n"
+        "o = STObject(); o[sfSequence] = 7\n"
+        "codec = STObject.from_bytes(o.serialize()).serialize() == o.serialize()\n"
+        "t = SHAMap(hash_batch=make_hasher('cpp'))\n"
+        "t.bulk_update([SHAMapItem(bytes([i]) * 32, b'v') for i in range(40)])\n"
+        "root = t.get_hash().hex()\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('stellard_tpu.')]\n"
+        "print(json.dumps([unbuilt, status, arms, ran, ok, codec, bad, len(root)]))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, env=env, cwd=str(REPO))
+    assert r.returncode == 0, r.stderr[-2000:]
+    unbuilt, status, arms, ran, ok, codec, bad, root_len = json.loads(
+        r.stdout.strip().splitlines()[-1])
+    assert bad == [] and "make" not in ran
+    assert unbuilt == [{"h_prep": False, "native_verify": False, "codec": False,
+                       "pack": False, "merge": False, "libraries": {}}, {}]
+    if all(not v.startswith("unavailable") for v in status.values()):
+        assert set(status) == {"nodestore", "host", "stser"}
+        for path in status.values():
+            assert Path(path).parent == tmp_path and Path(path).exists()
+        assert all(arms[k] for k in ("h_prep", "native_verify", "codec", "pack", "merge"))
+        assert ok and codec and root_len == 64
+    after = {p: (p.stat().st_size, p.stat().st_mtime_ns) for p in native.rglob("*")}
+    assert after == before
+
+
 def test_the_close_slice_adds_sqlite3_and_no_other_storage():
     """The default close's modules import nothing outside the package
     but the standard library's helpers and sqlite3 (the txdb's and the

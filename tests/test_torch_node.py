@@ -541,19 +541,12 @@ def test_load_change_publishes_server_status():
 
 def test_each_tx_verified_exactly_once(monkeypatch):
     """A tx verified at submit is not verified again at close: the port's
-    host verifications (its RFC 8032 oracle, under the cpu verify plane
-    and SerializedTransaction.check_sign alike) count one a transaction,
-    as the JAX node's do."""
-    from stellard_tpu_torch.ops import ed25519_ref
+    host verifications (keys.host_verifies: the cpu verify plane's
+    native batches and SerializedTransaction.check_sign alike) count one
+    a transaction, as the JAX node's do."""
+    from stellard_tpu_torch.protocol import keys
 
-    calls = {"n": 0}
-    orig = ed25519_ref.verify
-
-    def counting(*a, **kw):
-        calls["n"] += 1
-        return orig(*a, **kw)
-
-    monkeypatch.setattr(ed25519_ref, "verify", counting)
+    monkeypatch.setattr(keys, "host_verifies", 0)
     pk = PKG["stellard_tpu_torch"]
     node = make_node(pk)
     try:
@@ -565,7 +558,7 @@ def test_each_tx_verified_exactly_once(monkeypatch):
         node.close_ledger()
     finally:
         node.stop()
-    assert calls["n"] == 8, calls
+    assert keys.host_verifies == 8, keys.host_verifies
 
 
 # -- the config and the card ----------------------------------------------------
@@ -584,7 +577,7 @@ def test_config_defaults_to_cuda_and_refuses_unported_planes():
     assert (cfg.verify_mesh, cfg.hash_mesh, cfg.paths_mesh) == ("2", "auto", "4")
     for text in (
         "[signature_backend]\ntype=tpu", "[hash_backend]\ntype=tpu",
-        "[hash_backend]\ntype=cpp", "[signature_backend]\ntype=cpu\nmesh=2",
+        "[signature_backend]\ntype=cpp", "[signature_backend]\ntype=cpu\nmesh=2",
         "[hash_backend]\ntype=cuda\nmesh=wide", "[paths]\nmesh=-4",
         "[spec]\nworkers=lots", "[spec]\ntransport=tcp", "[kernel_tuning]\nKERNEL_TUNING.json",
         "[signature_backend]\ntype=cpu\nrouting=device",
@@ -594,6 +587,9 @@ def test_config_defaults_to_cuda_and_refuses_unported_planes():
             Config.from_ini(text)
     with pytest.raises(ValueError, match="type=cuda"):
         Config.from_ini("[signature_backend]\ntype=tpu")
+    # the host backends of the native host code parse as the JAX Config's
+    # (tests/test_torch_native_host.py holds each to its value)
+    assert Config.from_ini("[hash_backend]\ntype=cpp").hash_backend == "cpp"
     # the speculation pool's keys parse as the JAX Config's
     # (tests/test_torch_specring.py holds each to its value)
     from stellard_tpu.node.config import Config as JaxConfig

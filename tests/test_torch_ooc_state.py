@@ -12,8 +12,9 @@ tree it opened from a store, every shard store's counters, and every
 shard file it wrote, byte for byte.
 
 `test_mutation_byte_identity` switches the JAX package's native merge
-on and off, which the port does not have: its twin below runs the
-body on the port's Python merge against both JAX arms. Then each
+on and off: its twin below runs the body on both packages with their
+native merges off, then on (the port's through its own `_stser`
+build). Then each
 package opens, verifies and serves the other's shards and reads the
 other's account_tx rows; a lazy tree sealed by the port's hasher
 faults nothing; an eager load never takes a lazy node from the cache;
@@ -122,17 +123,19 @@ def test_twin_runs_cover_the_file():
 
 @pytest.mark.parametrize("jax_native", [False, True])
 def test_mutation_byte_identity_on_the_python_merge(jax_native, monkeypatch):
-    """test_mutation_byte_identity's body: on the port (which has only
-    the Python merge) and on the JAX package with its native merge off
-    or on, every root after each step and the faults equal."""
+    """test_mutation_byte_identity's body: on both packages with their
+    native merges off, then on, every root after each step and the
+    faults equal."""
     if jax_native:
         from stellard_tpu.native import load_stser
 
         if load_stser() is None:
             pytest.skip("the JAX package's native stser is not built here")
+        assert port_shamap._resolve_native_merge() is not None
     else:
         monkeypatch.setattr(jax_shamap, "_native_merge", None)
         monkeypatch.setattr(jax_shamap, "_native_resolved", True)
+        monkeypatch.setattr(port_shamap, "_resolve_native_merge", lambda: None)
     out = {}
     for pkg in ("jax", "port"):
         shamap, mod = PKG[pkg][0], TWIN[pkg]
@@ -314,8 +317,13 @@ def test_a_building_tree_over_a_lazy_root_merges_on_the_port():
     """The delta replay's building tree is a SHAMap over the lazy
     ledger's root, made without its source. The JAX package's native
     merge, told the tree is eager, fails on the first stub (its close
-    then absorbs a fold error and seals in full); the port's merge
-    faults the stubs on the op path and gives the eager tree's root."""
+    then absorbs a fold error and seals in full); the port's native
+    merge, given the stub door on every tree, faults the stubs on the
+    op path and gives the eager tree's root."""
+    from stellard_tpu_torch.native import load_stser
+
+    if load_stser() is not None:
+        assert port_shamap._resolve_native_merge() is not None
     out = {}
     for pkg in ("jax", "port"):
         shamap = PKG[pkg][0]

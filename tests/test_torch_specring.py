@@ -139,6 +139,27 @@ def test_one_package_reads_the_others_ring(writer, reader):
         w.destroy()
 
 
+@pytest.mark.parametrize("fault,reason", [("payload", "crc mismatch"),
+                                          ("doorbell", "doorbell rang on an empty ring")])
+def test_a_torn_slot_keeps_its_reason(fault, reason):
+    """A torn slot raises TornSlotError from recv, is counted, and its
+    reason stays on the channel (``torn_error``) for the pool's failure
+    report."""
+    r, w = port_ring.ring_pipe(capacity=1 << 12)
+    try:
+        if fault == "payload":
+            w.send(("end", 3))
+            r._ring.buf[port_ring._DATA_OFF + port_ring._HDR.size] ^= 0xFF
+        else:
+            os.write(w._fd, b"\x01")  # a doorbell byte with no record
+        with pytest.raises(port_ring.TornSlotError, match=reason):
+            r.recv()
+        assert r.counters["torn_slots"] == 1 and reason in r.torn_error
+    finally:
+        r.close()
+        w.destroy()
+
+
 @pytest.mark.parametrize("text", ["[spec]\nworkers=4", "[spec]\nworkers=auto",
                                   "[spec]\nworkers=2\nmode=thread\nmax_retries=5\n"
                                   "drain_timeout_s=2.5\ntransport=pipe"])

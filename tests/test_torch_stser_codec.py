@@ -5,8 +5,9 @@ transaction, a trust line, a directory node, transaction metadata):
 bit flips, truncations, length-field lies and splices. Every mutant goes
 through both packages' ``STObject.from_bytes``; each must accept or
 reject it alike, and an accepted object must serialize to the same bytes
-in both. The JAX package parses with its native ``_stser`` extension
-where that loads, the port in Python. Replay and the close parse every
+in both. Each package parses with its own native ``_stser`` extension
+where that loads; one chunk runs again with the port's switched off
+(``STELLARD_NATIVE_STSER=0``: its Python loops). Replay and the close parse every
 stored or submitted transaction through this codec, so one disagreement
 forks a node. Tolerance: zero (these are bytes).
 """
@@ -22,7 +23,9 @@ import pytest
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 
 import stser_fuzz  # noqa: E402
+import stellard_tpu_torch.protocol.stobject as port_stobject  # noqa: E402
 from stellard_tpu.protocol.stobject import STObject as JaxSTObject  # noqa: E402
+from stellard_tpu_torch.native import load_stser  # noqa: E402
 from stellard_tpu_torch.protocol.stobject import STObject  # noqa: E402
 
 CASES = 100_000
@@ -50,8 +53,7 @@ def test_seeds_round_trip_in_both():
         assert outcome(STObject, blob) == outcome(JaxSTObject, blob)
 
 
-@pytest.mark.parametrize("chunk", range(CHUNKS))
-def test_mutants_same_verdict_and_bytes(corpus, chunk):
+def same_verdict_and_bytes(corpus, chunk):
     size = CASES // CHUNKS
     disagree, accepted = [], 0
     for i in range(chunk * size, (chunk + 1) * size):
@@ -63,3 +65,24 @@ def test_mutants_same_verdict_and_bytes(corpus, chunk):
     assert disagree == []
     # the mutations reach past the envelope: both branches are taken
     assert 0 < accepted < size
+
+
+@pytest.mark.parametrize("chunk", range(CHUNKS))
+def test_mutants_same_verdict_and_bytes(corpus, chunk):
+    # the port's native codec is on wherever it builds
+    assert (port_stobject._get_stser() is not None) == (load_stser() is not None)
+    same_verdict_and_bytes(corpus, chunk)
+
+
+def test_mutants_same_verdict_and_bytes_with_the_native_codec_off(corpus, monkeypatch):
+    """Chunk 0 again, the port's switch read anew in this process: its
+    Python loops against the JAX package's codec."""
+    monkeypatch.setenv("STELLARD_NATIVE_STSER", "0")
+    port_stobject._reset_stser()
+    try:
+        assert port_stobject._get_stser() is None
+        same_verdict_and_bytes(corpus, 0)
+    finally:
+        monkeypatch.delenv("STELLARD_NATIVE_STSER")
+        port_stobject._reset_stser()
+        assert (port_stobject._get_stser() is not None) == (load_stser() is not None)

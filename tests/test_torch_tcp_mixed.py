@@ -399,11 +399,11 @@ def test_node_heartbeat_raises_the_overlays_device_error(tmp_path):
 
 
 def test_handshakes_are_counted_apart_from_host_verifies():
-    """Two port validators verifying on a cpu verify plane (the RFC 8032
-    oracle, which counts no host verify), a payment submitted at each:
-    every host verify the process makes while they connect, relay,
-    propose, validate and close is a hello's session signature, and each
-    overlay counted its own. The agreed set's transactions take their
+    """Two port validators verifying on a cpu verify plane (the native
+    verifier, which counts each signature of its batches), a payment
+    submitted at each: every host verify the process makes while they
+    connect, relay, propose, validate and close is a plane's or a
+    hello's session signature, and each overlay counted its own. The agreed set's transactions take their
     verdicts before the close apply, and the disputed ones re-checked on
     accept go to the plane in one batch, so no transactor and no re-check
     verifies a signature on the host."""
@@ -430,7 +430,8 @@ def test_handshakes_are_counted_apart_from_host_verifies():
             net.stop()
     counted = [ov.handshake_verifies for ov in net.overlays]
     assert all(n >= 1 for n in counted), counted
-    assert port_keys.host_verifies - before == sum(counted)
+    assert port_keys.host_verifies - before == sum(counted) + sum(
+        plane.verified for plane in net.planes)
 
 
 # -- a ledger out of the history cache -------------------------------------------
